@@ -1,0 +1,68 @@
+"""3D transform math (the GLM-equivalent layer), in PyTorch float32.
+
+The counterpart of ``based_renderer_tpu/math3d.py`` for what the demos
+need.  Matrices are (4, 4) float32 tensors with the column-vector
+convention ``M @ v``; batched transforms are ``verts @ M.T``.  Clip
+conventions: NDC x right, y down, z in [0, 1] (Vulkan style).
+Matrices are built on the CPU; the renderer moves uniforms to its device.
+"""
+
+from __future__ import annotations
+
+import torch
+
+F32 = torch.float32
+
+
+def _t(x) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=F32)
+
+
+def translate(v, m: torch.Tensor | None = None) -> torch.Tensor:
+    """GLM ``translate``: post-multiplies ``m`` by a translation by ``v``."""
+    t = torch.eye(4, dtype=F32)
+    t[:3, 3] = _t(v)
+    return t if m is None else _t(m) @ t
+
+
+def rotate(angle, axis, m: torch.Tensor | None = None) -> torch.Tensor:
+    """GLM ``rotate``: rotation by ``angle`` radians about ``axis``."""
+    angle = _t(angle)
+    axis = _t(axis)
+    axis = axis / torch.linalg.norm(axis)
+    x, y, z = axis[0], axis[1], axis[2]
+    c, s = torch.cos(angle), torch.sin(angle)
+    ic = 1.0 - c
+    zero, one = torch.zeros_like(c), torch.ones_like(c)
+    r = torch.stack(
+        [
+            torch.stack([c + x * x * ic, x * y * ic - z * s, x * z * ic + y * s, zero]),
+            torch.stack([y * x * ic + z * s, c + y * y * ic, y * z * ic - x * s, zero]),
+            torch.stack([z * x * ic - y * s, z * y * ic + x * s, c + z * z * ic, zero]),
+            torch.stack([zero, zero, zero, one]),
+        ]
+    )
+    return r if m is None else _t(m) @ r
+
+
+def perspective(fovy, aspect, z_near, z_far) -> torch.Tensor:
+    """Vulkan-convention perspective: y-down NDC, depth in [0, 1]."""
+    fovy = _t(fovy)
+    f = 1.0 / torch.tan(fovy / 2.0)
+    z_near = _t(z_near)
+    z_far = _t(z_far)
+    m = torch.zeros((4, 4), dtype=F32)
+    m[0, 0] = f / _t(aspect)
+    m[1, 1] = f
+    m[2, 2] = z_far / (z_far - z_near)
+    m[2, 3] = -(z_far * z_near) / (z_far - z_near)
+    m[3, 2] = 1.0
+    return m
+
+
+def transform_points(m: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Batched ``M @ [p, 1]`` for ``pts`` of shape (N, 3) or (N, 4)."""
+    pts = pts.to(F32)
+    if pts.shape[-1] == 3:
+        pts = torch.cat([pts, torch.ones((*pts.shape[:-1], 1), dtype=F32, device=pts.device)], -1)
+    return pts @ m.to(pts.device).T
