@@ -1,17 +1,20 @@
 """based_renderer_tpu_torch: the PyTorch + CUDA port of based_renderer_tpu.
 
-The port runs the renderer's main path (one opaque draw, no MSAA) with a
-hand-written Hopper raster kernel (``csrc/raster_tile.cu``) on CUDA
-tensors and its plain PyTorch version on CPU tensors.  It imports torch
-and never jax; the JAX package stays the reference it is tested against.
+The port runs the renderer's main path (one opaque draw, no MSAA) and the
+dense-mesh path (the 1M-triangle ``big_mesh`` and 10k-instance
+``instanced`` demos) with hand-written Hopper kernels on CUDA tensors
+(``csrc/raster_tile.cu``, ``csrc/raster_sublane.cu``,
+``csrc/assemble_records.cu``) and their plain PyTorch versions on CPU
+tensors.  It imports torch and never jax; the JAX package stays the
+reference it is tested against.
 
 Quick start::
 
     import based_renderer_tpu_torch as brt
 
     r = brt.Renderer(brt.RendererConfig(width=1920, height=1080))
-    pipe, mesh, uniforms, _ = brt.models.demos.cube_demo(r)
-    frame = r.render_frame(pipe, mesh, uniforms(0.0))
+    pipe, mesh, uniforms, instances = brt.demos.big_mesh_demo(r)
+    frame = r.render_frame(pipe, mesh, uniforms(0.0), instances=instances)
 """
 
 from . import convert, math3d, models, shader

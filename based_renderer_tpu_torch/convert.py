@@ -1,9 +1,10 @@
 """State carried across from numpy (and so from the JAX package).
 
-The renderer has no weights: its state is meshes, uniforms and pipeline
-state.  These helpers build the port's versions from plain numpy data,
-so one scene can be handed to both packages (a JAX array converts with
-``numpy.asarray``; a JAX pipeline with ``dataclasses.asdict``).
+The renderer has no weights: its state is meshes (indexed or not),
+instance tables, uniforms and pipeline state.  These helpers build the
+port's versions from plain numpy data, so one scene can be handed to both
+packages (a JAX array converts with ``numpy.asarray``; a JAX pipeline
+with ``dataclasses.asdict``).
 """
 
 from __future__ import annotations
@@ -52,6 +53,12 @@ def uniforms_from_numpy(tree, device="cpu"):
         return type(tree)(uniforms_from_numpy(v, device) for v in tree)
     t = torch.tensor(np.asarray(tree), device=device)
     return t.to(torch.float32) if t.is_floating_point() else t
+
+
+def instances_from_numpy(instances: dict, device="cpu") -> dict:
+    """Instance tables from numpy: (I, ...) float arrays, kept in shape (an
+    (I, 4, 4) transform stays (I, 4, 4); expand_instances flattens it)."""
+    return {k: torch.tensor(np.asarray(v, np.float32), device=device) for k, v in instances.items()}
 
 
 def _tuples(d: dict) -> dict:

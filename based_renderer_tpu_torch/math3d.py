@@ -60,6 +60,31 @@ def perspective(fovy, aspect, z_near, z_far) -> torch.Tensor:
     return m
 
 
+def look_at(eye, center, up) -> torch.Tensor:
+    """Right-handed look-at adapted to the left-handed projection: view-space
+    +z points from ``eye`` toward ``center``."""
+    eye, center, up = _t(eye), _t(center), _t(up)
+    fwd = center - eye
+    fwd = fwd / torch.linalg.norm(fwd)
+    right = torch.linalg.cross(up, fwd)
+    right = right / torch.linalg.norm(right)
+    true_up = torch.linalg.cross(fwd, right)
+    m = torch.eye(4, dtype=F32)
+    m[0, :3] = right
+    m[1, :3] = true_up
+    m[2, :3] = fwd
+    m[0, 3] = -torch.dot(right, eye)
+    m[1, 3] = -torch.dot(true_up, eye)
+    m[2, 3] = -torch.dot(fwd, eye)
+    return m
+
+
+def normal_matrix(model: torch.Tensor) -> torch.Tensor:
+    """Inverse-transpose upper-3x3 for transforming normals (no singularity
+    check, as in the JAX package: a singular model gives non-finite values)."""
+    return torch.linalg.inv_ex(model[:3, :3])[0].T
+
+
 def transform_points(m: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     """Batched ``M @ [p, 1]`` for ``pts`` of shape (N, 3) or (N, 4)."""
     pts = pts.to(F32)

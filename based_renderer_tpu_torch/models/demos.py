@@ -1,16 +1,20 @@
-"""The reference's two demos, as in ``based_renderer_tpu/models/demos.py``.
+"""The demo set of ``based_renderer_tpu/models/demos.py`` that the port runs.
 
 Each demo returns (pipeline, mesh, uniforms_fn, instances) where
 ``uniforms_fn(t)`` produces the per-frame uniforms at animation time ``t``.
+Pipelines are copied field for field from the JAX package; see its
+demos.py for the measurements behind each budget and raster knob.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .. import math3d
 from ..pipeline import DepthState, Pipeline
 from ..renderer import Renderer
+from ..utils.errors import FeatureNotPresentError
 from . import geometry
 
 
@@ -43,3 +47,91 @@ def cube_demo(r: Renderer, vertex_colors: bool = True):
         return {"model": model, "view": view, "proj": proj}
 
     return pipe, mesh, uniforms, None
+
+
+def instanced_demo(r: Renderer, count: int = 10_000):
+    """BASELINE config 4: a field of instanced cubes."""
+    data = geometry.cube_mesh_data()
+    mesh = r.upload_mesh(data["positions"])
+    transforms, colors = geometry.instanced_grid_transforms(count)
+    instances = {
+        "transform": torch.tensor(transforms.reshape(count, 16), device=r.device),
+        "instance_color": torch.tensor(colors, device=r.device),
+    }
+    pipe = Pipeline(
+        shader="instanced_color",
+        depth=DepthState(test=True, write=True, compare="less", clip=False),
+        cull_mode="back",
+        front_face="ccw",
+        near_clip=False,
+        raster_pairs_factor=1.2,
+        raster_sublane=True,
+        raster_group=32,
+        raster_assemble="pallas",
+        raster_slots_factor=0.6,
+        raster_tile=(128, 8),
+    )
+    aspect = r.config.width / r.config.height
+    extent = float(np.abs(transforms[:, :3, 3]).max()) + 2.0
+
+    def uniforms(t):
+        a = torch.tensor(t, dtype=torch.float32) * torch.tensor(0.3, dtype=torch.float32)
+        eye = torch.stack(
+            [torch.cos(a) * extent, torch.tensor(-extent * 0.6, dtype=torch.float32), torch.sin(a) * extent]
+        )
+        view = math3d.look_at(eye, (0.0, 0.0, 0.0), (0.0, -1.0, 0.0))
+        proj = math3d.perspective(np.radians(60.0), aspect, 0.1, extent * 4.0)
+        return {"view": view, "proj": proj}
+
+    return pipe, mesh, uniforms, instances
+
+
+def big_mesh_demo(r: Renderer, triangles: int = 1_000_000, generated: bool = False):
+    """BASELINE config 5: ~1M-triangle mesh with Blinn-Phong shading.
+
+    The budget tiers follow the JAX package: tight pair/slot factors for
+    ~1M tiny triangles at up to 2560 px wide without MSAA, a wide tier at
+    4K (or under MSAA), and the generous defaults at toy triangle counts.
+    """
+    if generated:
+        raise FeatureNotPresentError("generated meshes are not ported yet (ROADMAP A.13)")
+    data = geometry.procedural_mesh_data(triangles)
+    mesh = r.upload_mesh(data["positions"], indices=data["indices"], normal=data["normal"])
+    narrow = r.config.width <= 2560 and r.config.msaa == 1
+    pipe = Pipeline(
+        shader="blinn_phong",
+        depth=DepthState(test=True, write=True, compare="less"),
+        cull_mode="back",
+        front_face="ccw",
+        near_clip=False,
+        raster_pairs_factor=(1.15 if narrow else 1.4) if triangles >= 100_000 else 4.0,
+        raster_slots_factor=(0.6 if narrow else 0.9) if triangles >= 100_000 else None,
+        raster_sublane=True,
+        raster_group=64,
+        raster_tile=(128, 8),
+        raster_assemble="pallas",
+    )
+    aspect = r.config.width / r.config.height
+
+    def uniforms(t):
+        model = math3d.rotate(np.float32(t * 0.5), (0.0, -1.0, 0.0))
+        view = math3d.translate((0.0, 0.0, 2.2))
+        proj = math3d.perspective(np.radians(50.0), aspect, 0.1, 10.0)
+        return {
+            "model": model,
+            "view": view,
+            "proj": proj,
+            "light_pos": torch.tensor([3.0, -3.0, -3.0]),
+            "eye_pos": torch.tensor([0.0, 0.0, -2.2]),
+            "base_color": torch.tensor([0.55, 0.65, 0.8]),
+        }
+
+    return pipe, mesh, uniforms, None
+
+
+DEMOS = {
+    "triangle": triangle_demo,
+    "cube": cube_demo,
+    "instanced": instanced_demo,
+    "big_mesh": big_mesh_demo,
+}

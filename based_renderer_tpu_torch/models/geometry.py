@@ -3,8 +3,9 @@
 The reference hard-codes its geometry inside vertex shaders: a 3-vertex
 NDC triangle (src/triangle.slang:4-13 of the reference) and a 36-vertex
 unit cube, 6 faces x 2 triangles (src/cube.slang:12-61).  Here the same
-shapes are mesh data, copied from based_renderer_tpu/models/geometry.py
-(the procedural large meshes arrive with the dense-mesh slice).
+shapes are mesh data, copied from based_renderer_tpu/models/geometry.py,
+with the instanced cube field and the procedural dense mesh of the
+dense-mesh demos.
 """
 
 from __future__ import annotations
@@ -77,4 +78,96 @@ def cube_mesh_data(size: float = 1.0):
         "normal": np.stack(nrm),
         "uv": np.array(uv, np.float32),
         "color": np.stack(col),
+    }
+
+
+def instanced_grid_transforms(count: int, spacing: float = 2.5, seed: int = 0):
+    """Per-instance 4x4 transforms for a cube field (BASELINE config 4):
+    a sqrt(count)^2 grid with per-instance rotation and color."""
+    rng = np.random.default_rng(seed)
+    side = int(np.ceil(np.sqrt(count)))
+    xs, ys = np.meshgrid(np.arange(side), np.arange(side))
+    grid = np.stack([xs.ravel()[:count], ys.ravel()[:count]], axis=-1).astype(np.float32)
+    grid = (grid - grid.mean(axis=0)) * spacing
+    angles = rng.uniform(0, 2 * np.pi, count).astype(np.float32)
+    scales = rng.uniform(0.4, 0.9, count).astype(np.float32)
+    transforms = np.zeros((count, 4, 4), np.float32)
+    ca, sa = np.cos(angles), np.sin(angles)
+    transforms[:, 0, 0] = ca * scales
+    transforms[:, 0, 2] = sa * scales
+    transforms[:, 2, 0] = -sa * scales
+    transforms[:, 2, 2] = ca * scales
+    transforms[:, 1, 1] = scales
+    transforms[:, 0, 3] = grid[:, 0]
+    transforms[:, 1, 3] = rng.uniform(-1.0, 1.0, count).astype(np.float32)
+    transforms[:, 2, 3] = grid[:, 1]
+    transforms[:, 3, 3] = 1.0
+    colors = rng.uniform(0.2, 1.0, (count, 3)).astype(np.float32)
+    return transforms, colors
+
+
+def procedural_mesh_data(target_triangles: int = 1_000_000, seed: int = 0):
+    """A bunny/dragon-class dense mesh (BASELINE config 5): a displaced
+    torus-knot tube surface subdivided to ~target_triangles, with smooth
+    normals.  Deterministic; generated at f64 then cast to f32."""
+    # Tube around a (p, q) torus knot, displaced by harmonics for organic
+    # surface detail.  rings * segs quads -> 2 * rings * segs triangles.
+    rings = int(np.sqrt(target_triangles / 2 * 2))  # aspect ~2:1
+    segs = max(8, int(target_triangles / (2 * rings)))
+    p, q = 2, 3
+    t = np.linspace(0, 2 * np.pi, rings, endpoint=False, dtype=np.float64)
+    # Knot center curve.
+    r = 2.0 + np.cos(q * t)
+    cx = r * np.cos(p * t)
+    cy = r * np.sin(p * t)
+    cz = -np.sin(q * t)
+    center = np.stack([cx, cy, cz], axis=-1)  # (rings, 3)
+    # Frenet-ish frame.
+    d = np.roll(center, -1, axis=0) - np.roll(center, 1, axis=0)
+    tangent = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    up = np.array([0.0, 0.0, 1.0])
+    side = np.cross(tangent, up)
+    side /= np.linalg.norm(side, axis=-1, keepdims=True)
+    up2 = np.cross(side, tangent)
+    phi = np.linspace(0, 2 * np.pi, segs, endpoint=False, dtype=np.float64)
+    rng = np.random.default_rng(seed)
+    amp = rng.uniform(0.02, 0.08, 4)
+    freq = rng.integers(3, 9, 4)
+    radius = 0.45 + sum(
+        a * np.cos(f * phi)[None, :] * np.cos((i + 2) * t)[:, None]
+        for i, (a, f) in enumerate(zip(amp, freq))
+    )
+    ring_pts = (
+        center[:, None, :]
+        + radius[..., None]
+        * (np.cos(phi)[None, :, None] * side[:, None, :] + np.sin(phi)[None, :, None] * up2[:, None, :])
+    )  # (rings, segs, 3)
+    positions = ring_pts.reshape(-1, 3)
+
+    # Quad grid indices with wraparound in both directions.
+    ri = np.arange(rings)
+    si = np.arange(segs)
+    rr, ss = np.meshgrid(ri, si, indexing="ij")
+    v00 = rr * segs + ss
+    v01 = rr * segs + (ss + 1) % segs
+    v10 = ((rr + 1) % rings) * segs + ss
+    v11 = ((rr + 1) % rings) * segs + (ss + 1) % segs
+    tris = np.concatenate(
+        [np.stack([v00, v10, v11], -1).reshape(-1, 3), np.stack([v00, v11, v01], -1).reshape(-1, 3)]
+    ).astype(np.int32)
+
+    # Smooth normals: accumulate face normals at vertices.
+    e1 = positions[tris[:, 1]] - positions[tris[:, 0]]
+    e2 = positions[tris[:, 2]] - positions[tris[:, 0]]
+    fn = np.cross(e1, e2)
+    normals = np.zeros_like(positions)
+    for k in range(3):
+        np.add.at(normals, tris[:, k], fn)
+    normals /= np.maximum(np.linalg.norm(normals, axis=-1, keepdims=True), 1e-12)
+
+    scale = 1.0 / np.abs(positions).max()
+    return {
+        "positions": (positions * scale).astype(np.float32),
+        "normal": normals.astype(np.float32),
+        "indices": tris,
     }

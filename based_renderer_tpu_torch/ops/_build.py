@@ -1,10 +1,13 @@
 """Build and load the port's CUDA kernels at first use.
 
-Every ``csrc/*.cu`` source of the package is compiled by ``nvcc`` into one
-shared library with a plain C interface, loaded with ``ctypes``.  The
-library lands in ``build/torch_kernels/`` at the root of the checkout,
-named by a hash of the sources and flags, so an edit rebuilds and an
-unchanged tree reuses the earlier build.  Nothing here runs at import.
+Every ``csrc/*.cu`` source of the package is compiled by its own ``nvcc``
+process, all started together, and the objects are linked into one shared
+library with a plain C interface, loaded with ``ctypes``.  The library
+lands in ``build/torch_kernels/`` at the root of the checkout, named by a
+hash of the sources and flags, so an edit rebuilds and an unchanged tree
+reuses the earlier build.  The kernel wrappers check their operands and
+pass pointers and the current stream through the helpers here.  Nothing
+here runs at import.
 """
 
 from __future__ import annotations
@@ -24,7 +27,6 @@ NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
     "-O3",
-    "-shared",
     "-Xcompiler",
     "-fPIC",
     "-Xptxas",
@@ -70,23 +72,57 @@ def load() -> ctypes.CDLL:
         path = library_path()
         if not path.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            try:
-                cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp]
-                cmd += [str(s) for s in _sources()]
-                proc = subprocess.run(cmd, capture_output=True, text=True)
-                BUILD_LOG = proc.stdout + proc.stderr
-                if proc.returncode != 0:
-                    raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{BUILD_LOG}")
-                os.replace(tmp, path)  # atomic: a concurrent build never sees half a file
-            finally:
-                if os.path.exists(tmp):
-                    os.unlink(tmp)
+            with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+                BUILD_LOG = _compile_and_link(_nvcc(), Path(tmp), path)
         lib = ctypes.CDLL(str(path))
         _declare(lib)
         _lib = lib
         return lib
+
+
+def ptr(t) -> ctypes.c_void_p | None:
+    """A tensor's data pointer for a C entry point (None for null)."""
+    return None if t is None else ctypes.c_void_p(t.data_ptr())
+
+
+def stream(dev) -> ctypes.c_void_p:
+    """PyTorch's current CUDA stream on ``dev``, for a kernel launch."""
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+def check_operand(name, t, dtype, shape, dev):
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor on ``dev`` of
+    ``shape`` (None matches any extent)."""
+    if t.device != dev:
+        raise ValueError(f"{name} is on {t.device}, expected {dev}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.dim() != len(shape) or any(s is not None and s != d for s, d in zip(shape, t.shape)):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _run(cmds: list[list[str]]) -> str:
+    """Run commands concurrently; raise with their output if any fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    log = "".join(outs)
+    for p, out in zip(procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n{out}")
+    return log
+
+
+def _compile_and_link(nvcc: str, tmp: Path, path: Path) -> str:
+    objs = [tmp / (src.stem + ".o") for src in _sources()]
+    log = _run([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(o)] for src, o in zip(_sources(), objs)])
+    so = tmp / path.name
+    log += _run([[nvcc, "-shared", "-o", str(so), *map(str, objs)]])
+    os.replace(so, path)  # atomic: a concurrent build never sees half a file
+    return log
 
 
 def _declare(lib: ctypes.CDLL):
@@ -101,5 +137,29 @@ def _declare(lib: ctypes.CDLL):
         i, i, i, i, i,  # depth test, compare, write, clip mode, clear depth_q
         i,  # num_channels
         i, i, i, i, i,  # has_scissor, sx0, sy0, sx1, sy1
+        p,  # cudaStream_t
+    ]
+    lib.brt_raster_sublane.restype = i
+    lib.brt_raster_sublane.argtypes = [
+        p, p, i64,  # records, frecords, pair stride
+        p, p,  # tile_start, tile_count (one per bin)
+        p, p, p, p,  # init tri_id, depth_q, b0, b1 (or null)
+        p, p,  # out ints (2, H, W), out floats (4 + K, H, W)
+        i, i, i, i, i, i,  # width, height, tile_w, tile_h, num_tx, num_ty
+        i, i,  # banded, band_rows
+        i, i, i,  # depth compare, clip mode, clear depth_q
+        i,  # num_channels
+        i, i, i, i, i,  # has_scissor, sx0, sy0, sx1, sy1
+        p,  # cudaStream_t
+    ]
+    lib.brt_assemble_records.restype = i
+    lib.brt_assemble_records.argtypes = [
+        p, p, p,  # a, b, e
+        p, p, p,  # dzdx, dzdy, zshift
+        p, p, p,  # zq, xf, yf
+        p, p,  # gx, gy
+        p, i,  # planes, num_planes
+        p, p, p, p, i64,  # t_slot, ox, oy, total, id_offset
+        p, p, i64, i,  # records, frecords, num_slots, fw
         p,  # cudaStream_t
     ]

@@ -1,12 +1,15 @@
 """Triangle-to-tile binning for the tile rasterizer.
 
-The PyTorch counterpart of ``based_renderer_tpu/ops/binning.py`` with its
-``assemble="xla"``, ``tmpl="xla"`` semantics: expand each triangle into
-(tile, triangle) pairs over its clipped tile bounding box (a triangle's
-first tile directly, its extra tiles through a searchsorted expansion),
-order the pairs by (tile, triangle), and emit a field-major record stream
-re-anchored at each tile's origin.  The stream is bit-identical to the
-JAX binner's, tail slots included.
+The PyTorch counterpart of ``based_renderer_tpu/ops/binning.py``: expand
+each triangle into (tile, triangle) pairs over its clipped tile bounding
+box (a triangle's first tile directly, its extra tiles through a
+searchsorted expansion), order the pairs by (tile, triangle), and emit a
+field-major record stream re-anchored at each tile's origin.  The stream
+is bit-identical to the JAX binner's, tail slots included, under both
+assemblies: ``assemble="xla"`` (the plain assembly, a zero tail of
+SEGMENT_ALIGN slots) and ``assemble="pallas"`` (the CUDA kernel of
+``ops/binassem.py`` on CUDA tensors, over a stream padded to a multiple
+of 128 whose tail slots are assembled as invalid records).
 
 int records (int32, RECORD_WIDTH rows), per (tile, tri) pair:
   0..2   eb0..eb2   edge values at the tile-origin pixel center, clamped
@@ -30,10 +33,10 @@ from typing import NamedTuple
 import torch
 
 from ..utils.errors import FeatureNotPresentError
+from . import binassem
 from . import fixedpoint as fp
-from .setup import TriSetup, depth_tile_anchor
+from .binassem import RECORD_WIDTH, Templates
 
-RECORD_WIDTH = 16
 FRECORD_BASE = 9  # b0 plane, b1 plane, invw plane
 SEGMENT_ALIGN = 128  # zero tail appended to both record arrays
 
@@ -49,27 +52,98 @@ def ftid_col(num_channels: int) -> int:
     return FRECORD_BASE + 3 * num_channels
 
 
+def pallas_assembly_fits(num_channels: int) -> bool:
+    """Whether ``assemble="pallas"`` takes the kernel assembly for K channels.
+
+    The JAX package gathers a template row of 19 int and 2 + 3 * (3 + K)
+    float columns padded to a multiple of 64, and its Pallas assembly
+    takes rows of at most 128 (JAX binning.py:476); wider rows fall back
+    to the XLA layout there, and so they do here.
+    """
+    width = 19 + 2 + 3 * (3 + num_channels)
+    return -(-width // 64) * 64 <= 128
+
+
 class BinnedTriangles(NamedTuple):
-    records: torch.Tensor  # (RECORD_WIDTH, P + SEGMENT_ALIGN) int32
-    frecords: torch.Tensor  # (frecord_width(K), P + SEGMENT_ALIGN) float32
+    records: torch.Tensor  # (RECORD_WIDTH, P_pad) int32
+    frecords: torch.Tensor  # (frecord_width(K), P_pad) float32
     tile_start: torch.Tensor  # (num_tiles,) int32 first sorted slot of the tile
     tile_count: torch.Tensor  # (num_tiles,) int32 records of the tile
     num_pairs: torch.Tensor  # () int32 true pair count (pre-truncation)
     overflowed: torch.Tensor  # () bool true pair count exceeded the budget
 
 
+class PairStream(NamedTuple):
+    """The sorted pair stream before record assembly (the kernel's inputs)."""
+
+    tmpl: Templates
+    t_slot: torch.Tensor  # (P,) int64 triangle of each sorted slot
+    ox: torch.Tensor  # (P,) int64 tile-origin pixel x of each slot
+    oy: torch.Tensor  # (P,) int64
+    total: torch.Tensor  # () int64 live slots
+    tile_start: torch.Tensor  # (num_tiles,) int32
+    tile_count: torch.Tensor  # (num_tiles,) int32
+    num_pairs: torch.Tensor  # () int32
+    overflowed: torch.Tensor  # () bool
+
+
 def _check_modes(assemble: str, tmpl: str):
-    for knob, value, step in (("assemble", assemble, "B3"), ("tmpl", tmpl, "B8")):
-        if value == "pallas":
-            raise FeatureNotPresentError(
-                f"{knob}='pallas' is a TPU kernel not ported yet (ROADMAP queue B, {step})"
-            )
-        if value != "xla":
+    for knob, value in (("assemble", assemble), ("tmpl", tmpl)):
+        if value not in ("xla", "pallas"):
             raise ValueError(f"{knob} must be 'xla' or 'pallas', got {value!r}")
+    if tmpl == "pallas":
+        raise FeatureNotPresentError(
+            "tmpl='pallas' is a TPU kernel not ported yet (ROADMAP queue B, B8)"
+        )
 
 
-def bin_triangles(
-    ts: TriSetup,
+def _templates(ts, id_offset, channels, perspective) -> Templates:
+    """Per-triangle templates, anchored at the pixel-(0, 0) centre."""
+    dev = ts.valid.device
+    num_tris = ts.valid.shape[0]
+    i64 = torch.int64
+    origin = torch.full((num_tris, 1), fp.HALF_PIXEL, dtype=torch.int32, device=dev)
+    # Exact biased edge values at the pixel-(0, 0) center.
+    e = fp.edge_at_point_exact(ts.xf, ts.yf, ts.a, ts.b, origin, origin) + ts.bias.to(i64)
+
+    # Barycentric planes from the exact origin edge values.
+    inv_area = ts.inv_area
+    ef = fp.i64_to_f32(e)
+    af = ts.a.to(torch.float32)
+    bf = ts.b.to(torch.float32)
+    sc = fp.f32(fp.SUBPIXEL_SCALE, inv_area)
+    b0p = (ef[:, 1] * inv_area, af[:, 1] * sc * inv_area, bf[:, 1] * sc * inv_area)
+    b1p = (ef[:, 2] * inv_area, af[:, 2] * sc * inv_area, bf[:, 2] * sc * inv_area)
+    b2p = (1.0 - (b0p[0] + b1p[0]), -(b0p[1] + b1p[1]), -(b0p[2] + b1p[2]))
+
+    def plane_of(q):  # (T, 3) per-vertex values -> plane triple
+        return [q[:, 0] * b0p[i] + q[:, 1] * b1p[i] + q[:, 2] * b2p[i] for i in range(3)]
+
+    iw = ts.inv_w
+    planes = list(b0p) + list(b1p) + plane_of(iw)
+    if channels is not None:
+        ch = channels * iw[:, :, None] if perspective else channels
+        for kk in range(channels.shape[-1]):
+            planes += plane_of(ch[:, :, kk])
+    return Templates(
+        a=ts.a.contiguous(),
+        b=ts.b.contiguous(),
+        e=e.contiguous(),
+        dzdx=ts.dzdx_q.contiguous(),
+        dzdy=ts.dzdy_q.contiguous(),
+        zshift=ts.zshift.contiguous(),
+        zq=ts.zq.contiguous(),
+        xf=ts.xf.contiguous(),
+        yf=ts.yf.contiguous(),
+        gx=ts.gx.contiguous(),
+        gy=ts.gy.contiguous(),
+        planes=torch.stack(planes, dim=1),
+        id_offset=int(id_offset),
+    )
+
+
+def pair_stream(
+    ts,
     width: int,
     height: int,
     tile_w: int = 128,
@@ -79,44 +153,21 @@ def bin_triangles(
     channels: torch.Tensor | None = None,
     perspective: bool = True,
     slots: int | None = None,
-    assemble: str = "xla",
-    tmpl: str = "xla",
-) -> BinnedTriangles:
-    """Bin triangles into screen tiles (tile dims must divide 128).
+    col_major_ids: bool = False,
+    anchor_rows: int | None = None,
+) -> PairStream:
+    """Expand, sort and cut the (tile, triangle) pairs; see bin_triangles.
 
-    ``max_pairs`` bounds the expansion stream (default max(4T, 1024)):
-    the first tile of every live triangle always has a slot, and extra
-    tiles beyond ``max_pairs - T`` are dropped with ``overflowed`` set.
-    ``slots`` cuts the sorted stream to a static budget (rounded up to a
-    multiple of 128); a cut that drops live pairs sets ``overflowed`` too.
-    ``channels`` are (T, 3, K) per-vertex varyings interpolated as planes
-    (divided by w first when ``perspective``).
+    Needs at least one triangle.
     """
-    _check_modes(assemble, tmpl)
-    for d in (tile_w, tile_h):
-        if d <= 0 or 128 % d:
-            raise ValueError(f"tile dims must divide 128, got {(tile_w, tile_h)}")
     dev = ts.valid.device
     i64 = torch.int64
     num_tx = -(-width // tile_w)
     num_ty = -(-height // tile_h)
     num_tiles = num_tx * num_ty
     num_tris = ts.valid.shape[0]
-    nch = 0 if channels is None else channels.shape[-1]
     if max_pairs is None:
         max_pairs = max(4 * num_tris, 1024)
-    fw = frecord_width(nch)
-    if num_tris == 0:
-        padded = max_pairs + SEGMENT_ALIGN
-        zeros_i = torch.zeros((num_tiles,), dtype=torch.int32, device=dev)
-        return BinnedTriangles(
-            records=torch.zeros((RECORD_WIDTH, padded), dtype=torch.int32, device=dev),
-            frecords=torch.zeros((fw, padded), dtype=torch.float32, device=dev),
-            tile_start=zeros_i,
-            tile_count=zeros_i.clone(),
-            num_pairs=torch.zeros((), dtype=torch.int32, device=dev),
-            overflowed=torch.zeros((), dtype=torch.bool, device=dev),
-        )
 
     # ---- pair expansion (first-tile / extras split) ----------------------
     bbox = ts.bbox.to(i64)
@@ -134,8 +185,13 @@ def bin_triangles(
     bh = torch.where(live, y1 - y0 + 1, 0)
     k = bw * bh
 
+    def tile_id(tx, ty):
+        # Column-major ids keep the bands of one raster tile contiguous
+        # in the sorted stream (band binning); row-major otherwise.
+        return tx * num_ty + ty if col_major_ids else ty * num_tx + tx
+
     num_valid_pairs = live.sum()
-    first_tile = torch.where(live, y0 * num_tx + x0, num_tiles)
+    first_tile = torch.where(live, tile_id(x0, y0), num_tiles)
     tri_ids = torch.arange(num_tris, dtype=i64, device=dev)
 
     extra_budget = max(max_pairs - num_tris, 0)
@@ -154,7 +210,7 @@ def bin_triangles(
     bw_o = bw.clamp_min(1)[owner]
     e_tile_y = y0[owner] + torch.div(seq, bw_o, rounding_mode="floor")
     e_tile_x = x0[owner] + torch.remainder(seq, bw_o)
-    e_tile = torch.where(extra_idx < total_extra, e_tile_y * num_tx + e_tile_x, num_tiles)
+    e_tile = torch.where(extra_idx < total_extra, tile_id(e_tile_x, e_tile_y), num_tiles)
 
     # One sort on the int64 key (tile << 32) | tri: tri is the draw order,
     # and live keys are unique, so the order comes from the keys alone.
@@ -170,99 +226,121 @@ def bin_triangles(
             key = key[:slots]
             overflowed = overflowed | (true_pairs > slots)
             total = total.clamp_max(slots)
-            stream_len = slots
     tile_sorted = key >> 32
     t_slot = key & 0xFFFFFFFF
 
     tile_range = torch.arange(num_tiles, dtype=i64, device=dev)
     tile_start = torch.searchsorted(tile_sorted, tile_range)
     tile_end = torch.searchsorted(tile_sorted, tile_range, right=True)
-    count = tile_end - tile_start
 
-    invalid = torch.arange(stream_len, dtype=i64, device=dev) >= total
     slot_tile = tile_sorted.clamp(0, num_tiles - 1)
-    ox = torch.remainder(slot_tile, num_tx) * tile_w  # tile-origin pixel
-    oy = torch.div(slot_tile, num_tx, rounding_mode="floor") * tile_h
+    if col_major_ids:
+        s_tile_x = torch.div(slot_tile, num_ty, rounding_mode="floor")
+        s_tile_y = torch.remainder(slot_tile, num_ty)
+    else:
+        s_tile_x = torch.remainder(slot_tile, num_tx)
+        s_tile_y = torch.div(slot_tile, num_tx, rounding_mode="floor")
+    ox = s_tile_x * tile_w  # tile-origin pixel
+    if anchor_rows is not None:
+        # Anchor at the OUTPUT tile holding this band, so band-binned record
+        # contents (f32 planes included) equal the unbanded stream's.
+        if anchor_rows % tile_h:
+            raise ValueError(f"anchor_rows {anchor_rows} must be a multiple of tile_h {tile_h}")
+        oy = torch.div(s_tile_y, anchor_rows // tile_h, rounding_mode="floor") * anchor_rows
+    else:
+        oy = s_tile_y * tile_h
 
-    # ---- per-slot record assembly from per-triangle templates ------------
-    a = ts.a.to(i64)
-    b = ts.b.to(i64)
-    origin = torch.full((num_tris, 1), fp.HALF_PIXEL, dtype=torch.int32, device=dev)
-    # Exact biased edge values at the pixel-(0, 0) center.
-    e = fp.edge_at_point_exact(ts.xf, ts.yf, a, b, origin, origin) + ts.bias.to(i64)
-    a_s, b_s, e_s = a[t_slot], b[t_slot], e[t_slot]
-    eb = (e_s + a_s * (ox * fp.SUBPIXEL_SCALE)[:, None] + b_s * (oy * fp.SUBPIXEL_SCALE)[:, None])
-    eb = eb.clamp(-fp.ANCHOR_CLAMP, fp.ANCHOR_CLAMP)
-
-    dzx = ts.dzdx_q[t_slot].to(i64)
-    dzy = ts.dzdy_q[t_slot].to(i64)
-    zshift = ts.zshift[t_slot]
-    can_x = torch.div(ox, fp.DEPTH_TILE, rounding_mode="floor") * fp.DEPTH_TILE
-    can_y = torch.div(oy, fp.DEPTH_TILE, rounding_mode="floor") * fp.DEPTH_TILE
-    z_can = depth_tile_anchor(
-        ts.zq[t_slot, 0],
-        ts.xf[t_slot, 0].to(i64),
-        ts.yf[t_slot, 0].to(i64),
-        ts.gx[t_slot],
-        ts.gy[t_slot],
-        zshift,
-        can_x,
-        can_y,
+    return PairStream(
+        tmpl=_templates(ts, id_offset, channels, perspective),
+        t_slot=t_slot,
+        ox=ox,
+        oy=oy,
+        total=total,
+        tile_start=tile_start.to(torch.int32),
+        tile_count=(tile_end - tile_start).to(torch.int32),
+        num_pairs=true_pairs.to(torch.int32),
+        overflowed=overflowed,
     )
-    zo = z_can + dzx * (ox - can_x) + dzy * (oy - can_y)
-    tid = t_slot + int(id_offset)
 
-    # Invalid slots: coverage impossible (edge very negative, steps 0).
-    inv = invalid[:, None]
-    scale = fp.SUBPIXEL_SCALE
-    rec = torch.cat(
-        [
-            torch.where(inv, -(1 << 30), eb),
-            torch.where(inv, 0, a_s * scale),
-            torch.where(inv, 0, b_s * scale),
-            torch.stack([zo, dzx, dzy, zshift.to(i64), tid], dim=1),
-        ],
-        dim=1,
+
+def padded_slots(ps: PairStream):
+    """(t_slot, ox, oy) zero-padded to the kernel assembly's stream length,
+    a multiple of 128 with at least SEGMENT_ALIGN tail slots."""
+    n = ps.t_slot.shape[0]
+    pad = -(-(n + SEGMENT_ALIGN) // 128) * 128 - n
+    return tuple(torch.nn.functional.pad(x, (0, pad)) for x in (ps.t_slot, ps.ox, ps.oy))
+
+
+def bin_triangles(
+    ts,
+    width: int,
+    height: int,
+    tile_w: int = 128,
+    tile_h: int = 32,
+    max_pairs: int | None = None,
+    id_offset: int = 0,
+    channels: torch.Tensor | None = None,
+    perspective: bool = True,
+    slots: int | None = None,
+    assemble: str = "xla",
+    tmpl: str = "xla",
+    col_major_ids: bool = False,
+    anchor_rows: int | None = None,
+) -> BinnedTriangles:
+    """Bin triangles into screen tiles (tile dims must divide 128).
+
+    ``max_pairs`` bounds the expansion stream (default max(4T, 1024)):
+    the first tile of every live triangle always has a slot, and extra
+    tiles beyond ``max_pairs - T`` are dropped with ``overflowed`` set.
+    ``slots`` cuts the sorted stream to a static budget (rounded up to a
+    multiple of 128); a cut that drops live pairs sets ``overflowed`` too.
+    ``channels`` are (T, 3, K) per-vertex varyings interpolated as planes
+    (divided by w first when ``perspective``).  ``col_major_ids`` and
+    ``anchor_rows`` serve band binning (see the JAX package's binner):
+    column-major tile ids, and records anchored at the enclosing output
+    tile of ``anchor_rows`` pixel rows.
+    """
+    _check_modes(assemble, tmpl)
+    for d in (tile_w, tile_h):
+        if d <= 0 or 128 % d:
+            raise ValueError(f"tile dims must divide 128, got {(tile_w, tile_h)}")
+    dev = ts.valid.device
+    num_tiles = -(-width // tile_w) * -(-height // tile_h)
+    num_tris = ts.valid.shape[0]
+    nch = 0 if channels is None else channels.shape[-1]
+    if max_pairs is None:
+        max_pairs = max(4 * num_tris, 1024)
+    fw = frecord_width(nch)
+    if num_tris == 0:
+        padded = max_pairs + SEGMENT_ALIGN
+        zeros_i = torch.zeros((num_tiles,), dtype=torch.int32, device=dev)
+        return BinnedTriangles(
+            records=torch.zeros((RECORD_WIDTH, padded), dtype=torch.int32, device=dev),
+            frecords=torch.zeros((fw, padded), dtype=torch.float32, device=dev),
+            tile_start=zeros_i,
+            tile_count=zeros_i.clone(),
+            num_pairs=torch.zeros((), dtype=torch.int32, device=dev),
+            overflowed=torch.zeros((), dtype=torch.bool, device=dev),
+        )
+
+    ps = pair_stream(
+        ts, width, height, tile_w, tile_h, max_pairs, id_offset, channels, perspective,
+        slots, col_major_ids, anchor_rows,
     )
-    records = torch.zeros((RECORD_WIDTH, stream_len + SEGMENT_ALIGN), dtype=torch.int32, device=dev)
-    records[:14, :stream_len] = rec.T.to(torch.int32)
-
-    # Barycentric planes anchored at the pixel-(0, 0) center, from the
-    # exact origin edge values; then re-anchored at the tile origin.
-    inv_area = ts.inv_area
-    ef = fp.i64_to_f32(e)
-    af = ts.a.to(torch.float32)
-    bf = ts.b.to(torch.float32)
-    sc = fp.f32(fp.SUBPIXEL_SCALE, inv_area)
-    b0p = (ef[:, 1] * inv_area, af[:, 1] * sc * inv_area, bf[:, 1] * sc * inv_area)
-    b1p = (ef[:, 2] * inv_area, af[:, 2] * sc * inv_area, bf[:, 2] * sc * inv_area)
-    b2p = (1.0 - (b0p[0] + b1p[0]), -(b0p[1] + b1p[1]), -(b0p[2] + b1p[2]))
-
-    def plane_of(q):  # (T, 3) per-vertex values -> plane triple
-        return [q[:, 0] * b0p[i] + q[:, 1] * b1p[i] + q[:, 2] * b2p[i] for i in range(3)]
-
-    iw = ts.inv_w
-    planes = list(b0p) + list(b1p) + plane_of(iw)
-    if channels is not None:
-        ch = channels * iw[:, :, None] if perspective else channels
-        for kk in range(nch):
-            planes += plane_of(ch[:, :, kk])
-    tmpl_f = torch.stack(planes, dim=0)[:, t_slot]  # (9 + 3K, stream)
-    oxf = ox.to(torch.float32)
-    oyf = oy.to(torch.float32)
-    frecords = torch.zeros((fw, stream_len + SEGMENT_ALIGN), dtype=torch.float32, device=dev)
-    for p in range(3 + nch):  # b0, b1, invw, channels...
-        p00, pdx, pdy = tmpl_f[3 * p], tmpl_f[3 * p + 1], tmpl_f[3 * p + 2]
-        frecords[3 * p, :stream_len] = p00 + pdx * oxf + pdy * oyf
-        frecords[3 * p + 1, :stream_len] = pdx
-        frecords[3 * p + 2, :stream_len] = pdy
-    frecords[ftid_col(nch), :stream_len] = tid.to(torch.float32)
-
+    if assemble == "pallas" and pallas_assembly_fits(nch):
+        records, frecords = binassem.assemble_records(ps.tmpl, *padded_slots(ps), ps.total, fw)
+    else:
+        records, frecords = binassem.assemble_records_reference(
+            ps.tmpl, ps.t_slot, ps.ox, ps.oy, ps.total, fw
+        )
+        tail = (0, SEGMENT_ALIGN)
+        records = torch.nn.functional.pad(records, tail)
+        frecords = torch.nn.functional.pad(frecords, tail)
     return BinnedTriangles(
         records=records,
         frecords=frecords,
-        tile_start=tile_start.to(torch.int32),
-        tile_count=count.to(torch.int32),
-        num_pairs=true_pairs.to(torch.int32),
-        overflowed=overflowed,
+        tile_start=ps.tile_start,
+        tile_count=ps.tile_count,
+        num_pairs=ps.num_pairs,
+        overflowed=ps.overflowed,
     )

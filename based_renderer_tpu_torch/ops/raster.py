@@ -1,33 +1,42 @@
-"""Tile-binned visibility rasterizer: the CUDA kernel and its plain version.
+"""Tile-binned visibility rasterizers: the CUDA kernels and their plain versions.
 
 The PyTorch counterpart of ``based_renderer_tpu/ops/raster_pallas.py``
-(``rasterize_vis_pallas`` / ``rasterize_binned`` with the sequential
-``_raster_kernel``) and of ``raster_xla.VisBuffer``.  ``rasterize_binned``
-launches the hand-written Hopper kernel (``csrc/raster_tile.cu``) on CUDA
-tensors and runs the plain PyTorch version, ``rasterize_binned_reference``,
-on CPU tensors.  Both return the same planes bit for bit: tri_id and
-depth_q are integer arithmetic, and every float plane is evaluated as
-(p0 + pdx*ix) + pdy*iy in single IEEE operations.
-
-Per pixel, the winner is the last record of the tile (in draw order)
-that covers the pixel and passes the depth test; its planes are
-evaluated once at the end (see the kernel's header note).
+(``rasterize_vis_pallas`` / ``rasterize_binned``) and of
+``raster_xla.VisBuffer``.  Two kernels serve ``rasterize_binned``:
+  * the sequential per-tile raster (``_raster_kernel`` on the TPU,
+    ``csrc/raster_tile.cu`` here): per pixel, the winner is the last record
+    of the tile, in draw order, that covers the pixel and passes the depth
+    test; its plain version is ``rasterize_binned_reference``;
+  * the order-independent sublane raster (``_raster_kernel_sublane``,
+    ``csrc/raster_sublane.cu``), for depth test + write with an ordered
+    compare: per pixel, the nearest covering record, ties to the earliest
+    record under strict compares and the latest under the ``*_equal``
+    ones, then held against the init depth; its plain version is
+    ``rasterize_binned_sublane_reference``, written as a per-pixel
+    reduction over (record, pixel) keys.
+CUDA tensors launch the kernels, CPU tensors take the plain versions.
+Each pair returns the same planes bit for bit: tri_id and depth_q are
+integer arithmetic, and every float plane of the winner is evaluated once
+as (p0 + pdx*ix) + pdy*iy in single IEEE operations.
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import torch
 
 from ..utils.errors import FeatureNotPresentError
+from . import _build
 from . import fixedpoint as fp
 from .binning import bin_triangles
 from .setup import TriSetup
 
-#: Launches of the CUDA raster kernel in this process (main-path proof).
+#: Launches of the sequential raster kernel (csrc/raster_tile.cu) in this
+#: process (main-path proof).
 KERNEL_LAUNCHES = 0
+#: Launches of the sublane raster kernel (csrc/raster_sublane.cu).
+SUBLANE_LAUNCHES = 0
 
 _COMPARE_OPS = (
     "never",
@@ -39,6 +48,7 @@ _COMPARE_OPS = (
     "greater_equal",
     "always",
 )
+_ORDERED_OPS = ("less", "less_equal", "greater", "greater_equal")
 
 
 class VisBuffer(NamedTuple):
@@ -66,17 +76,46 @@ def _clip_mode(depth_clip) -> int:
     return 1 if depth_clip else 0
 
 
-def _check_slice(stencil, two_pass, msaa4, batch, sublane, bin_rows):
+def _stencil_on(stencil) -> bool:
+    return stencil is not None and getattr(stencil, "enable", True)
+
+
+def _check_slice(stencil, two_pass, msaa4, batch):
     for knob, on, step in (
-        ("stencil", stencil is not None and getattr(stencil, "enable", True), "A.10"),
+        ("stencil", _stencil_on(stencil), "A.10"),
         ("msaa4", msaa4, "A.9 and queue B4/B5"),
         ("two_pass", two_pass, "queue B6"),
         ("batch", batch, "queue B7"),
-        ("sublane", sublane, "A.8 and queue B2"),
-        ("bin_rows", bin_rows is not None, "A.8 and queue B2"),
     ):
         if on:
             raise FeatureNotPresentError(f"{knob} rasterization is not ported yet (ROADMAP {step})")
+
+
+def _check_sublane(sublane, sublane_group, bin_rows, tile_w, tile_h, depth_test, depth_write,
+                   depth_compare, stencil, two_pass, batch):
+    """The JAX package's ValueErrors for the sublane route (raster_pallas.py:1946-1976)."""
+    if bin_rows is not None and not sublane:
+        raise ValueError("bin_rows (sub-tile band binning) requires the sublane kernel")
+    if not sublane:
+        return
+    if not (
+        depth_test
+        and depth_write
+        and depth_compare in _ORDERED_OPS
+        and not _stencil_on(stencil)
+        and not two_pass
+        and not batch
+    ):
+        raise ValueError(
+            "sublane rasterization requires depth test+write with an "
+            "ordered compare and no stencil/two_pass/batch"
+        )
+    if tile_w != 128:
+        raise ValueError("sublane rasterization requires tile_w == 128")
+    if sublane_group % 8 or 128 % sublane_group:
+        raise ValueError(f"sublane_group must be a multiple of 8 dividing 128, got {sublane_group}")
+    if bin_rows is not None and (bin_rows <= 0 or tile_h % bin_rows):
+        raise ValueError(f"bin_rows {bin_rows} must divide tile_h {tile_h}")
 
 
 def _check_tile(tile_w: int, tile_h: int):
@@ -224,8 +263,38 @@ def _compare(op: str, z, zbuf):
     }[op](z, zbuf)
 
 
-def _ptr(t: torch.Tensor | None):
-    return None if t is None else ctypes.c_void_p(t.data_ptr())
+def _kernel_operands(binned, width, height, num_bins, num_channels, init):
+    """Check what a raster kernel reads; returns the init planes (or Nones)."""
+    records, frecords = binned.records, binned.frecords
+    dev = records.device
+    stride = records.shape[1]
+    for name, t, dtype, shape in (
+        ("records", records, torch.int32, (None, stride)),
+        ("frecords", frecords, torch.float32, (None, stride)),
+        ("tile_start", binned.tile_start, torch.int32, (num_bins,)),
+        ("tile_count", binned.tile_count, torch.int32, (num_bins,)),
+    ):
+        _build.check_operand(name, t, dtype, shape, dev)
+    if records.shape[0] < 14:
+        raise ValueError(f"records need at least 14 rows, got {records.shape[0]}")
+    if frecords.shape[0] < 9 + 3 * num_channels:
+        raise ValueError(
+            f"frecords have {frecords.shape[0]} rows; {num_channels} channels need {9 + 3 * num_channels}"
+        )
+    if init is None:
+        return [None] * 5
+    init_t = [init.tri_id, init.depth_q, init.b0, init.b1, init.b2]
+    for name, t, dtype in zip(
+        ("tri_id", "depth_q", "b0", "b1", "b2"), init_t, (torch.int32,) * 2 + (torch.float32,) * 3
+    ):
+        _build.check_operand("init." + name, t, dtype, (height, width), dev)
+    return init_t
+
+
+def _outputs(width, height, num_channels, dev):
+    ints = torch.empty((2, height, width), dtype=torch.int32, device=dev)
+    floats = torch.empty((4 + num_channels, height, width), dtype=torch.float32, device=dev)
+    return ints, floats
 
 
 def _raster_planes_kernel(
@@ -245,47 +314,22 @@ def _raster_planes_kernel(
 ):
     """Launch csrc/raster_tile.cu; returns (ints (2, H, W), floats (4 + K, H, W))."""
     global KERNEL_LAUNCHES
-    from . import _build
-
-    records, frecords = binned.records, binned.frecords
-    dev = records.device
-    stride = records.shape[1]
+    dev = binned.records.device
     num_tx = -(-width // tile_w)
     num_tiles = num_tx * -(-height // tile_h)
-    for name, t, dtype, shape in (
-        ("records", records, torch.int32, (None, stride)),
-        ("frecords", frecords, torch.float32, (None, stride)),
-        ("tile_start", binned.tile_start, torch.int32, (num_tiles,)),
-        ("tile_count", binned.tile_count, torch.int32, (num_tiles,)),
-    ):
-        _check_operand(name, t, dtype, shape, dev)
-    if records.shape[0] < 14:
-        raise ValueError(f"records need at least 14 rows, got {records.shape[0]}")
-    if frecords.shape[0] < 9 + 3 * num_channels:
-        raise ValueError(
-            f"frecords have {frecords.shape[0]} rows; {num_channels} channels need {9 + 3 * num_channels}"
-        )
-    init_t = [None] * 5
-    if init is not None:
-        init_t = [init.tri_id, init.depth_q, init.b0, init.b1, init.b2]
-        for name, t, dtype in zip(
-            ("tri_id", "depth_q", "b0", "b1", "b2"), init_t, (torch.int32,) * 2 + (torch.float32,) * 3
-        ):
-            _check_operand("init." + name, t, dtype, (height, width), dev)
-    ints = torch.empty((2, height, width), dtype=torch.int32, device=dev)
-    floats = torch.empty((4 + num_channels, height, width), dtype=torch.float32, device=dev)
+    init_t = _kernel_operands(binned, width, height, num_tiles, num_channels, init)
+    ints, floats = _outputs(width, height, num_channels, dev)
     sc = (0, 0, 0, 0) if scissor is None else tuple(int(v) for v in scissor)
-    lib = _build.load()
-    rc = lib.brt_raster_tile(
-        _ptr(records),
-        _ptr(frecords),
-        stride,
-        _ptr(binned.tile_start),
-        _ptr(binned.tile_count),
+    rc = _build.load().brt_raster_tile(
+        _build.ptr(binned.records),
+        _build.ptr(binned.frecords),
+        binned.records.shape[1],
+        _build.ptr(binned.tile_start),
+        _build.ptr(binned.tile_count),
         num_tiles,
-        *[_ptr(t) for t in init_t],
-        _ptr(ints),
-        _ptr(floats),
+        *[_build.ptr(t) for t in init_t],
+        _build.ptr(ints),
+        _build.ptr(floats),
         width,
         height,
         tile_w,
@@ -299,7 +343,7 @@ def _raster_planes_kernel(
         num_channels,
         int(scissor is not None),
         *sc,
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+        _build.stream(dev),
     )
     if rc != 0:
         raise RuntimeError(f"raster_tile kernel launch failed: cudaError {rc}")
@@ -307,19 +351,166 @@ def _raster_planes_kernel(
     return ints, floats
 
 
-def _check_operand(name, t, dtype, shape, dev):
-    if t.device != dev:
-        raise ValueError(f"{name} is on {t.device}, expected {dev}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if t.dim() != len(shape) or any(s is not None and s != d for s, d in zip(shape, t.shape)):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+def _sublane_planes_kernel(
+    binned, width, height, tile_w, tile_h, depth_compare, clip_mode, clear_q, init, num_channels,
+    scissor, bin_rows,
+):
+    """Launch csrc/raster_sublane.cu; returns (ints (2, H, W), floats (4 + K, H, W))."""
+    global SUBLANE_LAUNCHES
+    dev = binned.records.device
+    num_tx = -(-width // tile_w)
+    num_ty = -(-height // tile_h)
+    band_rows = tile_h if bin_rows is None else bin_rows
+    num_bins = num_tx * num_ty * (tile_h // band_rows)
+    init_t = _kernel_operands(binned, width, height, num_bins, num_channels, init)
+    ints, floats = _outputs(width, height, num_channels, dev)
+    sc = (0, 0, 0, 0) if scissor is None else tuple(int(v) for v in scissor)
+    rc = _build.load().brt_raster_sublane(
+        _build.ptr(binned.records),
+        _build.ptr(binned.frecords),
+        binned.records.shape[1],
+        _build.ptr(binned.tile_start),
+        _build.ptr(binned.tile_count),
+        *[_build.ptr(t) for t in init_t[:4]],  # b2 is derived from b0, b1
+        _build.ptr(ints),
+        _build.ptr(floats),
+        width,
+        height,
+        tile_w,
+        tile_h,
+        num_tx,
+        num_ty,
+        int(bin_rows is not None),
+        band_rows,
+        _COMPARE_OPS.index(depth_compare),
+        clip_mode,
+        clear_q,
+        num_channels,
+        int(scissor is not None),
+        *sc,
+        _build.stream(dev),
+    )
+    if rc != 0:
+        raise RuntimeError(f"raster_sublane kernel launch failed: cudaError {rc}")
+    SUBLANE_LAUNCHES += 1
+    return ints, floats
+
+
+_INT64_MAX = (1 << 63) - 1
+_WORD = (1 << 32) - 1
+
+
+def _sublane_planes_reference(
+    binned, width, height, tile_w, tile_h, depth_compare, clip_mode, clear_q, init, num_channels,
+    scissor, bin_rows,
+):
+    """Plain PyTorch sublane raster, written as a per-pixel reduction.
+
+    Every (record, pixel) pair of the record's bin (its tile, or its band
+    of tile rows under band binning) that is covered, inside the scissor
+    and not clipped gives one int64 key, depth * 2^32 + word: the depth is
+    negated under the greater compares, and the word is the record's slot
+    (complemented under the *_equal compares).  scatter_reduce keeps each
+    pixel's smallest key, which is its winner; the winner is then held
+    against the init or clear depth.  Slots go in chunks to bound memory.
+    Returns (ints (2, H, W), floats (4 + K, H, W)).
+    """
+    dev = binned.records.device
+    i32, i64 = torch.int32, torch.int64
+    num_tx = -(-width // tile_w)
+    num_ty = -(-height // tile_h)
+    pad_w, pad_h = num_tx * tile_w, num_ty * tile_h
+    band = tile_h if bin_rows is None else bin_rows
+    bands = tile_h // band
+    greater = depth_compare.startswith("greater")
+    strict = depth_compare in ("less", "greater")
+    start = binned.tile_start.to(i64)
+    ends = start + binned.tile_count.to(i64)
+    num_bins = start.shape[0]
+    keys = torch.full((pad_h * pad_w,), _INT64_MAX, dtype=i64, device=dev)
+    ix = torch.arange(tile_w, dtype=i32, device=dev)[None, None, :]
+    rows = torch.arange(band, dtype=i64, device=dev)[None, :]
+    n_slots = int(ends.max()) if num_bins else 0
+    chunk = max(1, (1 << 22) // (band * tile_w))
+    for s0 in range(0, n_slots, chunk):
+        slot = torch.arange(s0, min(s0 + chunk, n_slots), dtype=i64, device=dev)
+        b = torch.searchsorted(ends, slot, right=True).clamp_max(num_bins - 1)
+        keep = (slot >= start[b]) & (slot < ends[b])
+        slot, b = slot[keep], b[keep]
+        if bin_rows is None:
+            tx, ty, row0 = b % num_tx, torch.div(b, num_tx, rounding_mode="floor"), 0 * b
+        else:  # column-major band bins (binning col_major_ids)
+            num_by = num_ty * bands
+            tx, rem = torch.div(b, num_by, rounding_mode="floor"), b % num_by
+            ty, row0 = torch.div(rem, bands, rounding_mode="floor"), (rem % bands) * band
+        iy = (row0[:, None] + rows).to(i32)[:, :, None]  # (C, band, 1) rows of the tile
+        f = binned.records[:13, slot][:, :, None, None]  # (13, C, 1, 1)
+        e0 = f[0] + f[3] * ix + f[6] * iy
+        e1 = f[1] + f[4] * ix + f[7] * iy
+        e2 = f[2] + f[5] * ix + f[8] * iy
+        ok = (e0 >= 0) & (e1 >= 0) & (e2 >= 0)
+        gx = (tx * tile_w).to(i32)[:, None, None] + ix
+        gy = (ty * tile_h).to(i32)[:, None, None] + iy
+        if scissor is not None:
+            sx0, sy0, sx1, sy1 = scissor
+            ok &= (gx >= sx0) & (gx < sx1) & (gy >= sy0) & (gy < sy1)
+        zshift = f[12].to(i64)
+        z_u = (f[9] + f[10] * ix + f[11] * iy).to(i64)
+        hi = (torch.full_like(zshift, 1 << 29) >> zshift) + 1
+        z_c = torch.maximum(torch.minimum(z_u, hi), -hi)
+        z = (z_c * (torch.ones_like(zshift) << zshift) + (1 << 29)).to(i32)
+        if clip_mode == 2:
+            z = z.clamp(0, fp.DEPTH_ONE_Q)
+        elif clip_mode == 1:
+            ok &= (z >= 0) & (z <= fp.DEPTH_ONE_Q)
+        word = slot if strict else _WORD - slot
+        key = (-z if greater else z).to(i64) * (1 << 32) + word[:, None, None]
+        key = torch.where(ok, key, _INT64_MAX)
+        pix = gy.to(i64) * pad_w + gx.to(i64)
+        keys.scatter_reduce_(0, pix.expand_as(key).reshape(-1), key.reshape(-1), "amin")
+
+    keys = keys.reshape(pad_h, pad_w)
+    has = keys != _INT64_MAX
+    zk = keys >> 32
+    z = (-zk if greater else zk).to(i32)
+    word = keys & _WORD
+    slot = torch.where(has, word if strict else _WORD - word, 0)
+
+    def padded(x, fill):
+        return torch.nn.functional.pad(x, (0, pad_w - width, 0, pad_h - height), value=fill)
+
+    if init is not None:
+        zbuf, base_id = padded(init.depth_q, clear_q), padded(init.tri_id, -1)
+        base_b0, base_b1 = padded(init.b0, 0.0), padded(init.b1, 0.0)
+    else:
+        zbuf = torch.full((pad_h, pad_w), clear_q, dtype=i32, device=dev)
+        base_id = torch.full_like(zbuf, -1)
+        base_b0 = base_b1 = torch.zeros((pad_h, pad_w), dtype=torch.float32, device=dev)
+    take = has & _compare(depth_compare, z, zbuf)
+    depth = torch.where(take, z, zbuf)
+    ids = torch.where(take, binned.records[13][slot], base_id)
+
+    ixf = (torch.arange(pad_w, device=dev) % tile_w).to(torch.float32)[None, :]
+    iyf = (torch.arange(pad_h, device=dev) % tile_h).to(torch.float32)[:, None]
+    fr = binned.frecords
+
+    def plane(row):
+        p0, pdx, pdy = fr[row][slot], fr[row + 1][slot], fr[row + 2][slot]
+        return (p0 + pdx * ixf) + pdy * iyf
+
+    zeros = torch.zeros((pad_h, pad_w), dtype=torch.float32, device=dev)
+    b0 = torch.where(take, plane(0), base_b0)
+    b1 = torch.where(take, plane(3), base_b1)
+    b2 = torch.where(ids >= 0, (1.0 - b0) - b1, zeros)
+    invw = torch.where(take, plane(6), torch.ones_like(zeros))
+    chans = [torch.where(take, plane(9 + 3 * c), zeros) for c in range(num_channels)]
+    ints = torch.stack([ids, depth])[:, :height, :width].contiguous()
+    floats = torch.stack([b0, b1, b2, invw, *chans])[:, :height, :width].contiguous()
+    return ints, floats
 
 
 def _rasterize(
-    planes_fn,
+    use_kernel: bool,
     binned,
     width: int,
     height: int,
@@ -344,25 +535,23 @@ def _rasterize(
     sublane_group: int = 8,
     bin_rows: int | None = None,
 ):
-    _check_slice(stencil, two_pass, msaa4, batch, sublane, bin_rows)
     if depth_compare not in _COMPARE_OPS:
         raise ValueError(f"bad depth compare {depth_compare!r}; one of {_COMPARE_OPS}")
+    _check_sublane(sublane, sublane_group, bin_rows, tile_w, tile_h, depth_test, depth_write,
+                   depth_compare, stencil, two_pass, batch)
+    _check_slice(stencil, two_pass, msaa4, batch)
     _check_tile(tile_w, tile_h)
-    ints, floats = planes_fn(
-        binned,
-        width,
-        height,
-        tile_w,
-        tile_h,
-        depth_test,
-        depth_compare,
-        depth_write,
-        _clip_mode(depth_clip),
-        int(round(depth_clear * fp.DEPTH_ONE_Q)),
-        init,
-        num_channels,
-        scissor,
-    )
+    clip_mode = _clip_mode(depth_clip)
+    clear_q = int(round(depth_clear * fp.DEPTH_ONE_Q))
+    args = (binned, width, height, tile_w, tile_h)
+    if sublane:
+        fn = _sublane_planes_kernel if use_kernel else _sublane_planes_reference
+        ints, floats = fn(*args, depth_compare, clip_mode, clear_q, init, num_channels, scissor, bin_rows)
+    else:
+        fn = _raster_planes_kernel if use_kernel else _raster_planes_reference
+        ints, floats = fn(
+            *args, depth_test, depth_compare, depth_write, clip_mode, clear_q, init, num_channels, scissor
+        )
     return _package(ints, floats, num_channels)
 
 
@@ -372,25 +561,31 @@ def rasterize_binned(binned, *args, **kwargs):
     Arguments as in the JAX package's raster_pallas.rasterize_binned: (binned,
     width, height, tile_w=128, tile_h=32, depth_test=True,
     depth_compare="less", depth_write=True, depth_clip=True,
-    depth_clear=1.0, init=None, num_channels=0, scissor=None, ...).
-    CUDA tensors launch the Hopper kernel; CPU tensors take the plain
-    PyTorch version.  Returns a VisBuffer when ``num_channels`` is 0, else
-    (vis, interp (K, H, W), invw (H, W)).  ``skip_losers``, ``unroll`` and
-    ``sublane_group`` only schedule work on a TPU: they are accepted and
-    change nothing.  Stencil, MSAA, two-pass, batched, sublane and band
-    rasterization raise FeatureNotPresentError.
+    depth_clear=1.0, init=None, num_channels=0, scissor=None, ...,
+    sublane=False, sublane_group=8, bin_rows=None).  ``sublane`` takes the
+    order-independent raster, with the JAX package's ValueErrors on
+    ineligible modes; ``bin_rows`` reads a band-binned stream (see
+    rasterize_vis).  CUDA tensors launch the Hopper kernels; CPU tensors
+    take the plain PyTorch versions.  Returns a VisBuffer when
+    ``num_channels`` is 0, else (vis, interp (K, H, W), invw (H, W)).
+    ``skip_losers``, ``unroll`` and ``sublane_group`` only schedule work
+    on a TPU: they are accepted and change nothing.  Stencil, MSAA,
+    two-pass and batched rasterization raise FeatureNotPresentError.
     """
     dev = binned.records.device
-    if dev.type == "cuda":
-        return _rasterize(_raster_planes_kernel, binned, *args, **kwargs)
-    if dev.type == "cpu":
-        return _rasterize(_raster_planes_reference, binned, *args, **kwargs)
-    raise FeatureNotPresentError(f"no raster path for device {dev}")
+    if dev.type not in ("cuda", "cpu"):
+        raise FeatureNotPresentError(f"no raster path for device {dev}")
+    return _rasterize(dev.type == "cuda", binned, *args, **kwargs)
 
 
 def rasterize_binned_reference(binned, *args, **kwargs):
     """The plain PyTorch version of rasterize_binned, on any device."""
-    return _rasterize(_raster_planes_reference, binned, *args, **kwargs)
+    return _rasterize(False, binned, *args, **kwargs)
+
+
+def rasterize_binned_sublane_reference(binned, *args, **kwargs):
+    """The plain PyTorch version of the sublane raster, on any device."""
+    return _rasterize(False, binned, *args, sublane=True, **kwargs)
 
 
 def rasterize_vis(
@@ -428,27 +623,34 @@ def rasterize_vis(
     """Bin and rasterize: the counterpart of rasterize_vis_pallas.
 
     Tiles past the framebuffer edge are rasterized as padding and cropped
-    (the kernel simply skips pixels outside the extent).  ``channels``
+    (the kernels simply skip pixels outside the extent).  ``channels``
     (T, 3, K) are interpolated in-raster; the result is then (vis, interp
     (K, H, W), invw (H, W)) instead of vis.  ``return_overflow`` appends
-    the binner's overflow flag.
+    the binner's overflow flag.  ``bin_rows`` (sublane only) bins at
+    (tile_w x bin_rows) bands with column-major bin ids over a height
+    padded to the tile grid, each record anchored at its output tile, so
+    every band of a tile reads only its own records.
     """
-    _check_slice(stencil, two_pass, msaa4, batch, sublane, bin_rows)
+    _check_sublane(sublane, sublane_group, bin_rows, tile_w, tile_h, depth_test, depth_write,
+                   depth_compare, stencil, two_pass, batch)
+    _check_slice(stencil, two_pass, msaa4, batch)
     num_ch = 0 if channels is None else channels.shape[-1]
-    binned = bin_triangles(
-        ts,
-        width,
-        height,
-        tile_w,
-        tile_h,
-        max_pairs,
-        id_offset,
+    bin_kw = dict(
+        max_pairs=max_pairs,
+        id_offset=id_offset,
         channels=channels,
         perspective=perspective,
         slots=slots,
         assemble=assemble,
         tmpl=tmpl,
     )
+    if bin_rows is None:
+        binned = bin_triangles(ts, width, height, tile_w, tile_h, **bin_kw)
+    else:
+        bin_h = -(-height // tile_h) * tile_h
+        binned = bin_triangles(
+            ts, width, bin_h, tile_w, bin_rows, col_major_ids=True, anchor_rows=tile_h, **bin_kw
+        )
     out = rasterize_binned(
         binned,
         width,
@@ -465,7 +667,9 @@ def rasterize_vis(
         scissor=scissor,
         skip_losers=skip_losers,
         unroll=unroll,
+        sublane=sublane,
         sublane_group=sublane_group,
+        bin_rows=bin_rows,
     )
     if not return_overflow:
         return out

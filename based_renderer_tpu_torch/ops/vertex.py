@@ -1,4 +1,4 @@
-"""Vertex stage runner: attribute assembly and triangle gather.
+"""Vertex stage runner: attribute assembly, instancing, triangle gather.
 
 The PyTorch counterpart of ``based_renderer_tpu/ops/vertex.py``.
 """
@@ -8,19 +8,43 @@ from __future__ import annotations
 import torch
 
 from ..scene import Mesh
-from ..utils.errors import FeatureNotPresentError
 
 
 def expand_instances(mesh: Mesh, instances: dict | None):
-    """Mesh attributes for one draw: (attrs, tri_idx).
+    """Broadcast mesh attributes and instance attributes to (I*N, C).
 
-    tri_idx is None for corner-sequential meshes (upload_mesh de-indexes
-    at upload, so the triangle gather is then a free reshape).  Instance
-    tables arrive with the instancing slice (ROADMAP A.12).
+    instances: dict of (I, ...) tensors; trailing dims are flattened, so a
+    (I, 4, 4) transform becomes an (I*N, 16) attribute the shader reshapes.
+    Returns (attrs, tri_idx): the merged attribute dict and the (I*T, 3)
+    indices, offset by N per instance; tri_idx is None for corner-sequential
+    meshes (upload_mesh de-indexes at upload, so the triangle gather is
+    then a free reshape).
     """
-    if instances:
-        raise FeatureNotPresentError("instanced draws are not ported yet (ROADMAP A.12)")
-    return dict(mesh.attributes), mesh.indices
+    attrs = dict(mesh.attributes)
+    tri_idx = mesh.indices
+    if not instances:
+        return attrs, tri_idx
+    num_inst = next(iter(instances.values())).shape[0]
+    n = mesh.num_vertices
+    out = {k: v.repeat(num_inst, 1) for k, v in attrs.items()}
+    for k, v in instances.items():
+        flat = torch.as_tensor(v, dtype=torch.float32).reshape(v.shape[0], -1)
+        out[k] = flat.repeat_interleave(n, dim=0)
+    if tri_idx is not None:
+        offsets = (torch.arange(num_inst, dtype=tri_idx.dtype, device=tri_idx.device) * n)[:, None, None]
+        tri_idx = (tri_idx[None, :, :] + offsets).reshape(-1, 3)
+    return out, tri_idx
+
+
+def apply_instance_transform(attrs: dict) -> torch.Tensor:
+    """Apply a per-vertex 'transform' attribute ((V, 16) row-major 4x4) to
+    the positions, returning (V, 4) transformed positions.  Shaders call
+    this before their view/projection multiply for instanced draws."""
+    p = attrs["position"]
+    if p.shape[-1] == 3:
+        p = torch.cat([p, torch.ones((*p.shape[:-1], 1), dtype=torch.float32, device=p.device)], -1)
+    m = attrs["transform"].reshape(-1, 4, 4)
+    return torch.matmul(m, p[:, :, None])[:, :, 0]
 
 
 def gather_triangles(clip: torch.Tensor, varyings: dict, tri_idx):

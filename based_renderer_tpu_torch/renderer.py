@@ -1,12 +1,14 @@
 """Renderer: record draws, then run the frame eagerly on one device.
 
 The PyTorch counterpart of ``based_renderer_tpu/renderer.py`` for the
-main path: ``begin_frame``/``draw``/``end_frame`` record a draw list,
-and ``end_frame`` runs, per draw, the vertex stage -> gather_triangles ->
-clip_near -> setup_triangles -> rasterize_vis with the varyings as
-channels (the Hopper kernel on CUDA), then per draw the gather-free
-shading from the interpolated planes and the opaque composite.  PyTorch
-runs eagerly, so there is no program cache.
+single-draw and dense-mesh paths: ``begin_frame``/``draw``/``end_frame``
+record a draw list, and ``end_frame`` runs, per draw, expand_instances ->
+the vertex stage -> gather_triangles -> clip_near -> setup_triangles ->
+rasterize_vis with the varyings as channels (the Hopper kernels on CUDA:
+the sequential raster, or the record assembly and the sublane raster for
+``raster_assemble="pallas"`` and eligible ``raster_sublane`` draws), then
+per draw the gather-free shading from the interpolated planes and the
+opaque composite.  PyTorch runs eagerly, so there is no program cache.
 
 Render state outside this slice raises FeatureNotPresentError naming the
 ROADMAP step that will port it.
@@ -15,6 +17,7 @@ ROADMAP step that will port it.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from dataclasses import dataclass
 from typing import Any, Optional
 
@@ -104,24 +107,35 @@ def _blend(src, dst, state):
     return torch.where(mask.reshape(4, 1, 1), src, dst)
 
 
-def _check_draw_state(pipe: Pipeline, instances):
+def _check_draw_state(pipe: Pipeline):
     """Raise FeatureNotPresentError for render state outside this slice."""
     checks = (
         (pipe.stencil.enable, "stencil", "A.10"),
         (pipe.blend.enable, "blending", "A.10"),
         (pipe.depth.bias_enable, "depth bias", "A.10"),
         (pipe.shade_compact is not None, "shade_compact", "A.11"),
-        (bool(instances), "instanced draws", "A.12"),
         (pipe.instance_cull is not None, "instance_cull", "A.12"),
-        (pipe.raster_sublane, "raster_sublane", "A.8 and queue B2"),
         (pipe.raster_batch, "raster_batch", "queue B7"),
         (pipe.raster_two_pass, "raster_two_pass", "queue B6"),
-        (pipe.raster_assemble == "pallas", "raster_assemble='pallas'", "A.8 and queue B3"),
         (pipe.raster_tmpl == "pallas", "raster_tmpl='pallas'", "queue B8"),
     )
     for on, what, step in checks:
         if on:
             raise FeatureNotPresentError(f"{what} is not ported yet (ROADMAP {step})")
+
+
+def _sublane_ineligible_reason(pipe: Pipeline):
+    """Why the order-independent sublane raster cannot serve this draw, or
+    None: the JAX package's _reduction_ineligible_reason for the sublane
+    kernel, less its stencil, two-pass and MSAA clauses, whose state
+    _check_draw_state and Renderer reject before a frame runs."""
+    if not (pipe.depth.test and pipe.depth.write):
+        return "depth test+write disabled"
+    if pipe.depth.compare not in ("less", "less_equal", "greater", "greater_equal"):
+        return f"unordered depth compare {pipe.depth.compare!r}"
+    if pipe.raster_tile[0] != 128:
+        return f"tile_w {pipe.raster_tile[0]} != 128"
+    return None
 
 
 class Renderer:
@@ -175,14 +189,55 @@ class Renderer:
         if not self._in_frame:
             raise FrameError("draw outside begin_frame/end_frame")
         shd = shader_lib.get(pipeline.shader)  # validates the shader name
-        _check_draw_state(pipeline, instances)
+        _check_draw_state(pipeline)
         for need in shd.attributes:
-            if need not in mesh.attributes:
+            if need not in mesh.attributes and not (instances and need in instances) and not (
+                instances and f"instance_{need}" in instances
+            ):
                 raise DrawError(
                     f"shader {pipeline.shader!r} needs attribute {need!r}; "
                     f"mesh has {sorted(mesh.attributes)}"
                 )
+        if self.config.debug:
+            self._validate_draw(mesh, instances)
         self._draws.append(_DrawCmd(pipeline, mesh, uniforms or {}, instances))
+
+    @staticmethod
+    def _validate_draw(mesh: Mesh, instances):
+        """Debug-mode draw validation: attribute shapes, index bounds and
+        instance-table counts (index checking syncs the device)."""
+        n = mesh.num_vertices
+        for k, v in mesh.attributes.items():
+            if v.ndim != 2:
+                raise DrawError(f"attribute {k!r} must be (N, C), got {tuple(v.shape)}")
+            if v.shape[0] != n:
+                raise DrawError(f"attribute {k!r} has {v.shape[0]} rows; position has {n}")
+        p = mesh.attributes["position"]
+        if p.shape[1] not in (2, 3, 4):
+            raise DrawError(f"position must be (N, 2|3|4), got {tuple(p.shape)}")
+        if mesh.indices is not None:
+            idx = mesh.indices
+            if idx.ndim != 2 or idx.shape[1] != 3:
+                raise DrawError(f"indices must be (T, 3), got {tuple(idx.shape)}")
+            if idx.numel():
+                lo, hi = int(idx.min()), int(idx.max())
+                if lo < 0 or hi >= n:
+                    raise DrawError(f"index out of bounds: [{lo}, {hi}] vs {n} vertices")
+        if instances:
+            counts = {k: v.shape[0] for k, v in instances.items()}
+            if len(set(counts.values())) > 1:
+                raise DrawError(f"instance attribute counts differ: {counts}")
+
+    def _signal_fallback(self, pipe: Pipeline, knob: str, why: str):
+        """A requested fast kernel variant is ineligible for this draw:
+        warn (raise DrawError in debug mode) and run the sequential raster."""
+        msg = (
+            f"{knob} requested (shader {pipe.shader!r}) but the draw is "
+            f"ineligible: {why}; falling back to the sequential raster kernel"
+        )
+        if self.config.debug:
+            raise DrawError(msg)
+        warnings.warn(msg, RuntimeWarning, stacklevel=4)
 
     def end_frame(self) -> FrameResult:
         if not self._in_frame:
@@ -243,7 +298,14 @@ class Renderer:
             pipe = d.pipeline
             shd = shader_lib.get(pipe.shader)
             uniforms = self._uniforms(d.uniforms)
-            attrs, tri_idx = expand_instances(d.mesh, d.instances)
+            sublane = False
+            if pipe.raster_sublane:
+                why = _sublane_ineligible_reason(pipe)
+                sublane = why is None
+                if not sublane:
+                    self._signal_fallback(pipe, "raster_sublane", why)
+            instances = self._uniforms(d.instances) if d.instances else None
+            attrs, tri_idx = expand_instances(d.mesh, instances)
             clip, varyings = shd.vertex(attrs, uniforms)
             clip_tri, var_tri = gather_triangles(clip, varyings, tri_idx)
             if pipe.near_clip:
@@ -284,6 +346,9 @@ class Renderer:
                 scissor=pipe.scissor,
                 skip_losers=pipe.raster_skip_losers,
                 unroll=pipe.raster_unroll,
+                sublane=sublane,
+                sublane_group=pipe.raster_group,
+                bin_rows=pipe.raster_bin_rows if sublane else None,
                 assemble=pipe.raster_assemble,
                 tmpl=pipe.raster_tmpl,
                 return_overflow=True,

@@ -6,8 +6,9 @@ shaders.  ABI:
   fragment(frag, uniforms) -> rgba (H, W, 4) float32
       frag: interpolated (H, W, C) varyings plus "tri_id" (H, W) int32,
             "depth" (H, W) f32 and "bary" (H, W, 3) f32.
-Shader modules loaded from files and the textured and lit shaders arrive
-with later slices (ROADMAP A.11, A.14).
+The dense-mesh demos' ``blinn_phong`` and ``instanced_color`` are here;
+shader modules loaded from files and the textured shaders arrive with
+later slices (ROADMAP A.11, A.14).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from typing import Callable
 import torch
 
 from . import math3d
+from .ops.vertex import apply_instance_transform
 from .utils.errors import ShaderError
 
 
@@ -108,3 +110,70 @@ def _ndc_color_vs(attrs, uniforms):
 
 
 register(Shader("ndc_color", _ndc_color_vs, _vertex_color_fs, attributes=("color",)))
+
+
+def _norm(x: torch.Tensor) -> torch.Tensor:
+    return torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+
+
+def _blinn_phong_vs(attrs, uniforms):
+    clip = mvp_transform(attrs, uniforms)
+    model = uniforms["model"]
+    pos_ws = math3d.transform_points(model, attrs["position"])[..., :3]
+    normal_ws = attrs["normal"] @ math3d.normal_matrix(model).T
+    out = {"normal": normal_ws, "pos_ws": pos_ws}
+    if "color" in attrs:
+        out["color"] = attrs["color"]
+    return clip, out
+
+
+def _uniform(uniforms, key, default, like):
+    """A float32 uniform on ``like``'s device, or its default."""
+    return torch.as_tensor(uniforms.get(key, default), dtype=torch.float32, device=like.device)
+
+
+def _blinn_phong_fs(frag, uniforms):
+    """Blinn-Phong: ambient + diffuse + specular (BASELINE config 5)."""
+    n = frag["normal"]
+    n = n / torch.clamp_min(_norm(n), 1e-8)
+    pos = frag["pos_ws"]
+    light_pos = _uniform(uniforms, "light_pos", [2.0, -2.0, -2.0], n)
+    eye_pos = _uniform(uniforms, "eye_pos", [0.0, 0.0, -3.0], n)
+    base = frag.get("color")
+    if base is None:
+        base = _uniform(uniforms, "base_color", [0.7, 0.7, 0.75], n).expand(*n.shape[:2], 3)
+    l = light_pos - pos  # noqa: E741
+    l = l / torch.clamp_min(_norm(l), 1e-8)  # noqa: E741
+    v = eye_pos - pos
+    v = v / torch.clamp_min(_norm(v), 1e-8)
+    h = l + v
+    h = h / torch.clamp_min(_norm(h), 1e-8)
+    ndotl = torch.clamp_min((n * l).sum(-1, keepdim=True), 0.0)
+    ndoth = torch.clamp_min((n * h).sum(-1, keepdim=True), 0.0)
+    shininess = _uniform(uniforms, "shininess", 32.0, n)
+    ambient = _uniform(uniforms, "ambient", 0.1, n)
+    spec = ndoth**shininess
+    rgb = base * (ambient + ndotl) + 0.3 * spec
+    a = torch.ones((*rgb.shape[:2], 1), dtype=torch.float32, device=rgb.device)
+    return torch.cat([rgb.clamp(0.0, 1.0), a], -1)
+
+
+register(Shader("blinn_phong", _blinn_phong_vs, _blinn_phong_fs, attributes=("normal",)))
+"""Blinn-Phong lit mesh (BASELINE config 5, the 1M-triangle demo)."""
+
+
+def _instanced_color_vs(attrs, uniforms):
+    """Per-instance transform (BASELINE config 4) then shared view/proj."""
+    world = apply_instance_transform(attrs)
+    vp = uniforms["proj"] @ uniforms["view"]
+    clip = world @ vp.T
+    out = {}
+    if "color" in attrs:
+        out["color"] = attrs["color"]
+    if "instance_color" in attrs:
+        out["color"] = attrs["instance_color"]
+    return clip, out
+
+
+register(Shader("instanced_color", _instanced_color_vs, _vertex_color_fs, attributes=("color",)))
+"""Per-instance transform and colour (BASELINE config 4, the cube field)."""

@@ -5,23 +5,37 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases (each prints one line; any failure exits non-zero before the
 result lines):
   1. device: CUDA present, the card's name and power limit (nvidia-smi);
-  2. build: compiles csrc/*.cu with nvcc at first use;
-  3. kernel vs plain: the raster kernel against its plain PyTorch version
-     on the same binned records (cube 1920x1080, a 16384-triangle stress
-     stream with exact depth ties and tiles of > 128 records, an init
-     chain, greater_equal + depth clamp + scissor): tri_id and depth_q
-     exact, float planes within 1e-6;
-  4. oracle: tri_id and depth_q equal the numpy oracle's
-     (based_renderer_tpu/reference/oracle.py, loaded by path: numpy only);
-  5. end to end: Renderer at 1920x1080 with the cube demo and at 800x600
-     with the triangle demo, 120 frames each, every frame through the
-     kernel; median ms/frame of the kernel path and of the plain path.
-Then one JSON line of per-kernel numbers, and last the device line.
-Imports nothing of JAX.
+  2. build: compiles csrc/*.cu with nvcc at first use (one nvcc per source,
+     started together), ptxas registers and shared memory per kernel;
+  3. raster_tile (B1) vs its plain version on the same binned records (cube
+     1920x1080, a 16384-triangle stress stream with exact depth ties and
+     tiles of > 128 records, an init chain, greater_equal + depth clamp +
+     scissor): tri_id and depth_q exact, float planes within 1e-6;
+  4. assemble_records (B3) vs its plain version on the 1M-triangle
+     big_mesh stream at 1920x1080: int records exact, float records bitwise;
+  5. raster_sublane (B2) vs its plain version and vs raster_tile on the
+     B3-assembled 1M-triangle stream (group 64), the 10k-instance stream
+     (group 32, depth_clip False), the stress tie stream under the four
+     ordered compares, and a band-binned stream (bin_rows 4);
+  6. oracle: tri_id and depth_q equal the numpy oracle's
+     (based_renderer_tpu/reference/oracle.py, loaded by path: numpy only)
+     for the cube and the stress stream through raster_tile, and for
+     big_mesh (2000 triangles) through the dense path, at 1920x1080;
+  7. end to end: Renderer.render_frame with big_mesh (1M triangles) at
+     1920x1080 and 3840x2160, instanced (10k cubes) at 1920x1080, cube at
+     1920x1080 and triangle at 800x600; every dense frame launches
+     assemble_records and raster_sublane once, every cube and triangle
+     frame raster_tile once (asserted per frame); no frame overflows; median
+     ms/frame on the kernel path and on the plain path (fewer frames).
+Every kernel time is the median of 7 CUDA-event windows in this run, with
+the spread and the SM clock nvidia-smi read right after.  Then one JSON
+line of per-kernel numbers, the nvidia-smi name/power line, and last the
+device line.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import importlib.util
 import json
 import pathlib
@@ -35,28 +49,37 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent
 FLOAT_TOL = 1e-6
-FRAMES = 120
+WINDOWS = 7
+W, H = 1920, 1080
 
 
-def gpu_line() -> str:
+def nvidia_smi(query: str) -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int) -> float:
-    """Mean device time of fn() over iters launches, after one warm-up."""
+def timed(fn, iters: int = 1) -> dict:
+    """Median, min and max ms of fn() over WINDOWS CUDA-event windows of
+    ``iters`` launches each (after one warm-up), and the SM clock after."""
     fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    per = []
+    for _ in range(WINDOWS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        per.append(start.elapsed_time(end) / iters)
+    return {"ms": statistics.median(per), "min": min(per), "max": max(per), "sm": nvidia_smi("clocks.sm")}
+
+
+def fmt(t: dict) -> str:
+    return f"{t['ms']:.4f} ms [{t['min']:.4f}..{t['max']:.4f}, SM {t['sm']}]"
 
 
 def stress_clip(seed: int = 0, n: int = 16384) -> tuple[np.ndarray, np.ndarray]:
@@ -73,34 +96,62 @@ def stress_clip(seed: int = 0, n: int = 16384) -> tuple[np.ndarray, np.ndarray]:
     return clip[order], color[order]
 
 
+class Checker:
+    """Holds a kernel's output against another on the same inputs: tri_id
+    and depth_q exact, float planes within FLOAT_TOL; keeps the worst diff."""
+
+    def __init__(self):
+        self.worst = {}
+
+    def __call__(self, kernel: str, label: str, got, want):
+        torch.cuda.synchronize()
+        gv, gf = (got, []) if len(got) == 6 else (got[0], list(got[1:]))
+        wv, wf = (want, []) if len(want) == 6 else (want[0], list(want[1:]))
+        for k in ("tri_id", "depth_q"):
+            a, b = getattr(gv, k), getattr(wv, k)
+            if not torch.equal(a, b):
+                raise AssertionError(f"{label}: {k} differs at {int((a != b).sum())} pixels")
+        pairs = [(gv.b0, wv.b0), (gv.b1, wv.b1), (gv.b2, wv.b2), *zip(gf, wf)]
+        diff = max(float((a - b).abs().max()) for a, b in pairs)
+        if not diff <= FLOAT_TOL:
+            raise AssertionError(f"{label}: float planes differ by {diff}")
+        self.worst[kernel] = max(self.worst.get(kernel, 0.0), diff)
+
+
 def main() -> int:
     # ---- 1. device ------------------------------------------------------
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this check needs a GPU")
-    torch.backends.cuda.matmul.allow_tf32 = False  # the vertex matmul stays full f32
+    torch.backends.cuda.matmul.allow_tf32 = False  # the vertex matmuls stay full f32
     torch.backends.cudnn.allow_tf32 = False
-    card = gpu_line()
+    card = nvidia_smi("name,power.limit")
     name = torch.cuda.get_device_name(0)
     print(f"[device] {card} | torch {torch.__version__} cuda {torch.version.cuda} | {name}", flush=True)
 
     sys.path.insert(0, str(ROOT))
     import based_renderer_tpu_torch as brt
-    from based_renderer_tpu_torch.ops import _build, raster
+    from based_renderer_tpu_torch.ops import _build, binassem, binning, raster
     from based_renderer_tpu_torch.ops.binning import bin_triangles
     from based_renderer_tpu_torch.ops.clip import clip_near
     from based_renderer_tpu_torch.ops.setup import setup_triangles
-    from based_renderer_tpu_torch.ops.vertex import gather_triangles
+    from based_renderer_tpu_torch.ops.vertex import expand_instances, gather_triangles
 
     dev = torch.device("cuda")
+    check = Checker()
+    times = {}
 
     # ---- 2. build -------------------------------------------------------
     t0 = time.perf_counter()
     _build.load()
     build_s = time.perf_counter() - t0
-    ptxas = " ".join(line.strip() for line in _build.BUILD_LOG.splitlines() if "registers" in line or "smem" in line)
+    ptxas = " | ".join(
+        line.split("ptxas info    :")[-1].strip()
+        for line in _build.BUILD_LOG.splitlines()
+        if "Compiling entry" in line or "registers" in line
+    )
     print(f"[build] {_build.library_path().name} in {build_s:.2f} s | {ptxas or 'cached'}", flush=True)
 
-    # ---- 3. kernel vs plain ---------------------------------------------
+    # ---- 3. raster_tile vs plain -----------------------------------------
     def cube_tris(width, height, t):
         r = brt.Renderer(brt.RendererConfig(width, height), device=dev)
         pipe, mesh, uniforms, _ = brt.demos.cube_demo(r)
@@ -109,39 +160,23 @@ def main() -> int:
         clip_tri, var_tri = clip_near(*gather_triangles(clip, var, None))
         return clip_tri, var_tri["color"]
 
-    def binned_for(clip, color, width, height, tile=(128, 32), scissor=None, max_pairs=None):
+    def binned_for(clip, color, width, height, tile=(128, 32), scissor=None, max_pairs=None, **kw):
         ts = setup_triangles(clip, width, height, scissor=scissor)
-        b = bin_triangles(ts, width, height, *tile, max_pairs=max_pairs, channels=color)
+        b = bin_triangles(ts, width, height, *tile, max_pairs=max_pairs, channels=color, **kw)
         if bool(b.overflowed):
             raise AssertionError("binner overflowed")
         return b
 
-    worst = {"float": 0.0}
-
-    def compare(label, binned, width, height, init=None, **kw):
-        args = (binned, width, height)
+    def b1_vs_plain(label, binned, width, height, init=None, **kw):
         kw = dict(num_channels=3, **kw)
-        got = raster.rasterize_binned(*args, init=None if init is None else init[0], **kw)
-        want = raster.rasterize_binned_reference(*args, init=None if init is None else init[1], **kw)
-        torch.cuda.synchronize()
-        (gv, gi, gw), (wv, wi, ww) = got, want
-        for k in ("tri_id", "depth_q"):
-            if not torch.equal(getattr(gv, k), getattr(wv, k)):
-                bad = int((getattr(gv, k) != getattr(wv, k)).sum())
-                raise AssertionError(f"{label}: {k} differs at {bad} pixels")
-        diff = max(
-            float((a - b).abs().max())
-            for a, b in ((gv.b0, wv.b0), (gv.b1, wv.b1), (gv.b2, wv.b2), (gw, ww), (gi, wi))
-        )
-        if not diff <= FLOAT_TOL:
-            raise AssertionError(f"{label}: float planes differ by {diff}")
-        worst["float"] = max(worst["float"], diff)
+        got = raster.rasterize_binned(binned, width, height, init=None if init is None else init[0], **kw)
+        want = raster.rasterize_binned_reference(binned, width, height, init=None if init is None else init[1], **kw)
+        check("raster_tile", label, got, want)
         return got, want
 
-    W, H = 1920, 1080
     cube_clip, cube_col = cube_tris(W, H, 0.5)
     cube_b = binned_for(cube_clip, cube_col, W, H)
-    compare("cube", cube_b, W, H)
+    b1_vs_plain("cube", cube_b, W, H)
     s_clip_np, s_col_np = stress_clip()
     s_clip = torch.tensor(s_clip_np, device=dev)
     s_col = torch.tensor(s_col_np, device=dev)
@@ -150,60 +185,176 @@ def main() -> int:
     max_count = int(stress_b.tile_count.max())
     if max_count <= 128:
         raise AssertionError(f"stress stream's fullest tile has {max_count} records")
-    compare("stress", stress_b, W, H)
+    b1_vs_plain("stress", stress_b, W, H)
     half = n_stress // 2
-    first = compare("init-a", binned_for(s_clip[:half], s_col[:half], W, H), W, H)
+    first = b1_vs_plain("init-a", binned_for(s_clip[:half], s_col[:half], W, H), W, H)
     second_b = bin_triangles(
         setup_triangles(s_clip[half:], W, H), W, H, 128, 32, channels=s_col[half:], id_offset=half
     )
-    compare("init-b", second_b, W, H, init=(first[0][0], first[1][0]))
+    b1_vs_plain("init-b", second_b, W, H, init=(first[0][0], first[1][0]))
     sc = (97, 61, 1803, 1001)
     sc_b = binned_for(s_clip, s_col, W, H, tile=(64, 64), scissor=sc, max_pairs=16 * n_stress)
-    compare("ge-clamp-scissor", sc_b, W, H, tile_w=64, tile_h=64,
-            depth_compare="greater_equal", depth_clip="clamp", depth_clear=0.0, scissor=sc)
-    ms_cube = cuda_ms(lambda: raster.rasterize_binned(cube_b, W, H, num_channels=3), 50)
-    plain_cube = cuda_ms(lambda: raster.rasterize_binned_reference(cube_b, W, H, num_channels=3), 10)
-    ms_stress = cuda_ms(lambda: raster.rasterize_binned(stress_b, W, H, num_channels=3), 20)
-    plain_stress = cuda_ms(lambda: raster.rasterize_binned_reference(stress_b, W, H, num_channels=3), 3)
+    b1_vs_plain("ge-clamp-scissor", sc_b, W, H, tile_w=64, tile_h=64,
+                depth_compare="greater_equal", depth_clip="clamp", depth_clear=0.0, scissor=sc)
+    times["raster_tile"] = timed(lambda: raster.rasterize_binned(cube_b, W, H, num_channels=3), 20)
+    times["raster_tile_plain"] = timed(lambda: raster.rasterize_binned_reference(cube_b, W, H, num_channels=3))
+    t_stress = timed(lambda: raster.rasterize_binned(stress_b, W, H, num_channels=3), 5)
     print(
-        f"[kernel-vs-plain] cube, stress ({n_stress} tris, fullest tile {max_count} records), "
-        f"init chain, greater_equal+clamp+scissor: ints exact, max float diff {worst['float']:.3g} "
-        f"(tol {FLOAT_TOL}) | raster ms kernel/plain: cube {ms_cube:.4f}/{plain_cube:.4f}, "
-        f"stress {ms_stress:.4f}/{plain_stress:.4f} | {card}",
+        f"[raster_tile vs plain] cube, stress ({n_stress} tris, fullest tile {max_count} records), "
+        f"init chain, greater_equal+clamp+scissor: ints exact, max float diff "
+        f"{check.worst['raster_tile']:.3g} (tol {FLOAT_TOL}) | cube kernel {fmt(times['raster_tile'])}, "
+        f"plain {fmt(times['raster_tile_plain'])} | stress kernel {fmt(t_stress)} | {card}",
         flush=True,
     )
 
-    # ---- 4. oracle ------------------------------------------------------
+    # ---- 4. assemble_records vs plain on the 1M-triangle stream ----------
+    def dense_setup(r, demo, t, **kw):
+        pipe, mesh, uniforms, inst = getattr(brt.demos, demo)(r, **kw)
+        u = {k: v.to(dev) for k, v in uniforms(t).items()}
+        attrs, tri_idx = expand_instances(mesh, inst)
+        clip, var = brt.shader.get(pipe.shader).vertex(attrs, u)
+        clip_tri, var_tri = gather_triangles(clip, var, tri_idx)
+        width, height = r.config.width, r.config.height
+        ts = setup_triangles(clip_tri, width, height, cull_mode=pipe.cull_mode, front_face=pipe.front_face)
+        channels = torch.cat([var_tri[k] for k in sorted(var_tri)], dim=-1)
+        n = clip_tri.shape[0]
+        budget = dict(
+            max_pairs=max(int(n * pipe.raster_pairs_factor), 1024),
+            slots=max(int(n * pipe.raster_slots_factor), 1024),
+            channels=channels,
+        )
+        return (pipe, mesh, uniforms, inst), ts, budget
+
+    big_r = brt.Renderer(brt.RendererConfig(W, H))
+    big_demo, big_ts, big_kw = dense_setup(big_r, "big_mesh_demo", 0.2)
+    ps = binning.pair_stream(big_ts, W, H, 128, 8, big_kw["max_pairs"], 0, big_kw["channels"], True, big_kw["slots"])
+    if bool(ps.overflowed):
+        raise AssertionError("big_mesh 1080p pair stream overflowed")
+    fw = binning.frecord_width(big_kw["channels"].shape[-1])
+    asm_args = (ps.tmpl, *binning.padded_slots(ps), ps.total, fw)
+    rec_k, frec_k = binassem.assemble_records(*asm_args)
+    rec_p, frec_p = binassem.assemble_records_reference(*asm_args)
+    torch.cuda.synchronize()
+    if not torch.equal(rec_k, rec_p):
+        raise AssertionError(f"assemble_records: int records differ at {int((rec_k != rec_p).sum())} entries")
+    if not torch.equal(frec_k.view(torch.int32), frec_p.view(torch.int32)):
+        raise AssertionError(f"assemble_records: float records differ by {float((frec_k - frec_p).abs().max())}")
+    check.worst["assemble_records"] = float((frec_k - frec_p).abs().max())
+    times["assemble_records"] = timed(lambda: binassem.assemble_records(*asm_args), 10)
+    times["assemble_records_plain"] = timed(lambda: binassem.assemble_records_reference(*asm_args))
+    n_slots = rec_k.shape[1]
+    print(
+        f"[assemble_records vs plain] big_mesh 1M tris 1920x1080: {n_slots} slots ({int(ps.total)} live), "
+        f"K={big_kw['channels'].shape[-1]}: int records exact, float records bitwise | kernel "
+        f"{fmt(times['assemble_records'])}, plain {fmt(times['assemble_records_plain'])} | {card}",
+        flush=True,
+    )
+
+    # ---- 5. raster_sublane vs plain and vs raster_tile -------------------
+    def b2_checks(label, binned, width, height, **kw):
+        got = raster.rasterize_binned(binned, width, height, sublane=True, **kw)
+        check("raster_sublane", f"{label} vs plain", got, raster.rasterize_binned_sublane_reference(binned, width, height, **kw))
+        b1_kw = {k: v for k, v in kw.items() if k not in ("sublane_group", "bin_rows")}
+        if "bin_rows" not in kw:
+            check("raster_sublane", f"{label} vs raster_tile", got, raster.rasterize_binned(binned, width, height, **b1_kw))
+        return got
+
+    big_b = bin_triangles(big_ts, W, H, 128, 8, assemble="pallas", **big_kw)
+    k_big = big_kw["channels"].shape[-1]
+    dense_kw = dict(tile_w=128, tile_h=8, num_channels=k_big)
+    b2_checks("big_mesh 1080p", big_b, W, H, sublane_group=64, **dense_kw)
+    times["raster_sublane"] = timed(lambda: raster.rasterize_binned(big_b, W, H, sublane=True, sublane_group=64, **dense_kw), 10)
+    times["raster_sublane_plain"] = timed(lambda: raster.rasterize_binned_sublane_reference(big_b, W, H, **dense_kw))
+    times["raster_tile_dense"] = timed(lambda: raster.rasterize_binned(big_b, W, H, **dense_kw), 10)
+
+    inst_r = brt.Renderer(brt.RendererConfig(W, H))
+    inst_demo, inst_ts, inst_kw = dense_setup(inst_r, "instanced_demo", 0.3)
+    inst_b = bin_triangles(inst_ts, W, H, 128, 8, assemble="pallas", **inst_kw)
+    inst_rkw = dict(tile_w=128, tile_h=8, num_channels=inst_kw["channels"].shape[-1], depth_clip=False)
+    b2_checks("instanced 1080p", inst_b, W, H, sublane_group=32, **inst_rkw)
+    t_inst_b2 = timed(lambda: raster.rasterize_binned(inst_b, W, H, sublane=True, sublane_group=32, **inst_rkw), 10)
+    t_inst_b1 = timed(lambda: raster.rasterize_binned(inst_b, W, H, **inst_rkw), 10)
+
+    for compare in ("less", "less_equal", "greater", "greater_equal"):
+        clear = 0.0 if compare.startswith("greater") else 1.0
+        b2_checks(f"stress {compare}", stress_b, W, H, num_channels=3, depth_compare=compare, depth_clear=clear)
+    stress_ts = setup_triangles(s_clip, W, H)
+    band_b = bin_triangles(stress_ts, W, -(-H // 8) * 8, 128, 4, max_pairs=32 * n_stress, channels=s_col,
+                           col_major_ids=True, anchor_rows=8)
+    if bool(band_b.overflowed):
+        raise AssertionError("band-binned stress stream overflowed")
+    band = b2_checks("stress bin_rows=4", band_b, W, H, tile_w=128, tile_h=8, num_channels=3, bin_rows=4)
+    unbanded = raster.rasterize_vis(stress_ts, W, H, tile_w=128, tile_h=8, max_pairs=16 * n_stress,
+                                    channels=s_col, sublane=True)
+    check("raster_sublane", "stress bin_rows=4 vs unbanded", band, unbanded)
+    print(
+        f"[raster_sublane vs plain, vs raster_tile] big_mesh 1080p ({big_b.records.shape[1]} slots), "
+        f"instanced 1080p, stress under less/less_equal/greater/greater_equal, stress bin_rows=4: "
+        f"ints exact, max float diff {check.worst['raster_sublane']:.3g} (tol {FLOAT_TOL}) | big_mesh "
+        f"sublane {fmt(times['raster_sublane'])}, plain {fmt(times['raster_sublane_plain'])}, raster_tile "
+        f"{fmt(times['raster_tile_dense'])} | instanced sublane {fmt(t_inst_b2)}, raster_tile {fmt(t_inst_b1)} | {card}",
+        flush=True,
+    )
+
+    # ---- 6. oracle ------------------------------------------------------
     spec = importlib.util.spec_from_file_location(
         "brt_oracle", ROOT / "based_renderer_tpu" / "reference" / "oracle.py"
     )
     oracle = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(oracle)
+
+    def oracle_equal(label, got, want):
+        for k in ("tri_id", "depth_q"):
+            g = getattr(got, k).cpu().numpy()
+            if not np.array_equal(g, want[k]):
+                raise AssertionError(f"oracle {label}: {k} differs at {int((g != want[k]).sum())} pixels")
+
     for label, clip in (("cube", cube_clip), ("stress[:2048]", s_clip[:2048])):
-        want = oracle.rasterize(clip.cpu().numpy(), W, H)
         got, overflowed = raster.rasterize_vis(
             setup_triangles(clip, W, H), W, H, max_pairs=max(16 * clip.shape[0], 4096), return_overflow=True
         )
         if bool(overflowed):
             raise AssertionError(f"oracle {label}: binner overflowed")
-        for k in ("tri_id", "depth_q"):
-            g = getattr(got, k).cpu().numpy()
-            if not np.array_equal(g, want[k]):
-                raise AssertionError(f"oracle {label}: {k} differs at {int((g != want[k]).sum())} pixels")
-    print(f"[oracle] cube ({cube_clip.shape[0]} tris) and stress[:2048] at {W}x{H}: tri_id, depth_q bit-exact", flush=True)
+        oracle_equal(label, got, oracle.rasterize(clip.cpu().numpy(), W, H))
+    toy_r = brt.Renderer(brt.RendererConfig(W, H))
+    pipe, mesh, uniforms, _ = brt.demos.big_mesh_demo(toy_r, triangles=2000)
+    # The toy mesh's triangles span more tiles at 1080p than its 4.0 pair
+    # budget holds (it overflows there, in both packages); 16 holds them.
+    pipe = dataclasses.replace(pipe, raster_pairs_factor=16.0)
+    u = uniforms(0.2)
+    launches = (raster.SUBLANE_LAUNCHES, binassem.LAUNCHES)
+    frame = toy_r.render_frame(pipe, mesh, u)
+    if (raster.SUBLANE_LAUNCHES - launches[0], binassem.LAUNCHES - launches[1]) != (1, 1) or bool(frame.overflowed):
+        raise AssertionError("oracle big_mesh: the frame did not run the dense path once without overflow")
+    clip, _ = brt.shader.get(pipe.shader).vertex(mesh.attributes, {k: v.to(dev) for k, v in u.items()})
+    oracle_equal("big_mesh 2000", frame, oracle.rasterize(clip.reshape(-1, 3, 4).cpu().numpy(), W, H, cull_mode="back"))
+    print(
+        f"[oracle] cube ({cube_clip.shape[0]} tris) and stress[:2048] through raster_tile, big_mesh "
+        f"(2000 tris, back-face cull) through assemble_records + raster_sublane, at {W}x{H}: "
+        f"tri_id, depth_q bit-exact",
+        flush=True,
+    )
 
-    # ---- 5. end to end --------------------------------------------------
-    def run_frames(width, height, demo, frames):
-        r = brt.Renderer(brt.RendererConfig(width, height))
-        pipe, mesh, uniforms, _ = getattr(brt.demos, demo)(r)
-        times, overflow, finite, covered = [], None, None, None
+    # ---- 7. end to end --------------------------------------------------
+    def counts():
+        return raster.KERNEL_LAUNCHES, raster.SUBLANE_LAUNCHES, binassem.LAUNCHES
+
+    def run_frames(r, demo, frames, per_frame):
+        """Median ms/frame over ``frames`` frames; each frame must add
+        ``per_frame`` to (raster_tile, raster_sublane, assemble_records)."""
+        pipe, mesh, uniforms, inst = demo
+        times_, overflow, finite, covered = [], None, None, None
         for i in range(frames):
             u = uniforms(0.05 * i)
+            before = counts()
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
-            f = r.render_frame(pipe, mesh, u)
+            f = r.render_frame(pipe, mesh, u, instances=inst)
             end.record()
-            times.append((start, end))
+            got = tuple(a - b for a, b in zip(counts(), before))
+            if got != per_frame:
+                raise AssertionError(f"{pipe.shader} frame {i}: launches {got}, expected {per_frame}")
+            times_.append((start, end))
             ok = torch.isfinite(f.color_planar).all()
             cov = (f.tri_id >= 0).sum()
             overflow = f.overflowed if overflow is None else overflow | f.overflowed
@@ -211,46 +362,65 @@ def main() -> int:
             covered = cov if covered is None else torch.minimum(covered, cov)
         torch.cuda.synchronize()
         if bool(overflow) or not bool(finite) or int(covered) <= 0:
-            raise AssertionError(f"{demo}: overflowed={bool(overflow)} finite={bool(finite)} covered={int(covered)}")
-        if tuple(f.color_planar.shape) != (4, height, width):
-            raise AssertionError(f"{demo}: color shape {tuple(f.color_planar.shape)}")
-        return statistics.median(s.elapsed_time(e) for s, e in times), int(covered)
+            raise AssertionError(f"{pipe.shader}: overflowed={bool(overflow)} finite={bool(finite)} covered={int(covered)}")
+        w, h = r.config.width, r.config.height
+        if tuple(f.color_planar.shape) != (4, h, w):
+            raise AssertionError(f"{pipe.shader}: color shape {tuple(f.color_planar.shape)}")
+        return statistics.median(s.elapsed_time(e) for s, e in times_), int(covered)
 
-    raster.KERNEL_LAUNCHES = 0
-    cube_ms, cube_cov = run_frames(W, H, "cube_demo", FRAMES)
-    if raster.KERNEL_LAUNCHES != FRAMES:
-        raise AssertionError(f"cube frames launched the kernel {raster.KERNEL_LAUNCHES} times, not {FRAMES}")
-    tri_ms, tri_cov = run_frames(800, 600, "triangle_demo", FRAMES)
-    launches = raster.KERNEL_LAUNCHES
-    if launches != 2 * FRAMES:
-        raise AssertionError(f"the two demos launched the kernel {launches} times, not {2 * FRAMES}")
+    big4k_r = brt.Renderer(brt.RendererConfig(3840, 2160))
+    big4k_demo = brt.demos.big_mesh_demo(big4k_r)
+    cube_r = brt.Renderer(brt.RendererConfig(W, H))
+    tri_r = brt.Renderer(brt.RendererConfig(800, 600))
+    runs = [  # label, renderer, demo, kernel frames, plain frames, launches per frame
+        ("big_mesh 1920x1080", big_r, big_demo, 20, 3, (0, 1, 1)),
+        ("big_mesh 3840x2160", big4k_r, big4k_demo, 5, 2, (0, 1, 1)),
+        ("instanced 1920x1080", inst_r, inst_demo, 20, 3, (0, 1, 1)),
+        ("cube 1920x1080", cube_r, brt.demos.cube_demo(cube_r), 30, 10, (1, 0, 0)),
+        ("triangle 800x600", tri_r, brt.demos.triangle_demo(tri_r), 30, 10, (1, 0, 0)),
+    ]
+    raster.KERNEL_LAUNCHES = raster.SUBLANE_LAUNCHES = binassem.LAUNCHES = 0
+    results = {label: run_frames(r, demo, n, per) for label, r, demo, n, _, per in runs}
+    main_launches = dict(zip(("raster_tile", "raster_sublane", "assemble_records"), counts()))
+    expected = [sum(n * per[i] for _, _, _, n, _, per in runs) for i in range(3)]
+    if list(main_launches.values()) != expected:
+        raise AssertionError(f"main path launches {main_launches}, expected {expected}")
 
-    kernel_fn = raster.rasterize_binned
+    kernels = (raster.rasterize_binned, binassem.assemble_records)
     raster.rasterize_binned = raster.rasterize_binned_reference  # the plain path, for timing only
+    binassem.assemble_records = binassem.assemble_records_reference
     try:
-        plain_cube_ms, _ = run_frames(W, H, "cube_demo", FRAMES)
-        plain_tri_ms, _ = run_frames(800, 600, "triangle_demo", FRAMES)
+        plain = {label: run_frames(r, demo, n, (0, 0, 0))[0] for label, r, demo, _, n, _ in runs}
     finally:
-        raster.rasterize_binned = kernel_fn
-    if raster.KERNEL_LAUNCHES != launches:
-        raise AssertionError("the plain path launched the kernel")
+        raster.rasterize_binned, binassem.assemble_records = kernels
     print(
-        f"[end-to-end] {FRAMES} frames each, kernel launches {launches}; median ms/frame "
-        f"kernel/plain: cube 1920x1080 {cube_ms:.3f}/{plain_cube_ms:.3f} (min covered {cube_cov} px), "
-        f"triangle 800x600 {tri_ms:.3f}/{plain_tri_ms:.3f} (covered {tri_cov} px) | {card}",
+        "[end-to-end] median ms/frame kernel/plain (frames): "
+        + "; ".join(
+            f"{label} {results[label][0]:.3f}/{plain[label]:.3f} ({n}/{pn}, min covered {results[label][1]} px)"
+            for label, _, _, n, pn, _ in runs
+        )
+        + f" | launches {main_launches} | {card}",
         flush=True,
     )
 
-    print(json.dumps({"kernels": [{
-        "name": "raster_tile",
-        "route": "cuda",
-        "source": "based_renderer_tpu_torch/csrc/raster_tile.cu",
-        "replaces": "based_renderer_tpu/ops/raster_pallas.py:58",
-        "launches": launches,
-        "max_abs_err": worst["float"],
-        "ms": ms_cube,
-        "plain_ms": plain_cube,
-    }]}))
+    sources = {
+        "raster_tile": ("raster_tile.cu", "based_renderer_tpu/ops/raster_pallas.py:58"),
+        "raster_sublane": ("raster_sublane.cu", "based_renderer_tpu/ops/raster_pallas.py:711"),
+        "assemble_records": ("assemble_records.cu", "based_renderer_tpu/ops/binassem.py:97"),
+    }
+    print(json.dumps({"kernels": [
+        {
+            "name": k,
+            "route": "cuda",
+            "source": f"based_renderer_tpu_torch/csrc/{src}",
+            "replaces": replaces,
+            "launches": main_launches[k],
+            "max_abs_err": check.worst[k],
+            "ms": times[k]["ms"],
+            "plain_ms": times[f"{k}_plain"]["ms"],
+        }
+        for k, (src, replaces) in sources.items()
+    ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

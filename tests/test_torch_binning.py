@@ -114,9 +114,13 @@ def test_layout_widths():
 
 def test_modes_rejected():
     ts = tsetup.setup_triangles(torch.from_numpy(random_clip(6, 4)), W, H)
-    for kw in (dict(assemble="pallas"), dict(tmpl="pallas")):
-        with pytest.raises(FeatureNotPresentError, match="ROADMAP"):
-            tbin.bin_triangles(ts, W, H, **kw)
+    with pytest.raises(FeatureNotPresentError, match="ROADMAP"):
+        tbin.bin_triangles(ts, W, H, tmpl="pallas")
+    # The kernel assembly is in the slice: on live slots it equals "xla".
+    x = tbin.bin_triangles(ts, W, H, assemble="xla")
+    p = tbin.bin_triangles(ts, W, H, assemble="pallas")
+    live = int(x.num_pairs)
+    assert live > 0 and torch.equal(x.records[:, :live], p.records[:, :live])
     for kw in (dict(assemble="mosaic"), dict(tmpl="row")):
         with pytest.raises(ValueError):
             tbin.bin_triangles(ts, W, H, **kw)

@@ -10,6 +10,8 @@ from based_renderer_tpu import math3d as jm3d
 from based_renderer_tpu import shader as jshader
 from based_renderer_tpu.ops import clip as jclip
 from based_renderer_tpu.ops import vertex as jvertex
+from based_renderer_tpu import scene as jscene
+from based_renderer_tpu_torch import convert as tbrt_convert
 from based_renderer_tpu_torch import math3d as tm3d
 from based_renderer_tpu_torch import shader as tshader
 from based_renderer_tpu_torch.ops import clip as tclip
@@ -65,7 +67,9 @@ def test_mvp_transform_matches():
 
 
 def test_registry_holds_the_main_path_shaders():
-    assert set(tshader.names()) == {"flat_ndc", "flat_mvp", "vertex_color", "ndc_color"}
+    assert set(tshader.names()) == {
+        "flat_ndc", "flat_mvp", "vertex_color", "ndc_color", "blinn_phong", "instanced_color"
+    }
     with pytest.raises(KeyError):
         tshader.get("unlit")  # the Pipeline default is not registered in either package
     with pytest.raises(KeyError):
@@ -130,3 +134,79 @@ def test_clip_near_within_one_ulp_of_jitted_jax():
     ulp = np.spacing(np.float32(2.0))
     np.testing.assert_allclose(tp.numpy(), np.asarray(jp), rtol=0, atol=ulp)
     np.testing.assert_allclose(tv["color"].numpy(), np.asarray(jv["color"]), rtol=0, atol=ulp)
+
+
+def test_look_at_and_normal_matrix():
+    """rtol 1e-6: normalize, cross and the 3x3 inverse round in another order."""
+    for eye in ((3.0, -2.0, 5.0), (-7.5, -4.5, 0.3)):
+        np.testing.assert_allclose(
+            tm3d.look_at(eye, (0.0, 0.0, 0.0), (0.0, -1.0, 0.0)).numpy(),
+            np.asarray(jm3d.look_at(eye, (0.0, 0.0, 0.0), (0.0, -1.0, 0.0))),
+            rtol=1e-6, atol=1e-6,
+        )
+    model = tm3d.rotate(np.float32(0.7), (0.3, -1.0, 0.2)) @ torch.diag(torch.tensor([1.5, 0.5, 2.0, 1.0]))
+    np.testing.assert_allclose(
+        tm3d.normal_matrix(model).numpy(), np.asarray(jm3d.normal_matrix(jnp.asarray(model.numpy()))),
+        rtol=1e-6, atol=1e-6,
+    )
+
+
+def _instances(n_inst=3, seed=4):
+    rng = np.random.default_rng(seed)
+    tr = rng.normal(size=(n_inst, 4, 4)).astype(np.float32)
+    tr[:, 3] = (0, 0, 0, 1)
+    return {"transform": tr, "instance_color": rng.uniform(size=(n_inst, 3)).astype(np.float32)}
+
+
+@pytest.mark.parametrize("indexed", [False, True])
+def test_expand_instances(indexed):
+    """Tables broadcast per vertex, (I, 4, 4) flattened to 16 columns, and
+    indexed meshes offset by N per instance: exact."""
+    rng = np.random.default_rng(3)
+    pos = rng.normal(size=(6, 3)).astype(np.float32)
+    idx = np.array([[0, 1, 2], [3, 4, 5], [5, 0, 2]], np.int32) if indexed else None
+    inst = _instances()
+    tmesh = tbrt_convert.mesh_from_numpy({"position": pos}, idx)
+    jmesh = jscene.Mesh({"position": jnp.asarray(pos)}, None if idx is None else jnp.asarray(idx))
+    ta, ti = tvertex.expand_instances(tmesh, tbrt_convert.instances_from_numpy(inst))
+    ja, ji = jvertex.expand_instances(jmesh, {k: jnp.asarray(v) for k, v in inst.items()})
+    assert sorted(ta) == sorted(ja) and ta["transform"].shape == (18, 16)
+    for k in ta:
+        np.testing.assert_array_equal(ta[k].numpy(), np.asarray(ja[k]))
+    assert (ti is None) == (ji is None)
+    if indexed:
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(
+        tvertex.apply_instance_transform(ta).numpy(), np.asarray(jvertex.apply_instance_transform(ja)),
+        rtol=1e-6, atol=1e-6,
+    )
+
+
+def test_dense_shaders_vertex_and_fragment():
+    """blinn_phong and instanced_color: vertex stage rtol/atol 1e-6 from the
+    same matrices and attributes; fragment stage atol 1e-6 on the same
+    interpolated inputs (normalize and the specular pow round differently)."""
+    rng = np.random.default_rng(5)
+    tu, _ = _uniforms(0.9)
+    ju = {k: jnp.asarray(v.numpy()) for k, v in tu.items()}
+    extra = {"light_pos": np.float32([3, -3, -3]), "eye_pos": np.float32([0, 0, -2.2])}
+    tu.update({k: torch.from_numpy(v) for k, v in extra.items()})
+    ju.update({k: jnp.asarray(v) for k, v in extra.items()})
+    n = 24
+    attrs = {
+        "position": rng.uniform(-1, 1, size=(n, 3)).astype(np.float32),
+        "normal": rng.normal(size=(n, 3)).astype(np.float32),
+    }
+    inst_attrs = {"position": attrs["position"], **{k: np.repeat(v.reshape(3, -1), 8, axis=0) for k, v in _instances().items()}}
+    for name, a in (("blinn_phong", attrs), ("instanced_color", inst_attrs)):
+        t_clip, t_var = tshader.get(name).vertex({k: torch.from_numpy(v) for k, v in a.items()}, tu)
+        j_clip, j_var = jshader.get(name).vertex({k: jnp.asarray(v) for k, v in a.items()}, ju)
+        np.testing.assert_allclose(t_clip.numpy(), np.asarray(j_clip), rtol=1e-6, atol=1e-6)
+        assert sorted(t_var) == sorted(j_var)
+        for k in t_var:
+            np.testing.assert_allclose(t_var[k].numpy(), np.asarray(j_var[k]), rtol=1e-6, atol=1e-6)
+        assert tshader.get(name).attributes == jshader.get(name).attributes
+        frag = {k: rng.normal(size=(6, 5, v.shape[-1])).astype(np.float32) for k, v in t_var.items()}
+        t_rgba = tshader.get(name).fragment({k: torch.from_numpy(v) for k, v in frag.items()}, tu)
+        j_rgba = jshader.get(name).fragment({k: jnp.asarray(v) for k, v in frag.items()}, ju)
+        np.testing.assert_allclose(t_rgba.numpy(), np.asarray(j_rgba), rtol=0, atol=1e-6)

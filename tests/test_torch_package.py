@@ -69,10 +69,10 @@ _OUT_OF_SLICE = [
     dict(depth=tbrt.DepthState(bias_enable=True)),
     dict(shade_compact=0.5),
     dict(instance_cull=0.5),
-    dict(raster_sublane=True),
+    dict(raster_batch=8, raster_tile=(128, 8)),  # batch with eligible depth state
     dict(raster_batch=8),
     dict(raster_two_pass=True),
-    dict(raster_assemble="pallas"),
+    dict(raster_sublane=True, raster_two_pass=True),
     dict(raster_tmpl="pallas"),
 ]
 
@@ -94,10 +94,14 @@ def test_out_of_slice_renderer_state_raises():
     with pytest.raises(FeatureNotPresentError, match="ROADMAP"):
         r.upload_texture(np.zeros((4, 4, 3), np.float32))
     pipe, mesh, u, _ = tbrt.demos.cube_demo(r)
+    # Instance tables are in the slice: one identity instance under a
+    # shader that ignores the transform renders the plain draw.
     r.begin_frame()
-    with pytest.raises(FeatureNotPresentError, match="ROADMAP"):
-        r.draw(pipe, mesh, u(0.0), instances={"transform": np.eye(4, dtype=np.float32)[None]})
+    r.draw(pipe, mesh, u(0.0), instances={"transform": np.eye(4, dtype=np.float32)[None]})
+    inst = r.end_frame()
+    assert torch.equal(inst.tri_id, r.render_frame(pipe, mesh, u(0.0)).tri_id)
     # The default shader name is not registered, in either package.
+    r.begin_frame()
     with pytest.raises(ShaderError):
         r.draw(tbrt.Pipeline(), mesh)
 

@@ -144,12 +144,18 @@ def test_plain_version_is_the_cpu_path():
 
 @pytest.mark.parametrize(
     "kw",
-    [dict(two_pass=True), dict(msaa4=True), dict(batch=8), dict(sublane=True), dict(bin_rows=4)],
+    [
+        dict(two_pass=True),
+        dict(msaa4=True),
+        dict(batch=8),
+        dict(sublane=True, msaa4=True, tile_w=128, tile_h=8),
+        dict(batch=8, depth_compare="less_equal", tile_w=128, tile_h=8),
+    ],
 )
 def test_out_of_slice_raises(kw):
-    ts = tsetup.setup_triangles(torch.from_numpy(random_clip(12, 4)), 64, 64)
+    ts = tsetup.setup_triangles(torch.from_numpy(random_clip(12, 4)), 128, 64)
     with pytest.raises(FeatureNotPresentError, match="ROADMAP"):
-        traster.rasterize_vis(ts, 64, 64, **kw)
+        traster.rasterize_vis(ts, 128, 64, **kw)
 
 
 def test_schedule_knobs_change_nothing():
