@@ -12,11 +12,14 @@
 // plane re-anchored as (p00 + pdx*ox) + pdy*oy, the steps copied, the id
 // as f32).  Slots at or past *total get impossible edges (-2^30, zero
 // steps); every other field is still assembled from the slot's triangle.
+// With rw == 24 (coverage MSAA-4x, binassem.py:160-163) rows 16-21 carry
+// the raw per-subpixel edge coefficients A0..A2, B0..B2 (0 on invalid
+// slots) and rows 22-23 are zero.
 //
 // What bounds it on this card: memory traffic.  A slot reads ~100 bytes of
 // per-triangle fields at a data-dependent row (t_slot is sorted by tile, so
 // neighbouring slots read scattered triangles) plus 24 bytes of slot
-// inputs, and writes 64 bytes of int record and 4 * FW bytes of float
+// inputs, and writes 64 (MSAA: 96) bytes of int record and 4 * FW bytes of float
 // record (FW = 32 for the six varyings of the dense mesh): about 200 bytes
 // per slot read and written, with the arithmetic well under the memory
 // time.  The design: one thread per slot; each thread reads its triangle's
@@ -39,6 +42,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kRecordWidth = 16;
+constexpr int kRecordWidthMsaa = 24;
 constexpr int64_t kAnchorClamp = (1LL << 30) - 1;
 constexpr int32_t kInvalidEdge = -(1 << 30);
 constexpr int kSubpixel = 16;
@@ -64,9 +68,10 @@ struct Params {
   const int64_t* oy;      // (P,)
   const int64_t* total;   // ()
   int64_t id_offset;
-  int32_t* records;       // (16, P)
+  int32_t* records;       // (rw, P)
   float* frecords;        // (fw, P)
   int64_t num_slots;
+  int rw;
   int fw;
 };
 
@@ -117,6 +122,10 @@ __global__ void __launch_bounds__(kThreads) assemble_records_kernel(const Params
     rec[i * P] = invalid ? kInvalidEdge : (int32_t)eb;
     rec[(3 + i) * P] = invalid ? 0 : (int32_t)(a * kSubpixel);
     rec[(6 + i) * P] = invalid ? 0 : (int32_t)(b * kSubpixel);
+    if (p.rw == kRecordWidthMsaa) {
+      rec[(16 + i) * P] = invalid ? 0 : (int32_t)a;
+      rec[(19 + i) * P] = invalid ? 0 : (int32_t)b;
+    }
   }
 
   const int32_t zshift = p.zshift[t];
@@ -135,6 +144,10 @@ __global__ void __launch_bounds__(kThreads) assemble_records_kernel(const Params
   rec[13 * P] = (int32_t)(uint32_t)(uint64_t)tid;
   rec[14 * P] = 0;
   rec[15 * P] = 0;
+  if (p.rw == kRecordWidthMsaa) {
+    rec[22 * P] = 0;
+    rec[23 * P] = 0;
+  }
 
   const float oxf = (float)ox;
   const float oyf = (float)oy;
@@ -161,9 +174,10 @@ extern "C" cudaError_t brt_assemble_records(
     const void* gx, const void* gy,
     const void* planes, int num_planes,
     const void* t_slot, const void* ox, const void* oy, const void* total, int64_t id_offset,
-    void* records, void* frecords, int64_t num_slots, int fw,
+    void* records, void* frecords, int64_t num_slots, int rw, int fw,
     void* stream) {
   if (num_planes % 3 || fw < num_planes + 1) return cudaErrorInvalidValue;
+  if (rw != kRecordWidth && rw != kRecordWidthMsaa) return cudaErrorInvalidValue;
   if (num_slots <= 0) return cudaSuccess;
   Params p;
   p.a = static_cast<const int32_t*>(a);
@@ -187,6 +201,7 @@ extern "C" cudaError_t brt_assemble_records(
   p.records = static_cast<int32_t*>(records);
   p.frecords = static_cast<float*>(frecords);
   p.num_slots = num_slots;
+  p.rw = rw;
   p.fw = fw;
   const int64_t blocks = (num_slots + kThreads - 1) / kThreads;
   assemble_records_kernel<<<(unsigned)blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);

@@ -127,6 +127,7 @@ def _compile_and_link(nvcc: str, tmp: Path, path: Path) -> str:
 
 def _declare(lib: ctypes.CDLL):
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    i32s = ctypes.POINTER(ctypes.c_int32)
     lib.brt_raster_tile.restype = i
     lib.brt_raster_tile.argtypes = [
         p, p, i64,  # records, frecords, pair stride
@@ -152,6 +153,32 @@ def _declare(lib: ctypes.CDLL):
         i, i, i, i, i,  # has_scissor, sx0, sy0, sx1, sy1
         p,  # cudaStream_t
     ]
+    lib.brt_raster_msaa4.restype = i
+    lib.brt_raster_msaa4.argtypes = [
+        p, p, i64,  # records (24 rows), frecords, pair stride
+        p, p, i,  # tile_start, tile_count, num_tiles
+        p, p, p, p, p,  # init tri_id, depth_q, b0, b1, b2, each (4, H, W) (or null)
+        p, p,  # out ints (2, 4, H, W), out floats (4 + K, 4, H, W)
+        i, i, i, i, i,  # width, height, tile_w, tile_h, num_tx
+        i, i, i, i, i,  # depth test, compare, write, clip mode, clear depth_q
+        i,  # num_channels
+        i, i, i, i, i,  # has_scissor, sx0, sy0, sx1, sy1
+        i32s,  # (ddx, ddy) of the 4 samples (host memory)
+        p,  # cudaStream_t
+    ]
+    lib.brt_raster_msaa4_sublane.restype = i
+    lib.brt_raster_msaa4_sublane.argtypes = [
+        p, p, i64,  # records (24 rows), frecords, pair stride
+        p, p,  # tile_start, tile_count (one per tile)
+        p, p, p, p,  # init tri_id, depth_q, b0, b1, each (4, H, W) (or null)
+        p, p,  # out ints (2, 4, H, W), out floats (4 + K, 4, H, W)
+        i, i, i, i, i, i,  # width, height, tile_w, tile_h, num_tx, num_ty
+        i, i, i,  # depth compare, clip mode, clear depth_q
+        i,  # num_channels
+        i, i, i, i, i,  # has_scissor, sx0, sy0, sx1, sy1
+        i32s,  # (ddx, ddy) of the 4 samples (host memory)
+        p,  # cudaStream_t
+    ]
     lib.brt_assemble_records.restype = i
     lib.brt_assemble_records.argtypes = [
         p, p, p,  # a, b, e
@@ -160,6 +187,6 @@ def _declare(lib: ctypes.CDLL):
         p, p,  # gx, gy
         p, i,  # planes, num_planes
         p, p, p, p, i64,  # t_slot, ox, oy, total, id_offset
-        p, p, i64, i,  # records, frecords, num_slots, fw
+        p, p, i64, i, i,  # records, frecords, num_slots, rw (16 or 24), fw
         p,  # cudaStream_t
     ]

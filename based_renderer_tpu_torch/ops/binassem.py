@@ -12,6 +12,11 @@ Slots at or past ``total`` get impossible edges (-2^30, zero steps); their
 other fields are still assembled from the slot's triangle, as the TPU
 kernel does.
 
+Under ``msaa4`` the records are RECORD_WIDTH_MSAA rows wide: rows 16-21
+carry the raw (per-subpixel) edge coefficients A0..A2, B0..B2, zero on
+invalid slots, so the MSAA rasters can step the pixel-center edge values
+to the four sample positions; rows 22-23 are zero.
+
 ``assemble_records`` launches ``csrc/assemble_records.cu`` on CUDA tensors
 and runs ``assemble_records_reference`` on CPU tensors.  The reference is
 also the binner's ``assemble="xla"`` assembly.  The TPU gathers one fused
@@ -30,6 +35,7 @@ from . import fixedpoint as fp
 from .setup import depth_tile_anchor
 
 RECORD_WIDTH = 16
+RECORD_WIDTH_MSAA = 24  # + raw A0..A2, B0..B2 (rows 16-21) and two zero rows
 INVALID_EDGE = -(1 << 30)  # edge value that no pixel of a tile can reach
 
 #: Launches of the CUDA assembly kernel in this process (main-path proof).
@@ -54,8 +60,12 @@ class Templates(NamedTuple):
     id_offset: int  # tri_id = triangle index + id_offset
 
 
-def assemble_records(tmpl: Templates, t_slot, ox, oy, total, fw: int):
-    """Field-major (records (16, P) int32, frecords (fw, P) f32).
+def record_width(msaa4: bool) -> int:
+    return RECORD_WIDTH_MSAA if msaa4 else RECORD_WIDTH
+
+
+def assemble_records(tmpl: Templates, t_slot, ox, oy, total, fw: int, msaa4: bool = False):
+    """Field-major (records (record_width(msaa4), P) int32, frecords (fw, P) f32).
 
     ``t_slot``, ``ox``, ``oy`` are (P,) int64: each slot's triangle and
     tile-origin pixel; ``total`` is the () int64 count of live slots.
@@ -63,13 +73,13 @@ def assemble_records(tmpl: Templates, t_slot, ox, oy, total, fw: int):
     """
     dev = t_slot.device
     if dev.type == "cuda":
-        return _assemble_kernel(tmpl, t_slot, ox, oy, total, fw)
+        return _assemble_kernel(tmpl, t_slot, ox, oy, total, fw, msaa4)
     if dev.type == "cpu":
-        return assemble_records_reference(tmpl, t_slot, ox, oy, total, fw)
+        return assemble_records_reference(tmpl, t_slot, ox, oy, total, fw, msaa4)
     raise ValueError(f"no record assembly for device {dev}")
 
 
-def assemble_records_reference(tmpl: Templates, t_slot, ox, oy, total, fw: int):
+def assemble_records_reference(tmpl: Templates, t_slot, ox, oy, total, fw: int, msaa4: bool = False):
     """The plain PyTorch version of assemble_records, on any device."""
     dev = t_slot.device
     i64 = torch.int64
@@ -108,8 +118,11 @@ def assemble_records_reference(tmpl: Templates, t_slot, ox, oy, total, fw: int):
         ],
         dim=1,
     )
-    records = torch.zeros((RECORD_WIDTH, n), dtype=torch.int32, device=dev)
+    records = torch.zeros((record_width(msaa4), n), dtype=torch.int32, device=dev)
     records[:14] = rec.T.to(torch.int32)
+    if msaa4:
+        raw = torch.cat([a_s, b_s], dim=1)  # (P, 6) A0..A2, B0..B2
+        records[16:22] = torch.where(invalid, 0, raw).T.to(torch.int32)
 
     pl = tmpl.planes[t_slot]  # (P, 3 * (3 + K))
     oxf = ox.to(torch.float32)
@@ -125,7 +138,7 @@ def assemble_records_reference(tmpl: Templates, t_slot, ox, oy, total, fw: int):
     return records, frecords
 
 
-def _assemble_kernel(tmpl: Templates, t_slot, ox, oy, total, fw: int):
+def _assemble_kernel(tmpl: Templates, t_slot, ox, oy, total, fw: int, msaa4: bool = False):
     """Launch csrc/assemble_records.cu."""
     global LAUNCHES
     dev = t_slot.device
@@ -154,7 +167,8 @@ def _assemble_kernel(tmpl: Templates, t_slot, ox, oy, total, fw: int):
         ("total", total, i64, ()),
     ):
         _build.check_operand(name, x, dtype, shape, dev)
-    records = torch.empty((RECORD_WIDTH, n), dtype=i32, device=dev)
+    rw = record_width(msaa4)
+    records = torch.empty((rw, n), dtype=i32, device=dev)
     frecords = torch.empty((fw, n), dtype=f32, device=dev)
     p = _build.ptr
     rc = _build.load().brt_assemble_records(
@@ -164,7 +178,7 @@ def _assemble_kernel(tmpl: Templates, t_slot, ox, oy, total, fw: int):
         p(tmpl.gx), p(tmpl.gy),
         p(tmpl.planes), num_planes,
         p(t_slot), p(ox), p(oy), p(total), int(tmpl.id_offset),
-        p(records), p(frecords), n, fw,
+        p(records), p(frecords), n, rw, fw,
         _build.stream(dev),
     )
     if rc != 0:

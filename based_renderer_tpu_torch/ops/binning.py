@@ -21,6 +21,9 @@ int records (int32, RECORD_WIDTH rows), per (tile, tri) pair:
   12     zshift     per-triangle depth exponent
   13     tri_id     global triangle id (draw order)
   14..15 zero
+  16..21 A0..A2, B0..B2 raw per-subpixel edge coefficients (msaa4 only:
+                    RECORD_WIDTH_MSAA rows; 0 on invalid slots)
+  22..23 zero (msaa4 only)
 float records (f32, frecord_width(K) rows): planes q_o, dq_dx, dq_dy
 anchored at the tile origin for b0 (0..2), b1 (3..5), invw (6..8) and the
 K channels (9..9+3K), then tri_id as f32, then zero padding.
@@ -35,7 +38,7 @@ import torch
 from ..utils.errors import FeatureNotPresentError
 from . import binassem
 from . import fixedpoint as fp
-from .binassem import RECORD_WIDTH, Templates
+from .binassem import RECORD_WIDTH, Templates, record_width  # noqa: F401 (RECORD_WIDTH re-exported)
 
 FRECORD_BASE = 9  # b0 plane, b1 plane, invw plane
 SEGMENT_ALIGN = 128  # zero tail appended to both record arrays
@@ -65,7 +68,7 @@ def pallas_assembly_fits(num_channels: int) -> bool:
 
 
 class BinnedTriangles(NamedTuple):
-    records: torch.Tensor  # (RECORD_WIDTH, P_pad) int32
+    records: torch.Tensor  # (record_width(msaa4), P_pad) int32
     frecords: torch.Tensor  # (frecord_width(K), P_pad) float32
     tile_start: torch.Tensor  # (num_tiles,) int32 first sorted slot of the tile
     tile_count: torch.Tensor  # (num_tiles,) int32 records of the tile
@@ -286,6 +289,7 @@ def bin_triangles(
     tmpl: str = "xla",
     col_major_ids: bool = False,
     anchor_rows: int | None = None,
+    msaa4: bool = False,
 ) -> BinnedTriangles:
     """Bin triangles into screen tiles (tile dims must divide 128).
 
@@ -298,7 +302,8 @@ def bin_triangles(
     (divided by w first when ``perspective``).  ``col_major_ids`` and
     ``anchor_rows`` serve band binning (see the JAX package's binner):
     column-major tile ids, and records anchored at the enclosing output
-    tile of ``anchor_rows`` pixel rows.
+    tile of ``anchor_rows`` pixel rows.  ``msaa4`` gives the 24-row
+    records of coverage MSAA-4x (raw edge coefficients in rows 16-21).
     """
     _check_modes(assemble, tmpl)
     for d in (tile_w, tile_h):
@@ -315,7 +320,7 @@ def bin_triangles(
         padded = max_pairs + SEGMENT_ALIGN
         zeros_i = torch.zeros((num_tiles,), dtype=torch.int32, device=dev)
         return BinnedTriangles(
-            records=torch.zeros((RECORD_WIDTH, padded), dtype=torch.int32, device=dev),
+            records=torch.zeros((record_width(msaa4), padded), dtype=torch.int32, device=dev),
             frecords=torch.zeros((fw, padded), dtype=torch.float32, device=dev),
             tile_start=zeros_i,
             tile_count=zeros_i.clone(),
@@ -328,10 +333,10 @@ def bin_triangles(
         slots, col_major_ids, anchor_rows,
     )
     if assemble == "pallas" and pallas_assembly_fits(nch):
-        records, frecords = binassem.assemble_records(ps.tmpl, *padded_slots(ps), ps.total, fw)
+        records, frecords = binassem.assemble_records(ps.tmpl, *padded_slots(ps), ps.total, fw, msaa4)
     else:
         records, frecords = binassem.assemble_records_reference(
-            ps.tmpl, ps.t_slot, ps.ox, ps.oy, ps.total, fw
+            ps.tmpl, ps.t_slot, ps.ox, ps.oy, ps.total, fw, msaa4
         )
         tail = (0, SEGMENT_ALIGN)
         records = torch.nn.functional.pad(records, tail)

@@ -23,6 +23,26 @@ GUARD_LO = -GUARD_BAND_PIX * SUBPIXEL_SCALE  # -2^17
 GUARD_HI = GUARD_BAND_PIX * SUBPIXEL_SCALE - 1
 ANCHOR_CLAMP = (1 << 30) - 1  # tile-anchor clamp window
 
+# MSAA-4x sample positions (the Vulkan/D3D standard 4x rotated grid) in
+# 1/16-px units within the pixel: (6,2) (14,6) (2,10) (10,14), stored as
+# offsets from the pixel CENTER (8,8), so per-sample edge and depth values
+# derive from the pixel-center records by pure stepping.
+#
+# Coverage bound: in-tile pixel-center deltas are dx, dy <= 127*16 = 2032
+# subpixel units; with the sample offsets (|ddx|, |ddy| <= 6)
+#   |A*(dx+ddx) + B*(dy+ddy)| <= 2*(2^18-1)*2038 = 1,068,494,868 < 2^30-1,
+# so the clamped-anchor sign-class argument still holds, and
+# (2^30-1) + 1,068,494,868 = 2,142,236,691 < 2^31-1: the per-sample edge
+# sum stays within int32.
+#
+# Depth bound: per-sample depth is DEFINED as
+#   z_u_s = z_u + ((dzdx_q*ddx + dzdy_q*ddy) >> 4)        (arithmetic shift)
+# with |dz_s| <= (2*6*(2^21-1)) >> 4 = 1,572,863 < 2^21, so the in-tile
+# variation bound becomes V' = 2*(2^21-1)*127 + 1,572,863 = 534,249,217
+# < 2^29 and the depth plane's value-exactness proof goes through unchanged.
+MSAA4_OFFSETS = ((-2, -6), (6, -2), (-6, 2), (2, 6))  # (ddx, ddy) from center
+MSAA4_BBOX_PAD_FP = 6  # bbox widening (subpixel units): max |offset| above
+
 DEPTH_LSB_BITS = 24
 DEPTH_FRAC_BITS = 6
 DEPTH_ONE_Q = 1 << (DEPTH_LSB_BITS + DEPTH_FRAC_BITS)  # == 2^30 == depth 1.0

@@ -2,7 +2,7 @@
 
 The PyTorch counterpart of ``based_renderer_tpu/ops/raster_pallas.py``
 (``rasterize_vis_pallas`` / ``rasterize_binned``) and of
-``raster_xla.VisBuffer``.  Two kernels serve ``rasterize_binned``:
+``raster_xla.VisBuffer``.  Four kernels serve ``rasterize_binned``:
   * the sequential per-tile raster (``_raster_kernel`` on the TPU,
     ``csrc/raster_tile.cu`` here): per pixel, the winner is the last record
     of the tile, in draw order, that covers the pixel and passes the depth
@@ -13,7 +13,17 @@ The PyTorch counterpart of ``based_renderer_tpu/ops/raster_pallas.py``
     record under strict compares and the latest under the ``*_equal``
     ones, then held against the init depth; its plain version is
     ``rasterize_binned_sublane_reference``, written as a per-pixel
-    reduction over (record, pixel) keys.
+    reduction over (record, pixel) keys;
+  * their coverage MSAA-4x forms (``msaa4``): ``_raster_kernel_msaa4``
+    (``csrc/raster_msaa4.cu``) and ``_raster_kernel_msaa4_sublane``
+    (``csrc/raster_msaa4_sublane.cu``).  Coverage and the depth test run
+    per sample at the four positions of ``fp.MSAA4_OFFSETS``, each sample
+    stepped from the pixel-center edge and depth values by per-record
+    offsets; every plane of a sample's winner is evaluated at the pixel
+    CENTER.  Every output gains a leading sample axis of 4.  Their plain
+    versions are ``rasterize_binned_msaa4_reference`` (the sequential plain
+    raster with a sample axis) and ``rasterize_binned_msaa4_sublane_reference``
+    (the per-(pixel, sample) key reduction).
 CUDA tensors launch the kernels, CPU tensors take the plain versions.
 Each pair returns the same planes bit for bit: tri_id and depth_q are
 integer arithmetic, and every float plane of the winner is evaluated once
@@ -22,6 +32,7 @@ as (p0 + pdx*ix) + pdy*iy in single IEEE operations.
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
@@ -37,6 +48,11 @@ from .setup import TriSetup
 KERNEL_LAUNCHES = 0
 #: Launches of the sublane raster kernel (csrc/raster_sublane.cu).
 SUBLANE_LAUNCHES = 0
+#: Launches of the coverage MSAA-4x raster kernel (csrc/raster_msaa4.cu).
+MSAA_LAUNCHES = 0
+#: Launches of the MSAA-4x sublane raster kernel (csrc/raster_msaa4_sublane.cu).
+MSAA_SUBLANE_LAUNCHES = 0
+NUM_SAMPLES = 4
 
 _COMPARE_OPS = (
     "never",
@@ -52,7 +68,10 @@ _ORDERED_OPS = ("less", "less_equal", "greater", "greater_equal")
 
 
 class VisBuffer(NamedTuple):
-    """Per-pixel visibility: which triangle won, at what depth, where."""
+    """Per-pixel visibility: which triangle won, at what depth, where.
+
+    Under coverage MSAA-4x every plane is (4, H, W), one layer per sample.
+    """
 
     tri_id: torch.Tensor  # int32 (H, W), -1 = background
     depth_q: torch.Tensor  # int32 (H, W) quantized depth (1.0 == 2^30)
@@ -81,10 +100,15 @@ def _stencil_on(stencil) -> bool:
 
 
 def _check_slice(stencil, two_pass, msaa4, batch):
+    if batch and msaa4:  # raster_pallas.py:1997-2009
+        raise ValueError(
+            "batch rasterization requires depth test+write with an "
+            "ordered compare and no stencil/msaa/two_pass"
+        )
     for knob, on, step in (
         ("stencil", _stencil_on(stencil), "A.10"),
-        ("msaa4", msaa4, "A.9 and queue B4/B5"),
-        ("two_pass", two_pass, "queue B6"),
+        # msaa4 takes the MSAA kernel before two_pass (raster_pallas.py:2025-2028).
+        ("two_pass", two_pass and not msaa4, "queue B6"),
         ("batch", batch, "queue B7"),
     ):
         if on:
@@ -92,7 +116,7 @@ def _check_slice(stencil, two_pass, msaa4, batch):
 
 
 def _check_sublane(sublane, sublane_group, bin_rows, tile_w, tile_h, depth_test, depth_write,
-                   depth_compare, stencil, two_pass, batch):
+                   depth_compare, stencil, two_pass, batch, msaa4):
     """The JAX package's ValueErrors for the sublane route (raster_pallas.py:1946-1976)."""
     if bin_rows is not None and not sublane:
         raise ValueError("bin_rows (sub-tile band binning) requires the sublane kernel")
@@ -114,6 +138,8 @@ def _check_sublane(sublane, sublane_group, bin_rows, tile_w, tile_h, depth_test,
         raise ValueError("sublane rasterization requires tile_w == 128")
     if sublane_group % 8 or 128 % sublane_group:
         raise ValueError(f"sublane_group must be a multiple of 8 dividing 128, got {sublane_group}")
+    if bin_rows is not None and msaa4:
+        raise ValueError("bin_rows is not supported with msaa4 yet")
     if bin_rows is not None and (bin_rows <= 0 or tile_h % bin_rows):
         raise ValueError(f"bin_rows {bin_rows} must divide tile_h {tile_h}")
 
@@ -146,23 +172,26 @@ def _raster_planes_reference(
     init,
     num_channels,
     scissor,
+    msaa4=False,
 ):
     """Plain PyTorch raster over all tiles at once.
 
     Each tile's record list is padded to the largest count; a loop over
-    the record index updates the (num_tiles, th, tw) state with
-    torch.where.  Returns (ints (2, H, W), floats (4 + K, H, W)).
+    the record index updates the (S, num_tiles, th, tw) state with
+    torch.where, S = 4 sample layers under ``msaa4`` and 1 otherwise.
+    Returns (ints (2, [S,] H, W), floats (4 + K, [S,] H, W)).
     """
     dev = binned.records.device
     i32 = torch.int32
+    S = NUM_SAMPLES if msaa4 else 1
     num_tx = -(-width // tile_w)
     num_ty = -(-height // tile_h)
     nt = num_tx * num_ty
     pad_h, pad_w = num_ty * tile_h, num_tx * tile_w
 
-    def to_tiles(x, fill):  # (H, W) -> (nt, th, tw), padded with ``fill``
-        x = torch.nn.functional.pad(x, (0, pad_w - width, 0, pad_h - height), value=fill)
-        return x.reshape(num_ty, tile_h, num_tx, tile_w).permute(0, 2, 1, 3).reshape(nt, tile_h, tile_w)
+    def to_tiles(x, fill):  # (S, H, W) -> (S, nt, th, tw), padded with ``fill``
+        x = torch.nn.functional.pad(x.reshape(S, height, width), (0, pad_w - width, 0, pad_h - height), value=fill)
+        return x.reshape(S, num_ty, tile_h, num_tx, tile_w).transpose(2, 3).reshape(S, nt, tile_h, tile_w)
 
     ix = torch.arange(tile_w, dtype=i32, device=dev)[None, None, :]
     iy = torch.arange(tile_h, dtype=i32, device=dev)[None, :, None]
@@ -179,9 +208,9 @@ def _raster_planes_reference(
         zbuf = to_tiles(init.depth_q, clear_q)
         ids = to_tiles(init.tri_id, -1)
     else:
-        zbuf = torch.full((nt, tile_h, tile_w), clear_q, dtype=i32, device=dev)
-        ids = torch.full((nt, tile_h, tile_w), -1, dtype=i32, device=dev)
-    win = torch.full((nt, tile_h, tile_w), -1, dtype=torch.int64, device=dev)
+        zbuf = torch.full((S, nt, tile_h, tile_w), clear_q, dtype=i32, device=dev)
+        ids = torch.full((S, nt, tile_h, tile_w), -1, dtype=i32, device=dev)
+    win = torch.full((S, nt, tile_h, tile_w), -1, dtype=torch.int64, device=dev)
 
     start = binned.tile_start.to(torch.int64)
     count = binned.tile_count.to(torch.int64)
@@ -191,32 +220,43 @@ def _raster_planes_reference(
         slot = start[:, None] + r_idx[None, :]  # (nt, max_count)
         in_tile = r_idx[None, :] < count[:, None]
         slot = torch.where(in_tile, slot, 0)
-        rec = binned.records[:14][:, slot]  # (14, nt, max_count) int32
+        rec = binned.records[: 22 if msaa4 else 14][:, slot]  # (rows, nt, max_count) int32
         one_q = fp.DEPTH_ONE_Q
         for r in range(max_count):
-            f = rec[:, :, r][:, :, None, None]  # (14, nt, 1, 1)
+            f = rec[:, :, r][:, :, None, None]  # (rows, nt, 1, 1)
             e0 = f[0] + f[3] * ix + f[6] * iy
             e1 = f[1] + f[4] * ix + f[7] * iy
             e2 = f[2] + f[5] * ix + f[8] * iy
-            passes = (e0 >= 0) & (e1 >= 0) & (e2 >= 0) & in_sc
-            passes &= in_tile[:, r][:, None, None]
+            live = in_sc & in_tile[:, r][:, None, None]
             zshift = f[12].to(torch.int64)
-            z_u = (f[9] + f[10] * ix + f[11] * iy).to(torch.int64)
+            z_u = f[9] + f[10] * ix + f[11] * iy  # int32, as the TPU lanes wrap
             hi = (torch.full_like(zshift, 1 << 29) >> zshift) + 1
-            z_c = torch.maximum(torch.minimum(z_u, hi), -hi)
-            z = (z_c * (torch.ones_like(zshift) << zshift) + (1 << 29)).to(i32)
-            if clip_mode == 2:
-                z = z.clamp(0, one_q)
-            elif clip_mode == 1:
-                passes &= (z >= 0) & (z <= one_q)
-            if depth_test:
-                passes &= _compare(depth_compare, z, zbuf)
-            if depth_write:
-                zbuf = torch.where(passes, z, zbuf)
-            ids = torch.where(passes, f[13], ids)
-            win = torch.where(passes, slot[:, r][:, None, None], win)
+            for s in range(S):
+                if msaa4:
+                    # Per-record scalar offsets to sample s (fp.MSAA4_OFFSETS bounds).
+                    ddx, ddy = fp.MSAA4_OFFSETS[s]
+                    o0 = f[16] * ddx + f[19] * ddy
+                    o1 = f[17] * ddx + f[20] * ddy
+                    o2 = f[18] * ddx + f[21] * ddy
+                    passes = (e0 + o0 >= 0) & (e1 + o1 >= 0) & (e2 + o2 >= 0) & live
+                    z_s = z_u + ((f[10] * ddx + f[11] * ddy) >> 4)  # arithmetic shift: floor
+                else:
+                    passes = (e0 >= 0) & (e1 >= 0) & (e2 >= 0) & live
+                    z_s = z_u
+                z_c = torch.maximum(torch.minimum(z_s.to(torch.int64), hi), -hi)
+                z = (z_c * (torch.ones_like(zshift) << zshift) + (1 << 29)).to(i32)
+                if clip_mode == 2:
+                    z = z.clamp(0, one_q)
+                elif clip_mode == 1:
+                    passes &= (z >= 0) & (z <= one_q)
+                if depth_test:
+                    passes &= _compare(depth_compare, z, zbuf[s])
+                if depth_write:
+                    zbuf[s] = torch.where(passes, z, zbuf[s])
+                ids[s] = torch.where(passes, f[13], ids[s])
+                win[s] = torch.where(passes, slot[:, r][:, None, None], win[s])
 
-    # Float planes of the winner, evaluated once.
+    # Float planes of each sample's winner, evaluated once at the pixel center.
     won = win >= 0
     w_slot = win.clamp_min(0)
     ixf = ix.to(torch.float32)
@@ -227,7 +267,7 @@ def _raster_planes_reference(
         p0, pdx, pdy = fr[row][w_slot], fr[row + 1][w_slot], fr[row + 2][w_slot]
         return (p0 + pdx * ixf) + pdy * iyf
 
-    zeros = torch.zeros((nt, tile_h, tile_w), dtype=torch.float32, device=dev)
+    zeros = torch.zeros((S, nt, tile_h, tile_w), dtype=torch.float32, device=dev)
     if init is not None:
         base = [to_tiles(init.b0, 0.0), to_tiles(init.b1, 0.0), to_tiles(init.b2, 0.0)]
     else:
@@ -238,10 +278,11 @@ def _raster_planes_reference(
     invw = torch.where(won, plane(6), torch.ones_like(zeros))
     chans = [torch.where(won, plane(9 + 3 * c), zeros) for c in range(num_channels)]
 
-    def untile(x):  # (n, nt, th, tw) -> (n, H, W)
+    def untile(x):  # (n, S, nt, th, tw) -> (n, [S,] H, W)
         n = x.shape[0]
-        x = x.reshape(n, num_ty, num_tx, tile_h, tile_w).permute(0, 1, 3, 2, 4)
-        return x.reshape(n, pad_h, pad_w)[:, :height, :width].contiguous()
+        x = x.reshape(n, S, num_ty, num_tx, tile_h, tile_w).transpose(3, 4)
+        x = x.reshape(n, S, pad_h, pad_w)[..., :height, :width]
+        return (x if msaa4 else x[:, 0]).contiguous()
 
     ints = untile(torch.stack([ids, zbuf]))
     floats = untile(torch.stack([b0, b1, b2, invw, *chans]))
@@ -263,7 +304,7 @@ def _compare(op: str, z, zbuf):
     }[op](z, zbuf)
 
 
-def _kernel_operands(binned, width, height, num_bins, num_channels, init):
+def _kernel_operands(binned, width, height, num_bins, num_channels, init, msaa4=False):
     """Check what a raster kernel reads; returns the init planes (or Nones)."""
     records, frecords = binned.records, binned.frecords
     dev = records.device
@@ -275,8 +316,9 @@ def _kernel_operands(binned, width, height, num_bins, num_channels, init):
         ("tile_count", binned.tile_count, torch.int32, (num_bins,)),
     ):
         _build.check_operand(name, t, dtype, shape, dev)
-    if records.shape[0] < 14:
-        raise ValueError(f"records need at least 14 rows, got {records.shape[0]}")
+    need_rows = 22 if msaa4 else 14
+    if records.shape[0] < need_rows:
+        raise ValueError(f"records need at least {need_rows} rows, got {records.shape[0]}")
     if frecords.shape[0] < 9 + 3 * num_channels:
         raise ValueError(
             f"frecords have {frecords.shape[0]} rows; {num_channels} channels need {9 + 3 * num_channels}"
@@ -284,17 +326,26 @@ def _kernel_operands(binned, width, height, num_bins, num_channels, init):
     if init is None:
         return [None] * 5
     init_t = [init.tri_id, init.depth_q, init.b0, init.b1, init.b2]
+    plane = (NUM_SAMPLES, height, width) if msaa4 else (height, width)
     for name, t, dtype in zip(
         ("tri_id", "depth_q", "b0", "b1", "b2"), init_t, (torch.int32,) * 2 + (torch.float32,) * 3
     ):
-        _build.check_operand("init." + name, t, dtype, (height, width), dev)
+        _build.check_operand("init." + name, t, dtype, plane, dev)
     return init_t
 
 
-def _outputs(width, height, num_channels, dev):
-    ints = torch.empty((2, height, width), dtype=torch.int32, device=dev)
-    floats = torch.empty((4 + num_channels, height, width), dtype=torch.float32, device=dev)
+def _outputs(width, height, num_channels, dev, msaa4=False):
+    plane = (NUM_SAMPLES, height, width) if msaa4 else (height, width)
+    ints = torch.empty((2, *plane), dtype=torch.int32, device=dev)
+    floats = torch.empty((4 + num_channels, *plane), dtype=torch.float32, device=dev)
     return ints, floats
+
+
+def _sample_offsets(msaa4):
+    """The MSAA kernels' trailing argument: fp.MSAA4_OFFSETS as 8 int32s."""
+    if not msaa4:
+        return ()
+    return ((ctypes.c_int32 * 8)(*(v for o in fp.MSAA4_OFFSETS for v in o)),)
 
 
 def _raster_planes_kernel(
@@ -311,16 +362,19 @@ def _raster_planes_kernel(
     init,
     num_channels,
     scissor,
+    msaa4=False,
 ):
-    """Launch csrc/raster_tile.cu; returns (ints (2, H, W), floats (4 + K, H, W))."""
-    global KERNEL_LAUNCHES
+    """Launch csrc/raster_tile.cu, or csrc/raster_msaa4.cu under ``msaa4``;
+    returns (ints (2, [4,] H, W), floats (4 + K, [4,] H, W))."""
+    global KERNEL_LAUNCHES, MSAA_LAUNCHES
     dev = binned.records.device
     num_tx = -(-width // tile_w)
     num_tiles = num_tx * -(-height // tile_h)
-    init_t = _kernel_operands(binned, width, height, num_tiles, num_channels, init)
-    ints, floats = _outputs(width, height, num_channels, dev)
+    init_t = _kernel_operands(binned, width, height, num_tiles, num_channels, init, msaa4)
+    ints, floats = _outputs(width, height, num_channels, dev, msaa4)
     sc = (0, 0, 0, 0) if scissor is None else tuple(int(v) for v in scissor)
-    rc = _build.load().brt_raster_tile(
+    lib = _build.load()
+    rc = (lib.brt_raster_msaa4 if msaa4 else lib.brt_raster_tile)(
         _build.ptr(binned.records),
         _build.ptr(binned.frecords),
         binned.records.shape[1],
@@ -343,29 +397,37 @@ def _raster_planes_kernel(
         num_channels,
         int(scissor is not None),
         *sc,
+        *_sample_offsets(msaa4),
         _build.stream(dev),
     )
     if rc != 0:
-        raise RuntimeError(f"raster_tile kernel launch failed: cudaError {rc}")
-    KERNEL_LAUNCHES += 1
+        raise RuntimeError(f"{'raster_msaa4' if msaa4 else 'raster_tile'} kernel launch failed: cudaError {rc}")
+    if msaa4:
+        MSAA_LAUNCHES += 1
+    else:
+        KERNEL_LAUNCHES += 1
     return ints, floats
 
 
 def _sublane_planes_kernel(
     binned, width, height, tile_w, tile_h, depth_compare, clip_mode, clear_q, init, num_channels,
-    scissor, bin_rows,
+    scissor, bin_rows, msaa4=False,
 ):
-    """Launch csrc/raster_sublane.cu; returns (ints (2, H, W), floats (4 + K, H, W))."""
-    global SUBLANE_LAUNCHES
+    """Launch csrc/raster_sublane.cu, or csrc/raster_msaa4_sublane.cu under
+    ``msaa4`` (which has no band binning); returns (ints (2, [4,] H, W),
+    floats (4 + K, [4,] H, W))."""
+    global SUBLANE_LAUNCHES, MSAA_SUBLANE_LAUNCHES
     dev = binned.records.device
     num_tx = -(-width // tile_w)
     num_ty = -(-height // tile_h)
     band_rows = tile_h if bin_rows is None else bin_rows
     num_bins = num_tx * num_ty * (tile_h // band_rows)
-    init_t = _kernel_operands(binned, width, height, num_bins, num_channels, init)
-    ints, floats = _outputs(width, height, num_channels, dev)
+    init_t = _kernel_operands(binned, width, height, num_bins, num_channels, init, msaa4)
+    ints, floats = _outputs(width, height, num_channels, dev, msaa4)
     sc = (0, 0, 0, 0) if scissor is None else tuple(int(v) for v in scissor)
-    rc = _build.load().brt_raster_sublane(
+    lib = _build.load()
+    band = () if msaa4 else (int(bin_rows is not None), band_rows)
+    rc = (lib.brt_raster_msaa4_sublane if msaa4 else lib.brt_raster_sublane)(
         _build.ptr(binned.records),
         _build.ptr(binned.frecords),
         binned.records.shape[1],
@@ -380,19 +442,23 @@ def _sublane_planes_kernel(
         tile_h,
         num_tx,
         num_ty,
-        int(bin_rows is not None),
-        band_rows,
+        *band,
         _COMPARE_OPS.index(depth_compare),
         clip_mode,
         clear_q,
         num_channels,
         int(scissor is not None),
         *sc,
+        *_sample_offsets(msaa4),
         _build.stream(dev),
     )
     if rc != 0:
-        raise RuntimeError(f"raster_sublane kernel launch failed: cudaError {rc}")
-    SUBLANE_LAUNCHES += 1
+        name = "raster_msaa4_sublane" if msaa4 else "raster_sublane"
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+    if msaa4:
+        MSAA_SUBLANE_LAUNCHES += 1
+    else:
+        SUBLANE_LAUNCHES += 1
     return ints, floats
 
 
@@ -402,21 +468,25 @@ _WORD = (1 << 32) - 1
 
 def _sublane_planes_reference(
     binned, width, height, tile_w, tile_h, depth_compare, clip_mode, clear_q, init, num_channels,
-    scissor, bin_rows,
+    scissor, bin_rows, msaa4=False,
 ):
-    """Plain PyTorch sublane raster, written as a per-pixel reduction.
+    """Plain PyTorch sublane raster, written as a per-(pixel, sample) reduction.
 
-    Every (record, pixel) pair of the record's bin (its tile, or its band
-    of tile rows under band binning) that is covered, inside the scissor
-    and not clipped gives one int64 key, depth * 2^32 + word: the depth is
-    negated under the greater compares, and the word is the record's slot
-    (complemented under the *_equal compares).  scatter_reduce keeps each
-    pixel's smallest key, which is its winner; the winner is then held
-    against the init or clear depth.  Slots go in chunks to bound memory.
-    Returns (ints (2, H, W), floats (4 + K, H, W)).
+    Every (record, pixel, sample) triple of the record's bin (its tile, or
+    its band of tile rows under band binning) that is covered, inside the
+    scissor and not clipped gives one int64 key, depth * 2^32 + word: the
+    depth is negated under the greater compares, and the word is the
+    record's slot (complemented under the *_equal compares).  Under
+    ``msaa4`` each of the 4 sample layers has its own keys, its coverage
+    and depth stepped from the pixel center by the record's per-sample
+    offsets.  scatter_reduce keeps each (pixel, sample)'s smallest key,
+    which is its winner; the winner is then held against the init or clear
+    depth.  Slots go in chunks to bound memory.
+    Returns (ints (2, [S,] H, W), floats (4 + K, [S,] H, W)).
     """
     dev = binned.records.device
     i32, i64 = torch.int32, torch.int64
+    S = NUM_SAMPLES if msaa4 else 1
     num_tx = -(-width // tile_w)
     num_ty = -(-height // tile_h)
     pad_w, pad_h = num_tx * tile_w, num_ty * tile_h
@@ -427,11 +497,11 @@ def _sublane_planes_reference(
     start = binned.tile_start.to(i64)
     ends = start + binned.tile_count.to(i64)
     num_bins = start.shape[0]
-    keys = torch.full((pad_h * pad_w,), _INT64_MAX, dtype=i64, device=dev)
+    keys = torch.full((S, pad_h * pad_w), _INT64_MAX, dtype=i64, device=dev)
     ix = torch.arange(tile_w, dtype=i32, device=dev)[None, None, :]
     rows = torch.arange(band, dtype=i64, device=dev)[None, :]
     n_slots = int(ends.max()) if num_bins else 0
-    chunk = max(1, (1 << 22) // (band * tile_w))
+    chunk = max(1, (1 << 22) // (band * tile_w * S))
     for s0 in range(0, n_slots, chunk):
         slot = torch.arange(s0, min(s0 + chunk, n_slots), dtype=i64, device=dev)
         b = torch.searchsorted(ends, slot, right=True).clamp_max(num_bins - 1)
@@ -444,32 +514,42 @@ def _sublane_planes_reference(
             tx, rem = torch.div(b, num_by, rounding_mode="floor"), b % num_by
             ty, row0 = torch.div(rem, bands, rounding_mode="floor"), (rem % bands) * band
         iy = (row0[:, None] + rows).to(i32)[:, :, None]  # (C, band, 1) rows of the tile
-        f = binned.records[:13, slot][:, :, None, None]  # (13, C, 1, 1)
+        f = binned.records[: 22 if msaa4 else 13, slot][:, :, None, None]  # (rows, C, 1, 1)
         e0 = f[0] + f[3] * ix + f[6] * iy
         e1 = f[1] + f[4] * ix + f[7] * iy
         e2 = f[2] + f[5] * ix + f[8] * iy
-        ok = (e0 >= 0) & (e1 >= 0) & (e2 >= 0)
         gx = (tx * tile_w).to(i32)[:, None, None] + ix
         gy = (ty * tile_h).to(i32)[:, None, None] + iy
         if scissor is not None:
             sx0, sy0, sx1, sy1 = scissor
-            ok &= (gx >= sx0) & (gx < sx1) & (gy >= sy0) & (gy < sy1)
+            in_sc = (gx >= sx0) & (gx < sx1) & (gy >= sy0) & (gy < sy1)
         zshift = f[12].to(i64)
-        z_u = (f[9] + f[10] * ix + f[11] * iy).to(i64)
+        z_u = f[9] + f[10] * ix + f[11] * iy  # int32, as the TPU lanes wrap
         hi = (torch.full_like(zshift, 1 << 29) >> zshift) + 1
-        z_c = torch.maximum(torch.minimum(z_u, hi), -hi)
-        z = (z_c * (torch.ones_like(zshift) << zshift) + (1 << 29)).to(i32)
-        if clip_mode == 2:
-            z = z.clamp(0, fp.DEPTH_ONE_Q)
-        elif clip_mode == 1:
-            ok &= (z >= 0) & (z <= fp.DEPTH_ONE_Q)
         word = slot if strict else _WORD - slot
-        key = (-z if greater else z).to(i64) * (1 << 32) + word[:, None, None]
-        key = torch.where(ok, key, _INT64_MAX)
         pix = gy.to(i64) * pad_w + gx.to(i64)
-        keys.scatter_reduce_(0, pix.expand_as(key).reshape(-1), key.reshape(-1), "amin")
+        for s in range(S):
+            if msaa4:
+                ddx, ddy = fp.MSAA4_OFFSETS[s]
+                ok = (e0 + (f[16] * ddx + f[19] * ddy) >= 0) & (e1 + (f[17] * ddx + f[20] * ddy) >= 0)
+                ok &= e2 + (f[18] * ddx + f[21] * ddy) >= 0
+                z_s = z_u + ((f[10] * ddx + f[11] * ddy) >> 4)  # arithmetic shift: floor
+            else:
+                ok = (e0 >= 0) & (e1 >= 0) & (e2 >= 0)
+                z_s = z_u
+            if scissor is not None:
+                ok &= in_sc
+            z_c = torch.maximum(torch.minimum(z_s.to(i64), hi), -hi)
+            z = (z_c * (torch.ones_like(zshift) << zshift) + (1 << 29)).to(i32)
+            if clip_mode == 2:
+                z = z.clamp(0, fp.DEPTH_ONE_Q)
+            elif clip_mode == 1:
+                ok &= (z >= 0) & (z <= fp.DEPTH_ONE_Q)
+            key = (-z if greater else z).to(i64) * (1 << 32) + word[:, None, None]
+            key = torch.where(ok, key, _INT64_MAX)
+            keys[s].scatter_reduce_(0, pix.expand_as(key).reshape(-1), key.reshape(-1), "amin")
 
-    keys = keys.reshape(pad_h, pad_w)
+    keys = keys.reshape(S, pad_h, pad_w)
     has = keys != _INT64_MAX
     zk = keys >> 32
     z = (-zk if greater else zk).to(i32)
@@ -477,15 +557,16 @@ def _sublane_planes_reference(
     slot = torch.where(has, word if strict else _WORD - word, 0)
 
     def padded(x, fill):
+        x = x.reshape(S, height, width)
         return torch.nn.functional.pad(x, (0, pad_w - width, 0, pad_h - height), value=fill)
 
     if init is not None:
         zbuf, base_id = padded(init.depth_q, clear_q), padded(init.tri_id, -1)
         base_b0, base_b1 = padded(init.b0, 0.0), padded(init.b1, 0.0)
     else:
-        zbuf = torch.full((pad_h, pad_w), clear_q, dtype=i32, device=dev)
+        zbuf = torch.full((S, pad_h, pad_w), clear_q, dtype=i32, device=dev)
         base_id = torch.full_like(zbuf, -1)
-        base_b0 = base_b1 = torch.zeros((pad_h, pad_w), dtype=torch.float32, device=dev)
+        base_b0 = base_b1 = torch.zeros((S, pad_h, pad_w), dtype=torch.float32, device=dev)
     take = has & _compare(depth_compare, z, zbuf)
     depth = torch.where(take, z, zbuf)
     ids = torch.where(take, binned.records[13][slot], base_id)
@@ -498,15 +579,18 @@ def _sublane_planes_reference(
         p0, pdx, pdy = fr[row][slot], fr[row + 1][slot], fr[row + 2][slot]
         return (p0 + pdx * ixf) + pdy * iyf
 
-    zeros = torch.zeros((pad_h, pad_w), dtype=torch.float32, device=dev)
+    zeros = torch.zeros((S, pad_h, pad_w), dtype=torch.float32, device=dev)
     b0 = torch.where(take, plane(0), base_b0)
     b1 = torch.where(take, plane(3), base_b1)
     b2 = torch.where(ids >= 0, (1.0 - b0) - b1, zeros)
     invw = torch.where(take, plane(6), torch.ones_like(zeros))
     chans = [torch.where(take, plane(9 + 3 * c), zeros) for c in range(num_channels)]
-    ints = torch.stack([ids, depth])[:, :height, :width].contiguous()
-    floats = torch.stack([b0, b1, b2, invw, *chans])[:, :height, :width].contiguous()
-    return ints, floats
+
+    def crop(x):  # (n, S, pad_h, pad_w) -> (n, [S,] H, W)
+        x = x[..., :height, :width]
+        return (x if msaa4 else x[:, 0]).contiguous()
+
+    return crop(torch.stack([ids, depth])), crop(torch.stack([b0, b1, b2, invw, *chans]))
 
 
 def _rasterize(
@@ -538,7 +622,7 @@ def _rasterize(
     if depth_compare not in _COMPARE_OPS:
         raise ValueError(f"bad depth compare {depth_compare!r}; one of {_COMPARE_OPS}")
     _check_sublane(sublane, sublane_group, bin_rows, tile_w, tile_h, depth_test, depth_write,
-                   depth_compare, stencil, two_pass, batch)
+                   depth_compare, stencil, two_pass, batch, msaa4)
     _check_slice(stencil, two_pass, msaa4, batch)
     _check_tile(tile_w, tile_h)
     clip_mode = _clip_mode(depth_clip)
@@ -546,11 +630,14 @@ def _rasterize(
     args = (binned, width, height, tile_w, tile_h)
     if sublane:
         fn = _sublane_planes_kernel if use_kernel else _sublane_planes_reference
-        ints, floats = fn(*args, depth_compare, clip_mode, clear_q, init, num_channels, scissor, bin_rows)
+        ints, floats = fn(
+            *args, depth_compare, clip_mode, clear_q, init, num_channels, scissor, bin_rows, msaa4=msaa4
+        )
     else:
         fn = _raster_planes_kernel if use_kernel else _raster_planes_reference
         ints, floats = fn(
-            *args, depth_test, depth_compare, depth_write, clip_mode, clear_q, init, num_channels, scissor
+            *args, depth_test, depth_compare, depth_write, clip_mode, clear_q, init, num_channels, scissor,
+            msaa4=msaa4,
         )
     return _package(ints, floats, num_channels)
 
@@ -565,12 +652,16 @@ def rasterize_binned(binned, *args, **kwargs):
     sublane=False, sublane_group=8, bin_rows=None).  ``sublane`` takes the
     order-independent raster, with the JAX package's ValueErrors on
     ineligible modes; ``bin_rows`` reads a band-binned stream (see
-    rasterize_vis).  CUDA tensors launch the Hopper kernels; CPU tensors
-    take the plain PyTorch versions.  Returns a VisBuffer when
-    ``num_channels`` is 0, else (vis, interp (K, H, W), invw (H, W)).
-    ``skip_losers``, ``unroll`` and ``sublane_group`` only schedule work
-    on a TPU: they are accepted and change nothing.  Stencil, MSAA,
-    two-pass and batched rasterization raise FeatureNotPresentError.
+    rasterize_vis).  ``msaa4`` reads 24-row MSAA records (bin_triangles
+    with ``msaa4``) and rasterizes coverage MSAA-4x: every output gains a
+    leading sample axis of 4.  CUDA tensors launch the Hopper kernels; CPU
+    tensors take the plain PyTorch versions.  Returns a VisBuffer when
+    ``num_channels`` is 0, else (vis, interp (K, [4,] H, W), invw
+    ([4,] H, W)).  ``skip_losers``, ``unroll`` and ``sublane_group`` only
+    schedule work on a TPU: they are accepted and change nothing; so is
+    ``two_pass`` under ``msaa4``, which the MSAA kernel serves, as in the
+    JAX package.  Stencil, two-pass and batched rasterization raise
+    FeatureNotPresentError.
     """
     dev = binned.records.device
     if dev.type not in ("cuda", "cpu"):
@@ -586,6 +677,16 @@ def rasterize_binned_reference(binned, *args, **kwargs):
 def rasterize_binned_sublane_reference(binned, *args, **kwargs):
     """The plain PyTorch version of the sublane raster, on any device."""
     return _rasterize(False, binned, *args, sublane=True, **kwargs)
+
+
+def rasterize_binned_msaa4_reference(binned, *args, **kwargs):
+    """The plain PyTorch version of the MSAA-4x raster, on any device."""
+    return _rasterize(False, binned, *args, msaa4=True, **kwargs)
+
+
+def rasterize_binned_msaa4_sublane_reference(binned, *args, **kwargs):
+    """The plain PyTorch version of the MSAA-4x sublane raster, on any device."""
+    return _rasterize(False, binned, *args, msaa4=True, sublane=True, **kwargs)
 
 
 def rasterize_vis(
@@ -629,10 +730,12 @@ def rasterize_vis(
     the binner's overflow flag.  ``bin_rows`` (sublane only) bins at
     (tile_w x bin_rows) bands with column-major bin ids over a height
     padded to the tile grid, each record anchored at its output tile, so
-    every band of a tile reads only its own records.
+    every band of a tile reads only its own records.  ``msaa4`` bins
+    24-row MSAA records and rasterizes coverage MSAA-4x (per-sample planes
+    (4, H, W); set up with bbox_pad_fp=fp.MSAA4_BBOX_PAD_FP).
     """
     _check_sublane(sublane, sublane_group, bin_rows, tile_w, tile_h, depth_test, depth_write,
-                   depth_compare, stencil, two_pass, batch)
+                   depth_compare, stencil, two_pass, batch, msaa4)
     _check_slice(stencil, two_pass, msaa4, batch)
     num_ch = 0 if channels is None else channels.shape[-1]
     bin_kw = dict(
@@ -643,6 +746,7 @@ def rasterize_vis(
         slots=slots,
         assemble=assemble,
         tmpl=tmpl,
+        msaa4=msaa4,
     )
     if bin_rows is None:
         binned = bin_triangles(ts, width, height, tile_w, tile_h, **bin_kw)
@@ -670,6 +774,8 @@ def rasterize_vis(
         sublane=sublane,
         sublane_group=sublane_group,
         bin_rows=bin_rows,
+        two_pass=two_pass,
+        msaa4=msaa4,
     )
     if not return_overflow:
         return out

@@ -55,8 +55,9 @@ def setup_triangles(
     front_face: str = "ccw",
     w_eps: float = 1e-6,
     scissor=None,
+    bbox_pad_fp: int = 0,
 ) -> TriSetup:
-    """Vectorized triangle setup (no depth bias, no MSAA bbox pad).
+    """Vectorized triangle setup (no depth bias: ROADMAP A.10).
 
     Args:
       clip_pos: (T, 3, 4) float32 clip-space positions.
@@ -67,6 +68,9 @@ def setup_triangles(
         clipping proper is ops.clip.clip_near, applied before setup).
       scissor: optional (x0, y0, x1, y1) pixel rect; bboxes are clamped
         into it (the rasterizer masks coverage to it as well).
+      bbox_pad_fp: widen the pixel bbox by this many subpixel (1/16-px)
+        units on every side: fp.MSAA4_BBOX_PAD_FP for coverage-sample
+        MSAA, whose samples lie up to 6/16 px from the pixel center.
     """
     if cull_mode not in ("none", "back", "front"):
         raise ValueError(f"bad cull_mode {cull_mode!r}")
@@ -111,13 +115,13 @@ def setup_triangles(
     area_f = fp.i64_to_f32(area2)
     inv_area = fp.recip_f32_exact(torch.where(is_zero, fp.f32(1.0, area_f), area_f))
 
-    # Pixel bbox: first candidate px = ceil((min_fp - 8) / 16), last =
-    # floor((max_fp - 8) / 16), clamped to the framebuffer or scissor.
-    sc, hp = fp.SUBPIXEL_SCALE, fp.HALF_PIXEL
-    x0 = torch.div(xf.amin(-1) - hp + (sc - 1), sc, rounding_mode="floor")
-    y0 = torch.div(yf.amin(-1) - hp + (sc - 1), sc, rounding_mode="floor")
-    x1 = torch.div(xf.amax(-1) - hp, sc, rounding_mode="floor") + 1
-    y1 = torch.div(yf.amax(-1) - hp, sc, rounding_mode="floor") + 1
+    # Pixel bbox: first candidate px = ceil((min_fp - pad - 8) / 16), last
+    # = floor((max_fp + pad - 8) / 16), clamped to the framebuffer or scissor.
+    sc, hp, pad = fp.SUBPIXEL_SCALE, fp.HALF_PIXEL, int(bbox_pad_fp)
+    x0 = torch.div(xf.amin(-1) - pad - hp + (sc - 1), sc, rounding_mode="floor")
+    y0 = torch.div(yf.amin(-1) - pad - hp + (sc - 1), sc, rounding_mode="floor")
+    x1 = torch.div(xf.amax(-1) + pad - hp, sc, rounding_mode="floor") + 1
+    y1 = torch.div(yf.amax(-1) + pad - hp, sc, rounding_mode="floor") + 1
     sx0, sy0, sx1, sy1 = (0, 0, width, height) if scissor is None else scissor
     x0 = x0.clamp(sx0, sx1)
     y0 = y0.clamp(sy0, sy1)

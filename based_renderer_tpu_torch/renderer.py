@@ -1,14 +1,23 @@
 """Renderer: record draws, then run the frame eagerly on one device.
 
 The PyTorch counterpart of ``based_renderer_tpu/renderer.py`` for the
-single-draw and dense-mesh paths: ``begin_frame``/``draw``/``end_frame``
-record a draw list, and ``end_frame`` runs, per draw, expand_instances ->
-the vertex stage -> gather_triangles -> clip_near -> setup_triangles ->
-rasterize_vis with the varyings as channels (the Hopper kernels on CUDA:
-the sequential raster, or the record assembly and the sublane raster for
-``raster_assemble="pallas"`` and eligible ``raster_sublane`` draws), then
+single-draw, dense-mesh and MSAA paths: ``begin_frame``/``draw``/
+``end_frame`` record a draw list, and ``end_frame`` runs, per draw,
+expand_instances -> the vertex stage -> gather_triangles -> clip_near ->
+setup_triangles -> rasterize_vis with the varyings as channels (the Hopper
+kernels on CUDA: the sequential raster, or the record assembly and the
+sublane raster for ``raster_assemble="pallas"`` and eligible
+``raster_sublane`` draws; their MSAA-4x forms under coverage MSAA), then
 per draw the gather-free shading from the interpolated planes and the
-opaque composite.  PyTorch runs eagerly, so there is no program cache.
+opaque composite, and the MSAA resolve.  PyTorch runs eagerly, so there is
+no program cache.
+
+``RendererConfig.msaa=4`` is coverage-sample MSAA-4x: per-sample
+visibility at the four standard sample positions, attributes and shading
+once per sample layer at the pixel center of each sample's winner, then a
+box resolve.  With ``msaa_supersample`` it is 2x2 supersampling instead:
+the frame rasterizes without MSAA at twice the extent and a 2x2 box
+resolve follows.  With ``msaa=1`` ``msaa_supersample`` changes nothing.
 
 Render state outside this slice raises FeatureNotPresentError naming the
 ROADMAP step that will port it.
@@ -42,7 +51,7 @@ class RendererConfig:
 
     width: int = 800
     height: int = 600
-    msaa: int = 1  # 1 or 4 (4 is not ported yet)
+    msaa: int = 1  # 1 or 4
     msaa_supersample: bool = False
     clear_color: tuple = (0.0, 0.0, 0.0, 1.0)
     clear_depth: float = 1.0
@@ -68,7 +77,12 @@ class _DrawCmd:
 
 @dataclass
 class FrameResult:
-    """Rendered frame (device tensors; fetch lazily)."""
+    """Rendered frame (device tensors; fetch lazily).
+
+    ``color_planar`` is always the resolved (4, H, W) colour.  ``tri_id``
+    and ``depth_q`` are (4, H, W) per-sample planes under coverage MSAA
+    and (2H, 2W) under ``msaa_supersample``.
+    """
 
     color_planar: torch.Tensor  # (4, H, W) f32
     depth_q: torch.Tensor  # (H, W) int32 quantized depth
@@ -127,8 +141,9 @@ def _check_draw_state(pipe: Pipeline):
 def _sublane_ineligible_reason(pipe: Pipeline):
     """Why the order-independent sublane raster cannot serve this draw, or
     None: the JAX package's _reduction_ineligible_reason for the sublane
-    kernel, less its stencil, two-pass and MSAA clauses, whose state
-    _check_draw_state and Renderer reject before a frame runs."""
+    kernel (which has an MSAA form, so MSAA is no reason), less its stencil
+    and two-pass clauses, whose state _check_draw_state rejects before a
+    frame runs."""
     if not (pipe.depth.test and pipe.depth.write):
         return "depth test+write disabled"
     if pipe.depth.compare not in ("less", "less_equal", "greater", "greater_equal"):
@@ -151,8 +166,6 @@ class Renderer:
                 raise DeviceError("no CUDA device; pass device='cpu' to render on the CPU")
             device = torch.device("cuda")
         self.device = torch.device(device)
-        if config.msaa == 4 or config.msaa_supersample:
-            raise FeatureNotPresentError("MSAA is not ported yet (ROADMAP A.9)")
         self.config = config
         self._draws: list[_DrawCmd] = []
         self._in_frame = False
@@ -230,7 +243,8 @@ class Renderer:
 
     def _signal_fallback(self, pipe: Pipeline, knob: str, why: str):
         """A requested fast kernel variant is ineligible for this draw:
-        warn (raise DrawError in debug mode) and run the sequential raster."""
+        warn (raise DrawError in debug mode) and run the sequential raster
+        (its MSAA form under coverage MSAA)."""
         msg = (
             f"{knob} requested (shader {pipe.shader!r}) but the draw is "
             f"ineligible: {why}; falling back to the sequential raster kernel"
@@ -285,10 +299,23 @@ class Renderer:
             return type(tree)(self._uniforms(v) for v in tree)
         return self._uniform_leaf(tree)
 
+    @staticmethod
+    def _scaled_scissor(pipe: Pipeline, scale: int):
+        if pipe.scissor is None:
+            return None
+        return tuple(int(v) * scale for v in pipe.scissor)
+
     def _run_frame(self, draws, clear_color, clear_depth: float):
         cfg = self.config
         w, h = cfg.width, cfg.height
+        # Coverage MSAA-4x: per-sample visibility in (4, H, W) planes; or
+        # 2x2 supersampling: the frame at twice the extent, then a box resolve.
+        coverage_msaa = cfg.msaa == 4 and not cfg.msaa_supersample
+        scale = 2 if (cfg.msaa == 4 and cfg.msaa_supersample) else 1
+        nsamp = 4 if coverage_msaa else 1
+        rw, rh = w * scale, h * scale
         dev = self.device
+        rows = (lambda x: x.flatten(0, 1)) if coverage_msaa else (lambda x: x)
         vis = None
         per_draw = []
         offset = 0
@@ -311,21 +338,23 @@ class Renderer:
             if pipe.near_clip:
                 clip_tri, var_tri = clip_near(clip_tri, var_tri)
             num_t = clip_tri.shape[0]
+            scissor = self._scaled_scissor(pipe, scale)
             ts = setup_triangles(
                 clip_tri,
-                w,
-                h,
+                rw,
+                rh,
                 cull_mode=pipe.cull_mode,
                 front_face=pipe.front_face,
-                scissor=pipe.scissor,
+                scissor=scissor,
+                bbox_pad_fp=fp.MSAA4_BBOX_PAD_FP if coverage_msaa else 0,
             )
             var_keys = sorted(var_tri)
             channels = torch.cat([var_tri[k] for k in var_keys], dim=-1) if var_keys else None
             tile_w, tile_h = pipe.raster_tile
             out = rasterize_vis(
                 ts,
-                w,
-                h,
+                rw,
+                rh,
                 tile_w=tile_w,
                 tile_h=tile_h,
                 depth_test=pipe.depth.test,
@@ -343,12 +372,14 @@ class Renderer:
                 id_offset=offset,
                 channels=channels,
                 perspective=pipe.perspective_correct,
-                scissor=pipe.scissor,
+                scissor=scissor,
                 skip_losers=pipe.raster_skip_losers,
                 unroll=pipe.raster_unroll,
+                msaa4=coverage_msaa,
                 sublane=sublane,
                 sublane_group=pipe.raster_group,
-                bin_rows=pipe.raster_bin_rows if sublane else None,
+                # No band binning under MSAA, as in the JAX package.
+                bin_rows=pipe.raster_bin_rows if sublane and not coverage_msaa else None,
                 assemble=pipe.raster_assemble,
                 tmpl=pipe.raster_tmpl,
                 return_overflow=True,
@@ -364,9 +395,13 @@ class Renderer:
 
         # Pass 2: gather-free shading and the opaque composite, per draw,
         # against each draw's own visibility snapshot (Vulkan's sequential
-        # semantics for multi-draw frames).
+        # semantics for multi-draw frames).  Under coverage MSAA every
+        # plane has a leading sample axis; the sample layers fold into
+        # rows, (4, H, W, C) -> (4H, W, C), which is exact for per-pixel
+        # fragment shaders, and the colour is (4, 4, H, W) until the resolve.
         clear = torch.as_tensor(clear_color, dtype=torch.float32, device=dev).reshape(4, 1, 1)
-        color = clear.expand(4, h, w)
+        fbs = (nsamp, rh, rw) if coverage_msaa else (rh, rw)
+        color = clear.expand(*fbs[:-2], 4, rh, rw)
         for d, (var_tri, off, ntri, interp, invw, vis_i, uniforms) in zip(draws, per_draw):
             pipe = d.pipeline
             mask = (vis_i.tri_id >= off) & (vis_i.tri_id < off + ntri)
@@ -378,15 +413,23 @@ class Renderer:
                 c0 = 0
                 for k in sorted(var_tri):
                     c = var_tri[k].shape[-1]
-                    frag[k] = interp[c0 : c0 + c].permute(1, 2, 0)
+                    frag[k] = rows(interp[c0 : c0 + c].movedim(0, -1))
                     c0 += c
-            frag["tri_id"] = torch.where(mask, vis_i.tri_id - off, -1)
-            frag["depth"] = vis_i.depth
-            frag["bary"] = torch.stack([vis_i.b0, vis_i.b1, vis_i.b2], dim=-1)
-            rgba = shader_lib.get(pipe.shader).fragment(frag, uniforms).permute(2, 0, 1)
-            color = torch.where(mask[None], _blend(rgba, color, pipe.blend), color)
+            frag["tri_id"] = rows(torch.where(mask, vis_i.tri_id - off, -1))
+            frag["depth"] = rows(vis_i.depth)
+            frag["bary"] = rows(torch.stack([vis_i.b0, vis_i.b1, vis_i.b2], dim=-1))
+            rgba = shader_lib.get(pipe.shader).fragment(frag, uniforms)  # (nsamp * rh, rw, 4)
+            rgba = rgba.reshape(*fbs, 4).movedim(-1, -3)  # ([4,] 4, rh, rw)
+            if coverage_msaa:
+                mask = mask[:, None]
+            color = torch.where(mask, _blend(rgba, color, pipe.blend), color)
+        if coverage_msaa:
+            color = color.mean(dim=0)  # coverage resolve: box-average the samples
+        if scale == 2:  # supersample resolve: 2x2 box
+            color = color.reshape(4, h, 2, w, 2).sum(dim=(2, 4)) * 0.25
         if vis is None:  # a frame without draws is the cleared frame
             clear_q = int(round(clear_depth * fp.DEPTH_ONE_Q))
-            depth_q = torch.full((h, w), clear_q, dtype=torch.int32, device=dev)
+            depth_q = torch.full(fbs, clear_q, dtype=torch.int32, device=dev)
             return color.contiguous(), depth_q, torch.full_like(depth_q, -1), overflowed
         return color.contiguous(), vis.depth_q, vis.tri_id, overflowed
+

@@ -12,31 +12,46 @@ result lines):
      tiles of > 128 records, an init chain, greater_equal + depth clamp +
      scissor): tri_id and depth_q exact, float planes within 1e-6;
   4. assemble_records (B3) vs its plain version on the 1M-triangle
-     big_mesh stream at 1920x1080: int records exact, float records bitwise;
+     big_mesh stream at 1920x1080 (16-row records) and on the 4K MSAA-4x
+     stream (24-row records): int records exact, float records bitwise;
   5. raster_sublane (B2) vs its plain version and vs raster_tile on the
      B3-assembled 1M-triangle stream (group 64), the 10k-instance stream
      (group 32, depth_clip False), the stress tie stream under the four
      ordered compares, and a band-binned stream (bin_rows 4);
-  6. oracle: tri_id and depth_q equal the numpy oracle's
-     (based_renderer_tpu/reference/oracle.py, loaded by path: numpy only)
-     for the cube and the stress stream through raster_tile, and for
-     big_mesh (2000 triangles) through the dense path, at 1920x1080;
-  7. end to end: Renderer.render_frame with big_mesh (1M triangles) at
+  6. raster_msaa4 (B4) vs its plain version on the MSAA cube stream at
+     1920x1080 and on the padded stress stream (an init chain,
+     greater_equal + depth clamp + scissor, depth test off);
+     raster_msaa4_sublane (B5) vs its plain version and vs B4 on the 4K
+     MSAA big_mesh stream (group 64) and on the stress tie stream under the
+     four ordered compares: per-sample tri_id and depth_q exact, floats
+     within 1e-6;
+  7. oracle: tri_id and depth_q equal the port's own copy of the numpy
+     oracle (based_renderer_tpu_torch/reference/oracle.py) for the cube and
+     the stress stream through raster_tile, for big_mesh (2000 triangles)
+     through the dense path, and per sample (rasterize_msaa4) for the MSAA
+     cube through B4 and the MSAA big_mesh (2000 triangles) through B3 + B5,
+     at 1920x1080;
+  8. end to end: Renderer.render_frame with big_mesh (1M triangles) at
      1920x1080 and 3840x2160, instanced (10k cubes) at 1920x1080, cube at
-     1920x1080 and triangle at 800x600; every dense frame launches
-     assemble_records and raster_sublane once, every cube and triangle
-     frame raster_tile once (asserted per frame); no frame overflows; median
-     ms/frame on the kernel path and on the plain path (fewer frames).
+     1920x1080 and triangle at 800x600, and the three MSAA runs: big_mesh at
+     3840x2160 with msaa=4 (BASELINE config 5), the cube at 1920x1080 with
+     msaa=4 and with msaa_supersample; the launches of each frame are
+     asserted (dense frames assemble_records and raster_sublane once, MSAA
+     big_mesh assemble_records and raster_msaa4_sublane once, the MSAA cube
+     raster_msaa4 once, cube, triangle and supersampled cube raster_tile
+     once); no frame overflows; median ms/frame on the kernel path and on
+     the plain path (fewer frames).
 Every kernel time is the median of 7 CUDA-event windows in this run, with
 the spread and the SM clock nvidia-smi read right after.  Then one JSON
-line of per-kernel numbers, the nvidia-smi name/power line, and last the
-device line.  Imports nothing of JAX.
+line of per-kernel numbers (with each kernel's bound: the larger of its
+bytes over 3.35 TB/s and its integer operations over the card's int32
+rate), the nvidia-smi name/power line, and last the device line.  Imports
+nothing of JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import importlib.util
 import json
 import pathlib
 import statistics
@@ -51,6 +66,35 @@ ROOT = pathlib.Path(__file__).resolve().parent
 FLOAT_TOL = 1e-6
 WINDOWS = 7
 W, H = 1920, 1080
+W4K, H4K = 3840, 2160
+KERNELS = ("raster_tile", "raster_sublane", "assemble_records", "raster_msaa4", "raster_msaa4_sublane")
+# The least time for a kernel's work: bytes over the H100 SXM's HBM3 rate
+# (3.35 TB/s), or its integer instructions over the int32 issue rate of 132
+# SMs x 64 INT32 lanes at the 1980 MHz boost clock (Hopper white paper), the
+# larger of the two.  The raster and assembly kernels do integer work only.
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+
+
+def bound(bytes_: float, ops: float) -> tuple[float, str]:
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def raster_bound(binned, width, height, tile, num_channels, samples, int_rows, ops_per_item, per_pixel):
+    """Bound of a raster kernel: every output plane written once ((2 + 4 +
+    K) planes, per sample), the int record rows it stages (int_rows rows of
+    the live slots: B1 14, B2 13, B4 20, B5 19) and tile_start/tile_count
+    read once; the winners' float records and B2/B5's tri_id row, read per
+    winner only, are not counted.  Integer
+    work: ``ops_per_item`` per (record, pixel) test when ``per_pixel`` (the
+    sequential kernels), per (record, tile row) span solve otherwise."""
+    live = int(binned.tile_count.sum())
+    bytes_ = (6 + num_channels) * samples * width * height * 4 + int_rows * live * 4
+    bytes_ += 2 * binned.tile_count.numel() * 4
+    items = live * tile[1] * (tile[0] if per_pixel else 1)
+    return bound(bytes_, items * ops_per_item)
 
 
 def nvidia_smi(query: str) -> str:
@@ -131,14 +175,32 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import based_renderer_tpu_torch as brt
     from based_renderer_tpu_torch.ops import _build, binassem, binning, raster
+    from based_renderer_tpu_torch.ops import fixedpoint as fp
     from based_renderer_tpu_torch.ops.binning import bin_triangles
     from based_renderer_tpu_torch.ops.clip import clip_near
     from based_renderer_tpu_torch.ops.setup import setup_triangles
     from based_renderer_tpu_torch.ops.vertex import expand_instances, gather_triangles
+    from based_renderer_tpu_torch.reference import oracle
 
     dev = torch.device("cuda")
     check = Checker()
     times = {}
+    bounds = {}
+    # Each kernel's launch counter, in the order of the per-frame tuples.
+    counters = (
+        (raster, "KERNEL_LAUNCHES"),
+        (raster, "SUBLANE_LAUNCHES"),
+        (binassem, "LAUNCHES"),
+        (raster, "MSAA_LAUNCHES"),
+        (raster, "MSAA_SUBLANE_LAUNCHES"),
+    )
+
+    def counts():
+        return tuple(getattr(m, a) for m, a in counters)
+
+    def reset_counts():
+        for m, a in counters:
+            setattr(m, a, 0)
 
     # ---- 2. build -------------------------------------------------------
     t0 = time.perf_counter()
@@ -160,18 +222,20 @@ def main() -> int:
         clip_tri, var_tri = clip_near(*gather_triangles(clip, var, None))
         return clip_tri, var_tri["color"]
 
-    def binned_for(clip, color, width, height, tile=(128, 32), scissor=None, max_pairs=None, **kw):
-        ts = setup_triangles(clip, width, height, scissor=scissor)
-        b = bin_triangles(ts, width, height, *tile, max_pairs=max_pairs, channels=color, **kw)
+    def binned_for(clip, color, width, height, tile=(128, 32), scissor=None, max_pairs=None, msaa4=False, **kw):
+        pad = fp.MSAA4_BBOX_PAD_FP if msaa4 else 0
+        ts = setup_triangles(clip, width, height, scissor=scissor, bbox_pad_fp=pad)
+        b = bin_triangles(ts, width, height, *tile, max_pairs=max_pairs, channels=color, msaa4=msaa4, **kw)
         if bool(b.overflowed):
             raise AssertionError("binner overflowed")
         return b
 
-    def b1_vs_plain(label, binned, width, height, init=None, **kw):
-        kw = dict(num_channels=3, **kw)
+    def b1_vs_plain(label, binned, width, height, init=None, msaa4=False, **kw):
+        """B1 (or B4 under ``msaa4``) against its plain version."""
+        kw = dict(num_channels=3, msaa4=msaa4, **kw)
         got = raster.rasterize_binned(binned, width, height, init=None if init is None else init[0], **kw)
         want = raster.rasterize_binned_reference(binned, width, height, init=None if init is None else init[1], **kw)
-        check("raster_tile", label, got, want)
+        check("raster_msaa4" if msaa4 else "raster_tile", label, got, want)
         return got, want
 
     cube_clip, cube_col = cube_tris(W, H, 0.5)
@@ -198,6 +262,7 @@ def main() -> int:
                 depth_compare="greater_equal", depth_clip="clamp", depth_clear=0.0, scissor=sc)
     times["raster_tile"] = timed(lambda: raster.rasterize_binned(cube_b, W, H, num_channels=3), 20)
     times["raster_tile_plain"] = timed(lambda: raster.rasterize_binned_reference(cube_b, W, H, num_channels=3))
+    bounds["raster_tile"] = raster_bound(cube_b, W, H, (128, 32), 3, 1, 14, 12, True)
     t_stress = timed(lambda: raster.rasterize_binned(stress_b, W, H, num_channels=3), 5)
     print(
         f"[raster_tile vs plain] cube, stress ({n_stress} tris, fullest tile {max_count} records), "
@@ -207,7 +272,7 @@ def main() -> int:
         flush=True,
     )
 
-    # ---- 4. assemble_records vs plain on the 1M-triangle stream ----------
+    # ---- 4. assemble_records vs plain: 1M triangles at 1080p, 4K MSAA ----
     def dense_setup(r, demo, t, **kw):
         pipe, mesh, uniforms, inst = getattr(brt.demos, demo)(r, **kw)
         u = {k: v.to(dev) for k, v in uniforms(t).items()}
@@ -215,7 +280,9 @@ def main() -> int:
         clip, var = brt.shader.get(pipe.shader).vertex(attrs, u)
         clip_tri, var_tri = gather_triangles(clip, var, tri_idx)
         width, height = r.config.width, r.config.height
-        ts = setup_triangles(clip_tri, width, height, cull_mode=pipe.cull_mode, front_face=pipe.front_face)
+        pad = fp.MSAA4_BBOX_PAD_FP if r.config.msaa == 4 else 0
+        ts = setup_triangles(clip_tri, width, height, cull_mode=pipe.cull_mode, front_face=pipe.front_face,
+                             bbox_pad_fp=pad)
         channels = torch.cat([var_tri[k] for k in sorted(var_tri)], dim=-1)
         n = clip_tri.shape[0]
         budget = dict(
@@ -225,28 +292,49 @@ def main() -> int:
         )
         return (pipe, mesh, uniforms, inst), ts, budget
 
+    def b3_vs_plain(label, ts, width, height, kw, msaa4):
+        ps = binning.pair_stream(ts, width, height, 128, 8, kw["max_pairs"], 0, kw["channels"], True, kw["slots"])
+        if bool(ps.overflowed):
+            raise AssertionError(f"{label} pair stream overflowed")
+        fw = binning.frecord_width(kw["channels"].shape[-1])
+        args = (ps.tmpl, *binning.padded_slots(ps), ps.total, fw, msaa4)
+        rec_k, frec_k = binassem.assemble_records(*args)
+        rec_p, frec_p = binassem.assemble_records_reference(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(rec_k, rec_p):
+            raise AssertionError(f"assemble_records {label}: int records differ at {int((rec_k != rec_p).sum())} entries")
+        if not torch.equal(frec_k.view(torch.int32), frec_p.view(torch.int32)):
+            raise AssertionError(f"assemble_records {label}: float records differ by {float((frec_k - frec_p).abs().max())}")
+        check.worst["assemble_records"] = max(check.worst.get("assemble_records", 0.0), float((frec_k - frec_p).abs().max()))
+        t_k = timed(lambda: binassem.assemble_records(*args), 10)
+        t_p = timed(lambda: binassem.assemble_records_reference(*args))
+        # Bytes: the slot inputs (t_slot, ox, oy), the per-triangle fields of
+        # each triangle some slot names read once (culled and empty
+        # triangles own no slot and are never read), both record arrays
+        # written once; ~60 integer instructions per slot.
+        n_slots = rec_k.shape[1]
+        read_t = int(torch.unique(args[1]).numel())
+        per_tri = 4 * (3 + 3 + 3 + 3 + 2 + ps.tmpl.planes.shape[1]) + 8 * 3
+        b = bound(n_slots * (24 + 4 * (rec_k.shape[0] + fw)) + read_t * per_tri, 60 * n_slots)
+        return ps, rec_k, t_k, t_p, b
+
     big_r = brt.Renderer(brt.RendererConfig(W, H))
     big_demo, big_ts, big_kw = dense_setup(big_r, "big_mesh_demo", 0.2)
-    ps = binning.pair_stream(big_ts, W, H, 128, 8, big_kw["max_pairs"], 0, big_kw["channels"], True, big_kw["slots"])
-    if bool(ps.overflowed):
-        raise AssertionError("big_mesh 1080p pair stream overflowed")
-    fw = binning.frecord_width(big_kw["channels"].shape[-1])
-    asm_args = (ps.tmpl, *binning.padded_slots(ps), ps.total, fw)
-    rec_k, frec_k = binassem.assemble_records(*asm_args)
-    rec_p, frec_p = binassem.assemble_records_reference(*asm_args)
-    torch.cuda.synchronize()
-    if not torch.equal(rec_k, rec_p):
-        raise AssertionError(f"assemble_records: int records differ at {int((rec_k != rec_p).sum())} entries")
-    if not torch.equal(frec_k.view(torch.int32), frec_p.view(torch.int32)):
-        raise AssertionError(f"assemble_records: float records differ by {float((frec_k - frec_p).abs().max())}")
-    check.worst["assemble_records"] = float((frec_k - frec_p).abs().max())
-    times["assemble_records"] = timed(lambda: binassem.assemble_records(*asm_args), 10)
-    times["assemble_records_plain"] = timed(lambda: binassem.assemble_records_reference(*asm_args))
-    n_slots = rec_k.shape[1]
+    ps, rec_k, times["assemble_records"], times["assemble_records_plain"], bounds["assemble_records"] = b3_vs_plain(
+        "big_mesh 1080p", big_ts, W, H, big_kw, False
+    )
+    big4m_r = brt.Renderer(brt.RendererConfig(W4K, H4K, msaa=4))
+    big4m_demo, big4m_ts, big4m_kw = dense_setup(big4m_r, "big_mesh_demo", 0.2)
+    ps4m, rec4m, t_b3m, t_b3m_plain, b_b3m = b3_vs_plain("big_mesh 4K MSAA", big4m_ts, W4K, H4K, big4m_kw, True)
+    if rec4m.shape[0] != 24:
+        raise AssertionError(f"MSAA records have {rec4m.shape[0]} rows")
     print(
-        f"[assemble_records vs plain] big_mesh 1M tris 1920x1080: {n_slots} slots ({int(ps.total)} live), "
+        f"[assemble_records vs plain] big_mesh 1M tris 1920x1080: {rec_k.shape[1]} slots ({int(ps.total)} live), "
         f"K={big_kw['channels'].shape[-1]}: int records exact, float records bitwise | kernel "
-        f"{fmt(times['assemble_records'])}, plain {fmt(times['assemble_records_plain'])} | {card}",
+        f"{fmt(times['assemble_records'])} (bound {bounds['assemble_records'][0]:.4f} ms), "
+        f"plain {fmt(times['assemble_records_plain'])} | 3840x2160 MSAA-4x, "
+        f"24-row records: {rec4m.shape[1]} slots ({int(ps4m.total)} live), exact and bitwise | kernel {fmt(t_b3m)} "
+        f"(bound {b_b3m[0]:.4f} ms), plain {fmt(t_b3m_plain)} | {card}",
         flush=True,
     )
 
@@ -266,6 +354,7 @@ def main() -> int:
     times["raster_sublane"] = timed(lambda: raster.rasterize_binned(big_b, W, H, sublane=True, sublane_group=64, **dense_kw), 10)
     times["raster_sublane_plain"] = timed(lambda: raster.rasterize_binned_sublane_reference(big_b, W, H, **dense_kw))
     times["raster_tile_dense"] = timed(lambda: raster.rasterize_binned(big_b, W, H, **dense_kw), 10)
+    bounds["raster_sublane"] = raster_bound(big_b, W, H, (128, 8), k_big, 1, 13, 40, False)
 
     inst_r = brt.Renderer(brt.RendererConfig(W, H))
     inst_demo, inst_ts, inst_kw = dense_setup(inst_r, "instanced_demo", 0.3)
@@ -296,13 +385,68 @@ def main() -> int:
         flush=True,
     )
 
-    # ---- 6. oracle ------------------------------------------------------
-    spec = importlib.util.spec_from_file_location(
-        "brt_oracle", ROOT / "based_renderer_tpu" / "reference" / "oracle.py"
+    # ---- 6. raster_msaa4 (B4) and raster_msaa4_sublane (B5) --------------
+    cube_mb = binned_for(cube_clip, cube_col, W, H, msaa4=True)
+    b1_vs_plain("cube", cube_mb, W, H, msaa4=True)
+    stress_mb = binned_for(s_clip, s_col, W, H, max_pairs=16 * n_stress, msaa4=True)
+    b1_vs_plain("stress", stress_mb, W, H, msaa4=True)
+    first = b1_vs_plain("init-a", binned_for(s_clip[:half], s_col[:half], W, H, msaa4=True), W, H, msaa4=True)
+    second_mb = binned_for(s_clip[half:], s_col[half:], W, H, id_offset=half, msaa4=True)
+    b1_vs_plain("init-b", second_mb, W, H, init=(first[0][0], first[1][0]), msaa4=True)
+    sc_mb = binned_for(s_clip, s_col, W, H, tile=(64, 64), scissor=sc, max_pairs=16 * n_stress, msaa4=True)
+    b1_vs_plain("ge-clamp-scissor", sc_mb, W, H, tile_w=64, tile_h=64, msaa4=True,
+                depth_compare="greater_equal", depth_clip="clamp", depth_clear=0.0, scissor=sc)
+    b1_vs_plain("depth test off", stress_mb, W, H, depth_test=False, depth_write=False, msaa4=True)
+    times["raster_msaa4"] = timed(lambda: raster.rasterize_binned(cube_mb, W, H, num_channels=3, msaa4=True), 20)
+    times["raster_msaa4_plain"] = timed(
+        lambda: raster.rasterize_binned_msaa4_reference(cube_mb, W, H, num_channels=3)
     )
-    oracle = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(oracle)
+    bounds["raster_msaa4"] = raster_bound(cube_mb, W, H, (128, 32), 3, 4, 20, 44, True)
+    t_b4_stress = timed(lambda: raster.rasterize_binned(stress_mb, W, H, num_channels=3, msaa4=True), 5)
 
+    def b5_checks(label, binned, width, height, **kw):
+        got = raster.rasterize_binned(binned, width, height, sublane=True, msaa4=True, **kw)
+        check("raster_msaa4_sublane", f"{label} vs plain", got,
+              raster.rasterize_binned_msaa4_sublane_reference(binned, width, height, **kw))
+        b4_kw = {k: v for k, v in kw.items() if k != "sublane_group"}
+        check("raster_msaa4_sublane", f"{label} vs raster_msaa4", got,
+              raster.rasterize_binned(binned, width, height, msaa4=True, **b4_kw))
+
+    big4m_b = bin_triangles(big4m_ts, W4K, H4K, 128, 8, assemble="pallas", msaa4=True, **big4m_kw)
+    if bool(big4m_b.overflowed):
+        raise AssertionError("big_mesh 4K MSAA stream overflowed")
+    dense4m_kw = dict(tile_w=128, tile_h=8, num_channels=k_big)
+    b5_checks("big_mesh 4K MSAA", big4m_b, W4K, H4K, sublane_group=64, **dense4m_kw)
+    stress8_mb = binned_for(s_clip, s_col, W, H, tile=(128, 8), max_pairs=16 * n_stress, msaa4=True)
+    for compare in ("less", "less_equal", "greater", "greater_equal"):
+        clear = 0.0 if compare.startswith("greater") else 1.0
+        b5_checks(f"stress {compare}", stress8_mb, W, H, tile_w=128, tile_h=8, num_channels=3,
+                  depth_compare=compare, depth_clear=clear)
+    times["raster_msaa4_sublane"] = timed(
+        lambda: raster.rasterize_binned(big4m_b, W4K, H4K, sublane=True, msaa4=True, sublane_group=64, **dense4m_kw), 5
+    )
+    times["raster_msaa4_sublane_plain"] = timed(
+        lambda: raster.rasterize_binned_msaa4_sublane_reference(big4m_b, W4K, H4K, **dense4m_kw)
+    )
+    t_b4_big4m = timed(lambda: raster.rasterize_binned(big4m_b, W4K, H4K, msaa4=True, **dense4m_kw), 5)
+    bounds["raster_msaa4_sublane"] = raster_bound(big4m_b, W4K, H4K, (128, 8), k_big, 4, 19, 160, False)
+    print(
+        f"[raster_msaa4 vs plain] cube, stress ({n_stress} tris), init chain, greater_equal+clamp+scissor, "
+        f"depth test off, at {W}x{H}: per-sample ints exact, max float diff {check.worst['raster_msaa4']:.3g} "
+        f"(tol {FLOAT_TOL}) | cube kernel {fmt(times['raster_msaa4'])}, plain {fmt(times['raster_msaa4_plain'])} | "
+        f"stress kernel {fmt(t_b4_stress)} | {card}",
+        flush=True,
+    )
+    print(
+        f"[raster_msaa4_sublane vs plain, vs raster_msaa4] big_mesh 4K MSAA ({big4m_b.records.shape[1]} slots, "
+        f"{int(big4m_b.tile_count.sum())} live), stress under less/less_equal/greater/greater_equal: per-sample "
+        f"ints exact, max float diff {check.worst['raster_msaa4_sublane']:.3g} (tol {FLOAT_TOL}) | big_mesh 4K "
+        f"MSAA sublane {fmt(times['raster_msaa4_sublane'])}, plain {fmt(times['raster_msaa4_sublane_plain'])}, "
+        f"raster_msaa4 {fmt(t_b4_big4m)} | {card}",
+        flush=True,
+    )
+
+    # ---- 7. oracle (the port's own copy) --------------------------------
     def oracle_equal(label, got, want):
         for k in ("tri_id", "depth_q"):
             g = getattr(got, k).cpu().numpy()
@@ -316,32 +460,45 @@ def main() -> int:
         if bool(overflowed):
             raise AssertionError(f"oracle {label}: binner overflowed")
         oracle_equal(label, got, oracle.rasterize(clip.cpu().numpy(), W, H))
-    toy_r = brt.Renderer(brt.RendererConfig(W, H))
-    pipe, mesh, uniforms, _ = brt.demos.big_mesh_demo(toy_r, triangles=2000)
-    # The toy mesh's triangles span more tiles at 1080p than its 4.0 pair
-    # budget holds (it overflows there, in both packages); 16 holds them.
-    pipe = dataclasses.replace(pipe, raster_pairs_factor=16.0)
-    u = uniforms(0.2)
-    launches = (raster.SUBLANE_LAUNCHES, binassem.LAUNCHES)
-    frame = toy_r.render_frame(pipe, mesh, u)
-    if (raster.SUBLANE_LAUNCHES - launches[0], binassem.LAUNCHES - launches[1]) != (1, 1) or bool(frame.overflowed):
-        raise AssertionError("oracle big_mesh: the frame did not run the dense path once without overflow")
-    clip, _ = brt.shader.get(pipe.shader).vertex(mesh.attributes, {k: v.to(dev) for k, v in u.items()})
-    oracle_equal("big_mesh 2000", frame, oracle.rasterize(clip.reshape(-1, 3, 4).cpu().numpy(), W, H, cull_mode="back"))
+    got, overflowed = raster.rasterize_vis(
+        setup_triangles(cube_clip, W, H, bbox_pad_fp=fp.MSAA4_BBOX_PAD_FP), W, H, max_pairs=4096, msaa4=True,
+        return_overflow=True,
+    )
+    if bool(overflowed):
+        raise AssertionError("oracle MSAA cube: binner overflowed")
+    oracle_equal("MSAA cube", got, oracle.rasterize_msaa4(cube_clip.cpu().numpy(), W, H))
+
+    def toy_big_mesh(cfg, want_launches):
+        toy_r = brt.Renderer(cfg)
+        pipe, mesh, uniforms, _ = brt.demos.big_mesh_demo(toy_r, triangles=2000)
+        # The toy mesh's triangles span more tiles at 1080p than its 4.0 pair
+        # budget holds (it overflows there, in both packages); 16 holds them.
+        pipe = dataclasses.replace(pipe, raster_pairs_factor=16.0)
+        u = uniforms(0.2)
+        before = counts()
+        frame = toy_r.render_frame(pipe, mesh, u)
+        got = tuple(a - b for a, b in zip(counts(), before))
+        if got != want_launches or bool(frame.overflowed):
+            raise AssertionError(f"oracle big_mesh {cfg.msaa}x: launches {got}, overflowed {bool(frame.overflowed)}")
+        clip, _ = brt.shader.get(pipe.shader).vertex(mesh.attributes, {k: v.to(dev) for k, v in u.items()})
+        return frame, clip.reshape(-1, 3, 4).cpu().numpy()
+
+    frame, clip = toy_big_mesh(brt.RendererConfig(W, H), (0, 1, 1, 0, 0))
+    oracle_equal("big_mesh 2000", frame, oracle.rasterize(clip, W, H, cull_mode="back"))
+    frame, clip = toy_big_mesh(brt.RendererConfig(W, H, msaa=4), (0, 0, 1, 0, 1))
+    oracle_equal("MSAA big_mesh 2000", frame, oracle.rasterize_msaa4(clip, W, H, cull_mode="back"))
     print(
         f"[oracle] cube ({cube_clip.shape[0]} tris) and stress[:2048] through raster_tile, big_mesh "
-        f"(2000 tris, back-face cull) through assemble_records + raster_sublane, at {W}x{H}: "
-        f"tri_id, depth_q bit-exact",
+        f"(2000 tris, back-face cull) through assemble_records + raster_sublane; per sample: the MSAA cube "
+        f"through raster_msaa4, MSAA big_mesh (2000 tris) through assemble_records + raster_msaa4_sublane; "
+        f"at {W}x{H}: tri_id, depth_q bit-exact",
         flush=True,
     )
 
-    # ---- 7. end to end --------------------------------------------------
-    def counts():
-        return raster.KERNEL_LAUNCHES, raster.SUBLANE_LAUNCHES, binassem.LAUNCHES
-
+    # ---- 8. end to end --------------------------------------------------
     def run_frames(r, demo, frames, per_frame):
         """Median ms/frame over ``frames`` frames; each frame must add
-        ``per_frame`` to (raster_tile, raster_sublane, assemble_records)."""
+        ``per_frame`` to the launch counts (see KERNELS)."""
         pipe, mesh, uniforms, inst = demo
         times_, overflow, finite, covered = [], None, None, None
         for i in range(frames):
@@ -368,21 +525,30 @@ def main() -> int:
             raise AssertionError(f"{pipe.shader}: color shape {tuple(f.color_planar.shape)}")
         return statistics.median(s.elapsed_time(e) for s, e in times_), int(covered)
 
-    big4k_r = brt.Renderer(brt.RendererConfig(3840, 2160))
-    big4k_demo = brt.demos.big_mesh_demo(big4k_r)
+    big4k_r = brt.Renderer(brt.RendererConfig(W4K, H4K))
     cube_r = brt.Renderer(brt.RendererConfig(W, H))
     tri_r = brt.Renderer(brt.RendererConfig(800, 600))
-    runs = [  # label, renderer, demo, kernel frames, plain frames, launches per frame
-        ("big_mesh 1920x1080", big_r, big_demo, 20, 3, (0, 1, 1)),
-        ("big_mesh 3840x2160", big4k_r, big4k_demo, 5, 2, (0, 1, 1)),
-        ("instanced 1920x1080", inst_r, inst_demo, 20, 3, (0, 1, 1)),
-        ("cube 1920x1080", cube_r, brt.demos.cube_demo(cube_r), 30, 10, (1, 0, 0)),
-        ("triangle 800x600", tri_r, brt.demos.triangle_demo(tri_r), 30, 10, (1, 0, 0)),
+    cube_m_r = brt.Renderer(brt.RendererConfig(W, H, msaa=4))
+    cube_ss_r = brt.Renderer(brt.RendererConfig(W, H, msaa=4, msaa_supersample=True))
+    # The cube's own pair budget (4.0 per triangle, at least 1024 pairs)
+    # holds its 1080p frames but not the 3840x2160 raster of the
+    # supersampled frame (~2100 pairs), in both packages; 128 holds them.
+    ss_pipe, *ss_rest = brt.demos.cube_demo(cube_ss_r)
+    ss_demo = (dataclasses.replace(ss_pipe, raster_pairs_factor=128.0), *ss_rest)
+    runs = [  # label, renderer, demo, kernel frames, plain frames, launches per frame (KERNELS order)
+        ("big_mesh 1920x1080", big_r, big_demo, 10, 2, (0, 1, 1, 0, 0)),
+        ("big_mesh 3840x2160", big4k_r, brt.demos.big_mesh_demo(big4k_r), 5, 1, (0, 1, 1, 0, 0)),
+        ("instanced 1920x1080", inst_r, inst_demo, 10, 2, (0, 1, 1, 0, 0)),
+        ("cube 1920x1080", cube_r, brt.demos.cube_demo(cube_r), 20, 5, (1, 0, 0, 0, 0)),
+        ("triangle 800x600", tri_r, brt.demos.triangle_demo(tri_r), 20, 5, (1, 0, 0, 0, 0)),
+        ("big_mesh 3840x2160 MSAA-4x", big4m_r, big4m_demo, 5, 1, (0, 0, 1, 0, 1)),
+        ("cube 1920x1080 MSAA-4x", cube_m_r, brt.demos.cube_demo(cube_m_r), 20, 5, (0, 0, 0, 1, 0)),
+        ("cube 1920x1080 supersampled", cube_ss_r, ss_demo, 10, 3, (1, 0, 0, 0, 0)),
     ]
-    raster.KERNEL_LAUNCHES = raster.SUBLANE_LAUNCHES = binassem.LAUNCHES = 0
+    reset_counts()
     results = {label: run_frames(r, demo, n, per) for label, r, demo, n, _, per in runs}
-    main_launches = dict(zip(("raster_tile", "raster_sublane", "assemble_records"), counts()))
-    expected = [sum(n * per[i] for _, _, _, n, _, per in runs) for i in range(3)]
+    main_launches = dict(zip(KERNELS, counts()))
+    expected = [sum(n * per[i] for _, _, _, n, _, per in runs) for i in range(len(KERNELS))]
     if list(main_launches.values()) != expected:
         raise AssertionError(f"main path launches {main_launches}, expected {expected}")
 
@@ -390,13 +556,13 @@ def main() -> int:
     raster.rasterize_binned = raster.rasterize_binned_reference  # the plain path, for timing only
     binassem.assemble_records = binassem.assemble_records_reference
     try:
-        plain = {label: run_frames(r, demo, n, (0, 0, 0))[0] for label, r, demo, _, n, _ in runs}
+        plain = {label: run_frames(r, demo, n, (0,) * len(KERNELS))[0] for label, r, demo, _, n, _ in runs}
     finally:
         raster.rasterize_binned, binassem.assemble_records = kernels
     print(
         "[end-to-end] median ms/frame kernel/plain (frames): "
         + "; ".join(
-            f"{label} {results[label][0]:.3f}/{plain[label]:.3f} ({n}/{pn}, min covered {results[label][1]} px)"
+            f"{label} {results[label][0]:.3f}/{plain[label]:.3f} ({n}/{pn}, min covered {results[label][1]} samples)"
             for label, _, _, n, pn, _ in runs
         )
         + f" | launches {main_launches} | {card}",
@@ -407,6 +573,8 @@ def main() -> int:
         "raster_tile": ("raster_tile.cu", "based_renderer_tpu/ops/raster_pallas.py:58"),
         "raster_sublane": ("raster_sublane.cu", "based_renderer_tpu/ops/raster_pallas.py:711"),
         "assemble_records": ("assemble_records.cu", "based_renderer_tpu/ops/binassem.py:97"),
+        "raster_msaa4": ("raster_msaa4.cu", "based_renderer_tpu/ops/raster_pallas.py:1467"),
+        "raster_msaa4_sublane": ("raster_msaa4_sublane.cu", "based_renderer_tpu/ops/raster_pallas.py:1160"),
     }
     print(json.dumps({"kernels": [
         {
@@ -418,6 +586,10 @@ def main() -> int:
             "max_abs_err": check.worst[k],
             "ms": times[k]["ms"],
             "plain_ms": times[f"{k}_plain"]["ms"],
+            "bound_ms": bounds[k][0],
+            "bound_by": bounds[k][1],
+            # No single PyTorch call computes a per-tile raster or the record assembly.
+            "library_ms": None,
         }
         for k, (src, replaces) in sources.items()
     ]}))

@@ -86,6 +86,31 @@ def test_records_match_unfused_jax(case):
     _assert_same(tb, jb)
 
 
+@pytest.mark.parametrize("assemble", ["xla", "pallas"])
+def test_msaa4_records_match_unfused_jax(assemble):
+    """24-row MSAA records (raw A, B in rows 16-21) on both assembly
+    routes: exact over the whole array, tail included."""
+    clip = random_clip(12, 60)
+    ch = np.random.default_rng(13).normal(size=(60, 3, 3)).astype(np.float32)
+    kw = dict(tile_w=32, tile_h=16, msaa4=True, assemble=assemble, max_pairs=1000)
+    ts = tsetup.setup_triangles(torch.from_numpy(clip), W, H, bbox_pad_fp=6)
+    tb = tbin.bin_triangles(ts, W, H, channels=torch.from_numpy(ch), **kw)
+    js = jax.jit(jsetup.setup_triangles, static_argnums=(1, 2), static_argnames=("bbox_pad_fp",))(
+        jnp.asarray(clip), W, H, bbox_pad_fp=6
+    )
+    fn = jax.jit(functools.partial(jbin.bin_triangles, width=W, height=H, interpret=True, **kw))
+    j_ch = jnp.asarray(ch)
+    jb = fn.lower(js, channels=j_ch).compile(compiler_options={"xla_disable_hlo_passes": "fusion"})(js, channels=j_ch)
+    stream = 1000 if assemble == "pallas" else None
+    assert tb.records.shape[0] == 24
+    if stream is not None:
+        assert tb.records.shape[1] == _p_pad(stream)
+    _assert_same(tb, jb)
+    live = int(tb.num_pairs)
+    assert (tb.records[16:22, :live] != 0).any() and not tb.records[22:].any()
+    torch.testing.assert_close(tb.records[3:9, :live], tb.records[16:22, :live] * 16, rtol=0, atol=0)
+
+
 def test_past_the_kernel_width_takes_the_xla_layout():
     """K = 33 gives a 129+ column template row: both packages keep the XLA
     layout (stream + zero tail) although assemble="pallas" was asked."""

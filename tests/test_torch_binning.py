@@ -106,6 +106,7 @@ def test_fused_jax_contracts_float_rows():
 
 def test_layout_widths():
     assert tbin.RECORD_WIDTH == jbin.RECORD_WIDTH
+    assert tbin.record_width(True) == jbin.record_width(True) == 24
     assert tbin.SEGMENT_ALIGN == jbin.SEGMENT_ALIGN
     for k in range(6):
         assert tbin.frecord_width(k) == jbin.frecord_width(k)

@@ -87,9 +87,14 @@ def test_out_of_slice_state_raises(kw):
 
 
 def test_out_of_slice_renderer_state_raises():
-    for kw in (dict(msaa=4), dict(msaa_supersample=True)):
-        with pytest.raises(FeatureNotPresentError, match="ROADMAP"):
-            tbrt.Renderer(tbrt.RendererConfig(64, 32, **kw), device="cpu")
+    # MSAA renders; under it stencil (A.10) and shade_compact (A.11) still raise.
+    for kw in (dict(msaa=4), dict(msaa=4, msaa_supersample=True)):
+        r = tbrt.Renderer(tbrt.RendererConfig(64, 32, **kw), device="cpu")
+        pipe, mesh, u, _ = tbrt.demos.cube_demo(r)
+        r.begin_frame()
+        for state in (dict(stencil=tbrt.StencilState(enable=True)), dict(shade_compact=0.5)):
+            with pytest.raises(FeatureNotPresentError, match="ROADMAP"):
+                r.draw(dataclasses.replace(pipe, **state), mesh, u(0.0))
     r = tbrt.Renderer(tbrt.RendererConfig(64, 32), device="cpu")
     with pytest.raises(FeatureNotPresentError, match="ROADMAP"):
         r.upload_texture(np.zeros((4, 4, 3), np.float32))

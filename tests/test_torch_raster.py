@@ -13,6 +13,7 @@ import torch
 
 from based_renderer_tpu.ops import setup as jsetup
 from based_renderer_tpu.ops.raster_pallas import rasterize_vis_pallas
+from based_renderer_tpu_torch import StencilState
 from based_renderer_tpu_torch.ops import raster as traster
 from based_renderer_tpu_torch.ops import setup as tsetup
 from based_renderer_tpu_torch.utils.errors import FeatureNotPresentError
@@ -146,9 +147,9 @@ def test_plain_version_is_the_cpu_path():
     "kw",
     [
         dict(two_pass=True),
-        dict(msaa4=True),
+        dict(msaa4=True, stencil=StencilState(enable=True)),  # MSAA stencil: A.10
         dict(batch=8),
-        dict(sublane=True, msaa4=True, tile_w=128, tile_h=8),
+        dict(sublane=True, msaa4=True, tile_w=128, tile_h=8, tmpl="pallas"),  # B8
         dict(batch=8, depth_compare="less_equal", tile_w=128, tile_h=8),
     ],
 )

@@ -31,7 +31,9 @@ def _edge_cases():
 
 
 _jax_setup = jax.jit(
-    jsetup.setup_triangles, static_argnums=(1, 2), static_argnames=("cull_mode", "front_face", "scissor")
+    jsetup.setup_triangles,
+    static_argnums=(1, 2),
+    static_argnames=("cull_mode", "front_face", "scissor", "bbox_pad_fp"),
 )
 _jax_anchor = jax.jit(jsetup.depth_tile_anchor)
 _jax_at_pixel = jax.jit(jsetup.depth_at_pixel)
@@ -61,6 +63,8 @@ def _compare(ts, js):
         dict(cull_mode="back"),
         dict(cull_mode="front", front_face="cw"),
         dict(scissor=(16, 8, 100, 70)),
+        dict(bbox_pad_fp=6),  # MSAA4_BBOX_PAD_FP
+        dict(bbox_pad_fp=6, cull_mode="back", scissor=(16, 8, 100, 70)),
     ],
 )
 def test_setup_fields_match(kw):
@@ -69,6 +73,18 @@ def test_setup_fields_match(kw):
     ts = tsetup.setup_triangles(torch.from_numpy(clip), W, H, **kw)
     js = _jax_setup(jnp.asarray(clip), W, H, **kw)
     _compare(ts, js)
+
+
+def test_msaa_pad_widens_the_bbox():
+    """The pad moves a bbox edge only where a sample, not the pixel
+    center, can reach the next pixel."""
+    clip = random_clip(5, 64)
+    W, H = 128, 96
+    base = tsetup.setup_triangles(torch.from_numpy(clip), W, H)
+    pad = tsetup.setup_triangles(torch.from_numpy(clip), W, H, bbox_pad_fp=6)
+    grow = pad.bbox.long() - base.bbox.long()
+    assert (grow[:, :2] <= 0).all() and (grow[:, 2:] >= 0).all() and grow.abs().sum() > 0
+    assert (grow.abs() <= 1).all()
 
 
 def test_depth_anchor_and_pixel_match():
