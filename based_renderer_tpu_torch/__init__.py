@@ -1,9 +1,11 @@
 """based_renderer_tpu_torch: the PyTorch + CUDA port of based_renderer_tpu.
 
 The port runs the renderer's main path (one opaque draw), the dense-mesh
-path (the 1M-triangle ``big_mesh`` and 10k-instance ``instanced`` demos)
-and coverage MSAA-4x (``RendererConfig(msaa=4)``, and 2x2 supersampling
-with ``msaa_supersample``) with hand-written Hopper kernels on CUDA
+path (the 1M-triangle ``big_mesh`` and 10k-instance ``instanced`` demos),
+coverage MSAA-4x (``RendererConfig(msaa=4)``, and 2x2 supersampling
+with ``msaa_supersample``) and the render state of multi-draw frames
+(stencil, blending, depth bias, ``raster_two_pass``, ``raster_batch``)
+with hand-written Hopper kernels on CUDA
 tensors (``csrc/raster_tile.cu``, ``csrc/raster_sublane.cu``,
 ``csrc/assemble_records.cu``, ``csrc/raster_msaa4.cu``,
 ``csrc/raster_msaa4_sublane.cu``) and their plain PyTorch versions on CPU

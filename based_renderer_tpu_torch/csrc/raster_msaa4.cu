@@ -1,9 +1,8 @@
 // Coverage-sample MSAA-4x per-tile visibility rasterizer for Hopper (sm_90a).
 //
 // Replaces based_renderer_tpu/ops/raster_pallas.py:_raster_kernel_msaa4,
-// the TPU's two-pass MSAA raster.  It computes the same function (without
-// stencil, which is ROADMAP A.10): every pixel of a tile has four sample
-// layers at the standard positions (ops/fixedpoint.py MSAA4_OFFSETS, in
+// the TPU's two-pass MSAA raster.  It computes the same function: every
+// pixel of a tile has four sample layers at the standard positions (ops/fixedpoint.py MSAA4_OFFSETS, in
 // 1/16 px from the pixel center).  For each sample, walk the tile's binned
 // 24-row records (ops/binning.py layout) in draw order; a record covers the
 // sample when its three pixel-center edge values, stepped from the tile
@@ -12,8 +11,12 @@
 // sample's depth is the pixel-center plane value z_u plus
 // dz = (dzdx*ddx + dzdy*ddy) >> 4 (an arithmetic shift, i.e. floor), taken
 // before the +/-hi clamp and the rescale.  After the depth clip or clamp
-// and the depth test against that sample's buffer, a passing record
-// becomes the sample's winner (tri_id, depth_q if written).  The float
+// the covered sample runs the depth test against that sample's buffer and,
+// with stencil on, the stencil test against that sample's 8-bit stencil
+// value, which every covered sample updates (fail_op, depth_fail_op or
+// pass_op under write_mask, as csrc/raster_tile.cu); a sample passing both
+// becomes the sample's winner (tri_id, depth_q if written), and the four
+// stencil layers are a third int output plane.  The float
 // outputs of each sample are the planes of its winner evaluated at the
 // pixel CENTER (b0, b1, b2 = (1 - b0) - b1, invw, K channels): true
 // multisampling.  Samples no record passes keep init (or clear)
@@ -32,7 +35,7 @@
 // every pixel reads them as warp-wide broadcasts.  Each sample's (depth,
 // winning slot) stays in registers; the planes are evaluated at the end,
 // once per distinct winner of a pixel's four samples (they usually share
-// one).  The TPU's pass-2 replay of every surviving record's planes, and
+// one), and so do its four stencil values.  The TPU's pass-2 replay of every surviving record's planes, and
 // its chunk-aligned DMA window, are not needed.
 //
 // Exactness: the proof in ops/fixedpoint.py keeps every per-sample edge sum
@@ -69,6 +72,22 @@ __device__ __forceinline__ bool depth_compare(int op, int z, int zbuf) {
   }
 }
 
+// VkStencilOp, in 32-bit wrap-around arithmetic as the TPU's int32 lanes.
+__device__ __forceinline__ int stencil_op(int op, int s, int ref) {
+  const int up = (int)((uint32_t)s + 1u);
+  const int down = (int)((uint32_t)s - 1u);
+  switch (op) {
+    case 0: return s;               // keep
+    case 1: return 0;               // zero
+    case 2: return ref;             // replace
+    case 3: return min(up, 255);    // increment_clamp
+    case 4: return max(down, 0);    // decrement_clamp
+    case 5: return ~s & 0xFF;       // invert
+    case 6: return up & 0xFF;       // increment_wrap
+    default: return down & 0xFF;    // decrement_wrap
+  }
+}
+
 __device__ __forceinline__ int step32(int base, int dx, int x, int dy, int y) {
   return (int)((uint32_t)base + (uint32_t)dx * (uint32_t)x + (uint32_t)dy * (uint32_t)y);
 }
@@ -94,12 +113,14 @@ struct Params {
   const float* init_b0;
   const float* init_b1;
   const float* init_b2;
-  int32_t* out_i;          // (2, 4, H, W)
+  const int32_t* init_st;  // (4, H, W) or null: start from st_clear
+  int32_t* out_i;          // (2, 4, H, W), or (3, 4, H, W) with the stencil
   float* out_f;            // (4 + K, 4, H, W)
   int width, height, tile_w, tile_h, num_tx, band_h;
   int depth_test, depth_op, depth_write, depth_clip, clear_q;
   int num_channels;
   int has_scissor, sx0, sy0, sx1, sy1;
+  int use_stencil, st_compare, st_ref, st_cmask, st_wmask, st_fail, st_dfail, st_pass, st_clear;
   int ddx[kSamples], ddy[kSamples];  // MSAA4_OFFSETS, 1/16 px from the pixel center
 };
 
@@ -122,16 +143,20 @@ __global__ void __launch_bounds__(kMaxThreads) raster_msaa4_kernel(const Params 
   const bool has_init = p.init_id != nullptr;
 
   int zbuf[kSamples], id[kSamples], win[kSamples];  // win: record index in the tile, -1 = none
+  int st[kSamples];
 #pragma unroll
   for (int s = 0; s < kSamples; ++s) {
     zbuf[s] = p.clear_q;
     id[s] = -1;
     win[s] = -1;
+    st[s] = p.st_clear;
     if (inside && has_init) {
       zbuf[s] = p.init_z[s * hw + pix];
       id[s] = p.init_id[s * hw + pix];
     }
+    if (inside && p.init_st != nullptr) st[s] = p.init_st[s * hw + pix];
   }
+  const int st_ref_m = p.st_ref & p.st_cmask;
 
   const int start = p.tile_start[tile];
   const int count = p.tile_count[tile];
@@ -180,7 +205,15 @@ __global__ void __launch_bounds__(kMaxThreads) raster_msaa4_kernel(const Params 
           } else if (p.depth_clip == 1 && (z < 0 || z > kDepthOneQ)) {
             continue;
           }
-          if (p.depth_test && !depth_compare(p.depth_op, z, zbuf[s])) continue;
+          const bool d_pass = !p.depth_test || depth_compare(p.depth_op, z, zbuf[s]);
+          if (p.use_stencil) {
+            // Every covered sample updates its stencil, passing or not.
+            const bool s_pass = depth_compare(p.st_compare, st_ref_m, st[s] & p.st_cmask);
+            const int op = s_pass ? (d_pass ? p.st_pass : p.st_dfail) : p.st_fail;
+            st[s] = (st[s] & ~p.st_wmask) | (stencil_op(op, st[s], p.st_ref) & p.st_wmask);
+            if (!s_pass) continue;
+          }
+          if (!d_pass) continue;
           if (p.depth_write) zbuf[s] = z;
           id[s] = srec[13][r];
           win[s] = c0 + r;
@@ -200,6 +233,7 @@ __global__ void __launch_bounds__(kMaxThreads) raster_msaa4_kernel(const Params 
     const int64_t o = s * hw + pix;
     p.out_i[o] = id[s];
     p.out_i[plane + o] = zbuf[s];
+    if (p.use_stencil) p.out_i[2 * plane + o] = st[s];
     if (win[s] >= 0) {
       // Samples usually share a winner: evaluate its planes once.
       if (s > 0 && win[s] == win[s - 1]) {
@@ -249,12 +283,14 @@ extern "C" cudaError_t brt_raster_msaa4(
     const void* records, const void* frecords, int64_t stride,
     const void* tile_start, const void* tile_count, int num_tiles,
     const void* init_id, const void* init_z, const void* init_b0,
-    const void* init_b1, const void* init_b2,
+    const void* init_b1, const void* init_b2, const void* init_st,
     void* out_i, void* out_f,
     int width, int height, int tile_w, int tile_h, int num_tx,
     int depth_test, int depth_op, int depth_write, int depth_clip, int clear_q,
     int num_channels,
     int has_scissor, int sx0, int sy0, int sx1, int sy1,
+    int use_stencil, int st_compare, int st_ref, int st_compare_mask, int st_write_mask,
+    int st_fail, int st_depth_fail, int st_pass, int st_clear,
     const int32_t* sample_offsets,  // host (ddx, ddy) x 4: ops/fixedpoint.py MSAA4_OFFSETS
     void* stream) {
   if (tile_w <= 0 || tile_h <= 0 || 128 % tile_w || 128 % tile_h) return cudaErrorInvalidValue;
@@ -275,6 +311,7 @@ extern "C" cudaError_t brt_raster_msaa4(
   p.init_b0 = static_cast<const float*>(init_b0);
   p.init_b1 = static_cast<const float*>(init_b1);
   p.init_b2 = static_cast<const float*>(init_b2);
+  p.init_st = static_cast<const int32_t*>(init_st);
   p.out_i = static_cast<int32_t*>(out_i);
   p.out_f = static_cast<float*>(out_f);
   p.width = width;
@@ -294,6 +331,15 @@ extern "C" cudaError_t brt_raster_msaa4(
   p.sy0 = sy0;
   p.sx1 = sx1;
   p.sy1 = sy1;
+  p.use_stencil = use_stencil;
+  p.st_compare = st_compare;
+  p.st_ref = st_ref;
+  p.st_cmask = st_compare_mask;
+  p.st_wmask = st_write_mask;
+  p.st_fail = st_fail;
+  p.st_dfail = st_depth_fail;
+  p.st_pass = st_pass;
+  p.st_clear = st_clear;
   for (int i = 0; i < kSamples; ++i) {
     p.ddx[i] = sample_offsets[2 * i];
     p.ddy[i] = sample_offsets[2 * i + 1];

@@ -1,13 +1,21 @@
 // Per-tile visibility rasterizer for Hopper (sm_90a).
 //
 // Replaces based_renderer_tpu/ops/raster_pallas.py:_raster_kernel, the
-// sequential per-tile Pallas raster of the TPU package.  It computes the
-// same function: for every pixel of a screen tile, walk the tile's binned
-// records (ops/binning.py layout) in draw order; a record covers the pixel
-// when its three int32 edge values, stepped from the tile anchor, are all
-// >= 0 (inside the scissor); its quantized depth plane gives z; after the
-// depth clip or clamp and the depth test, a passing record becomes the
-// pixel's winner (tri_id, depth_q if written).  The float outputs are the
+// sequential per-tile Pallas raster of the TPU package, and serves its
+// two-pass form _raster_kernel_two_pass as well (the same output).  It
+// computes the same function: for every pixel of a screen tile, walk the
+// tile's binned records (ops/binning.py layout) in draw order; a record
+// covers the pixel when its three int32 edge values, stepped from the tile
+// anchor, are all >= 0 (inside the scissor); its quantized depth plane
+// gives z; after the depth clip or clamp, the covered fragment runs the
+// depth test and, with stencil on, the stencil test
+// compare(ref & compare_mask, stencil & compare_mask) and updates the
+// pixel's 8-bit stencil value with fail_op (stencil fails), depth_fail_op
+// (stencil passes, depth fails) or pass_op (both pass), merged under
+// write_mask (raster_xla.stencil_update); a fragment that passes both
+// becomes the pixel's winner (tri_id, depth_q if written).  The stencil
+// value starts from init or the clear value and is written as a third int
+// output plane.  The float outputs are the
 // planes of the LAST passing record evaluated at the pixel (b0, b1,
 // b2 = (1 - b0) - b1, invw, K channels), which is what the TPU kernel's
 // per-record overwrite leaves behind: so the winner's slot is kept in a
@@ -17,12 +25,14 @@
 //
 // What bounds it on this card: every pixel of a tile is touched once per
 // record of that tile, so the work is int32 ALU on the CUDA cores
-// (~20 integer ops per pixel-record) plus one streamed read of the int
-// records, which every block of the tile reads through L2.  The design:
-// one thread per pixel, one block per (tile, row band) of at most 256
-// threads, the tile's records staged through shared memory in chunks of
-// one record per thread and read back as warp-wide broadcasts, the
-// visibility state in registers, no float work in the record loop, and
+// (~20 integer ops per pixel-record, a few more with stencil) plus one
+// streamed read of the int records, which every block of the tile reads
+// through L2.  The design: one thread per pixel, one block per (tile, row
+// band) of at most 256 threads, the tile's records staged through shared
+// memory in chunks of one record per thread and read back as warp-wide
+// broadcasts, the visibility and stencil state in registers (the stencil
+// parameters are block-uniform, so the stencil branch never diverges), no
+// float work in the record loop, and
 // one coalesced row of stores per output plane.  The TPU's chunk-aligned
 // DMA window and leading-record skip are not needed: blocks read exactly
 // [tile_start, tile_start + tile_count).
@@ -58,6 +68,22 @@ __device__ __forceinline__ bool depth_compare(int op, int z, int zbuf) {
   }
 }
 
+// VkStencilOp, in 32-bit wrap-around arithmetic as the TPU's int32 lanes.
+__device__ __forceinline__ int stencil_op(int op, int s, int ref) {
+  const int up = (int)((uint32_t)s + 1u);
+  const int down = (int)((uint32_t)s - 1u);
+  switch (op) {
+    case 0: return s;               // keep
+    case 1: return 0;               // zero
+    case 2: return ref;             // replace
+    case 3: return min(up, 255);    // increment_clamp
+    case 4: return max(down, 0);    // decrement_clamp
+    case 5: return ~s & 0xFF;       // invert
+    case 6: return up & 0xFF;       // increment_wrap
+    default: return down & 0xFF;    // decrement_wrap
+  }
+}
+
 __device__ __forceinline__ int step32(int base, int dx, int x, int dy, int y) {
   return (int)((uint32_t)base + (uint32_t)dx * (uint32_t)x + (uint32_t)dy * (uint32_t)y);
 }
@@ -81,12 +107,14 @@ struct Params {
   const float* init_b0;
   const float* init_b1;
   const float* init_b2;
-  int32_t* out_i;
+  const int32_t* init_st;  // null: start from st_clear
+  int32_t* out_i;          // (2, H, W), or (3, H, W) with the stencil plane
   float* out_f;
   int width, height, tile_w, tile_h, num_tx, band_h;
   int depth_test, depth_op, depth_write, depth_clip, clear_q;
   int num_channels;
   int has_scissor, sx0, sy0, sx1, sy1;
+  int use_stencil, st_compare, st_ref, st_cmask, st_wmask, st_fail, st_dfail, st_pass, st_clear;
 };
 
 __global__ void __launch_bounds__(kMaxThreads) raster_tile_kernel(const Params p) {
@@ -111,6 +139,9 @@ __global__ void __launch_bounds__(kMaxThreads) raster_tile_kernel(const Params p
     zbuf = p.init_z[pix];
     id = p.init_id[pix];
   }
+  int st = p.st_clear;
+  if (inside && p.init_st != nullptr) st = p.init_st[pix];
+  const int st_ref_m = p.st_ref & p.st_cmask;
   int64_t win = -1;  // sorted slot of the last passing record
 
   const int start = p.tile_start[tile];
@@ -139,7 +170,15 @@ __global__ void __launch_bounds__(kMaxThreads) raster_tile_kernel(const Params p
         } else if (p.depth_clip == 1 && (z < 0 || z > kDepthOneQ)) {
           continue;
         }
-        if (p.depth_test && !depth_compare(p.depth_op, z, zbuf)) continue;
+        const bool d_pass = !p.depth_test || depth_compare(p.depth_op, z, zbuf);
+        if (p.use_stencil) {
+          // Every covered fragment updates the stencil, passing or not.
+          const bool s_pass = depth_compare(p.st_compare, st_ref_m, st & p.st_cmask);
+          const int op = s_pass ? (d_pass ? p.st_pass : p.st_dfail) : p.st_fail;
+          st = (st & ~p.st_wmask) | (stencil_op(op, st, p.st_ref) & p.st_wmask);
+          if (!s_pass) continue;
+        }
+        if (!d_pass) continue;
         if (p.depth_write) zbuf = z;
         id = srec[13][r];
         win = (int64_t)start + c0 + r;
@@ -152,6 +191,7 @@ __global__ void __launch_bounds__(kMaxThreads) raster_tile_kernel(const Params p
   const int64_t plane = (int64_t)p.width * p.height;
   p.out_i[pix] = id;
   p.out_i[plane + pix] = zbuf;
+  if (p.use_stencil) p.out_i[2 * plane + pix] = st;
   float* out = p.out_f + pix;
   if (win >= 0) {
     const float ixf = (float)ix;
@@ -180,12 +220,14 @@ extern "C" cudaError_t brt_raster_tile(
     const void* records, const void* frecords, int64_t stride,
     const void* tile_start, const void* tile_count, int num_tiles,
     const void* init_id, const void* init_z, const void* init_b0,
-    const void* init_b1, const void* init_b2,
+    const void* init_b1, const void* init_b2, const void* init_st,
     void* out_i, void* out_f,
     int width, int height, int tile_w, int tile_h, int num_tx,
     int depth_test, int depth_op, int depth_write, int depth_clip, int clear_q,
     int num_channels,
     int has_scissor, int sx0, int sy0, int sx1, int sy1,
+    int use_stencil, int st_compare, int st_ref, int st_compare_mask, int st_write_mask,
+    int st_fail, int st_depth_fail, int st_pass, int st_clear,
     void* stream) {
   if (tile_w <= 0 || tile_h <= 0 || 128 % tile_w || 128 % tile_h) return cudaErrorInvalidValue;
   if (num_tiles <= 0 || width <= 0 || height <= 0) return cudaSuccess;
@@ -205,6 +247,7 @@ extern "C" cudaError_t brt_raster_tile(
   p.init_b0 = static_cast<const float*>(init_b0);
   p.init_b1 = static_cast<const float*>(init_b1);
   p.init_b2 = static_cast<const float*>(init_b2);
+  p.init_st = static_cast<const int32_t*>(init_st);
   p.out_i = static_cast<int32_t*>(out_i);
   p.out_f = static_cast<float*>(out_f);
   p.width = width;
@@ -224,6 +267,15 @@ extern "C" cudaError_t brt_raster_tile(
   p.sy0 = sy0;
   p.sx1 = sx1;
   p.sy1 = sy1;
+  p.use_stencil = use_stencil;
+  p.st_compare = st_compare;
+  p.st_ref = st_ref;
+  p.st_cmask = st_compare_mask;
+  p.st_wmask = st_write_mask;
+  p.st_fail = st_fail;
+  p.st_dfail = st_depth_fail;
+  p.st_pass = st_pass;
+  p.st_clear = st_clear;
   const dim3 grid(num_tiles, tile_h / band_h);
   const dim3 block(tile_w * band_h);
   raster_tile_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(p);

@@ -132,12 +132,14 @@ def _declare(lib: ctypes.CDLL):
     lib.brt_raster_tile.argtypes = [
         p, p, i64,  # records, frecords, pair stride
         p, p, i,  # tile_start, tile_count, num_tiles
-        p, p, p, p, p,  # init tri_id, depth_q, b0, b1, b2 (or null)
-        p, p,  # out ints (2, H, W), out floats (4 + K, H, W)
+        p, p, p, p, p, p,  # init tri_id, depth_q, b0, b1, b2, stencil (or null)
+        p, p,  # out ints (2 or 3 with the stencil, H, W), out floats (4 + K, H, W)
         i, i, i, i, i,  # width, height, tile_w, tile_h, num_tx
         i, i, i, i, i,  # depth test, compare, write, clip mode, clear depth_q
         i,  # num_channels
         i, i, i, i, i,  # has_scissor, sx0, sy0, sx1, sy1
+        i, i, i, i, i,  # stencil on, compare, ref, compare_mask, write_mask
+        i, i, i, i,  # stencil fail_op, depth_fail_op, pass_op, clear value
         p,  # cudaStream_t
     ]
     lib.brt_raster_sublane.restype = i
@@ -157,12 +159,14 @@ def _declare(lib: ctypes.CDLL):
     lib.brt_raster_msaa4.argtypes = [
         p, p, i64,  # records (24 rows), frecords, pair stride
         p, p, i,  # tile_start, tile_count, num_tiles
-        p, p, p, p, p,  # init tri_id, depth_q, b0, b1, b2, each (4, H, W) (or null)
-        p, p,  # out ints (2, 4, H, W), out floats (4 + K, 4, H, W)
+        p, p, p, p, p, p,  # init tri_id, depth_q, b0, b1, b2, stencil, each (4, H, W) (or null)
+        p, p,  # out ints (2 or 3 with the stencil, 4, H, W), out floats (4 + K, 4, H, W)
         i, i, i, i, i,  # width, height, tile_w, tile_h, num_tx
         i, i, i, i, i,  # depth test, compare, write, clip mode, clear depth_q
         i,  # num_channels
         i, i, i, i, i,  # has_scissor, sx0, sy0, sx1, sy1
+        i, i, i, i, i,  # stencil on, compare, ref, compare_mask, write_mask
+        i, i, i, i,  # stencil fail_op, depth_fail_op, pass_op, clear value
         i32s,  # (ddx, ddy) of the 4 samples (host memory)
         p,  # cudaStream_t
     ]

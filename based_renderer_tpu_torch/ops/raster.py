@@ -24,10 +24,23 @@ The PyTorch counterpart of ``based_renderer_tpu/ops/raster_pallas.py``
     versions are ``rasterize_binned_msaa4_reference`` (the sequential plain
     raster with a sample axis) and ``rasterize_binned_msaa4_sublane_reference``
     (the per-(pixel, sample) key reduction).
+Two more TPU kernels schedule one of these computations differently and
+map onto its CUDA kernel, with their own launch counts:
+  * the two-pass raster (``_raster_kernel_two_pass``, ``two_pass``) keeps
+    the last passing record per pixel and evaluates its planes once,
+    which is what csrc/raster_tile.cu does: the same output bit for bit;
+  * the batched raster (``_raster_kernel_batched``, ``batch``) is the
+    per-pixel reduction of the sublane raster under an ordered compare,
+    at any tile that divides 128: csrc/raster_sublane.cu.
+Stencil (``stencil``, a pipeline.StencilState) runs in the sequential
+kernels and their MSAA form, per sample: every covered fragment updates
+the 8-bit stencil value with fail_op, depth_fail_op or pass_op, and only
+fragments passing both tests win (the JAX package's raster_xla
+stencil_test / stencil_update, copied here as plain tensor functions).
 CUDA tensors launch the kernels, CPU tensors take the plain versions.
-Each pair returns the same planes bit for bit: tri_id and depth_q are
-integer arithmetic, and every float plane of the winner is evaluated once
-as (p0 + pdx*ix) + pdy*iy in single IEEE operations.
+Each pair returns the same planes bit for bit: tri_id, depth_q and the
+stencil are integer arithmetic, and every float plane of the winner is
+evaluated once as (p0 + pdx*ix) + pdy*iy in single IEEE operations.
 """
 
 from __future__ import annotations
@@ -46,8 +59,12 @@ from .setup import TriSetup
 #: Launches of the sequential raster kernel (csrc/raster_tile.cu) in this
 #: process (main-path proof).
 KERNEL_LAUNCHES = 0
+#: Launches of csrc/raster_tile.cu for the two-pass route (``two_pass``).
+TWO_PASS_LAUNCHES = 0
 #: Launches of the sublane raster kernel (csrc/raster_sublane.cu).
 SUBLANE_LAUNCHES = 0
+#: Launches of csrc/raster_sublane.cu for the batched route (``batch``).
+BATCH_LAUNCHES = 0
 #: Launches of the coverage MSAA-4x raster kernel (csrc/raster_msaa4.cu).
 MSAA_LAUNCHES = 0
 #: Launches of the MSAA-4x sublane raster kernel (csrc/raster_msaa4_sublane.cu).
@@ -65,6 +82,17 @@ _COMPARE_OPS = (
     "always",
 )
 _ORDERED_OPS = ("less", "less_equal", "greater", "greater_equal")
+# VkStencilOp; the index is the kernels' op code.
+_STENCIL_OPS = (
+    "keep",
+    "zero",
+    "replace",
+    "increment_clamp",
+    "decrement_clamp",
+    "invert",
+    "increment_wrap",
+    "decrement_wrap",
+)
 
 
 class VisBuffer(NamedTuple):
@@ -78,7 +106,7 @@ class VisBuffer(NamedTuple):
     b0: torch.Tensor  # f32 (H, W) barycentric weight of v0
     b1: torch.Tensor  # f32 (H, W)
     b2: torch.Tensor  # f32 (H, W)
-    stencil: torch.Tensor | None = None  # not produced by this slice
+    stencil: torch.Tensor | None = None  # int32 (H, W) 8-bit values, when stencil is on
 
     @property
     def depth(self) -> torch.Tensor:
@@ -96,40 +124,68 @@ def _clip_mode(depth_clip) -> int:
 
 
 def _stencil_on(stencil) -> bool:
-    return stencil is not None and getattr(stencil, "enable", True)
+    return stencil is not None and stencil.enable
 
 
-def _check_slice(stencil, two_pass, msaa4, batch):
-    if batch and msaa4:  # raster_pallas.py:1997-2009
-        raise ValueError(
-            "batch rasterization requires depth test+write with an "
-            "ordered compare and no stencil/msaa/two_pass"
-        )
-    for knob, on, step in (
-        ("stencil", _stencil_on(stencil), "A.10"),
-        # msaa4 takes the MSAA kernel before two_pass (raster_pallas.py:2025-2028).
-        ("two_pass", two_pass and not msaa4, "queue B6"),
-        ("batch", batch, "queue B7"),
-    ):
-        if on:
-            raise FeatureNotPresentError(f"{knob} rasterization is not ported yet (ROADMAP {step})")
+def stencil_apply_op(op: str, sbuf: torch.Tensor, ref: int) -> torch.Tensor:
+    """New 8-bit stencil value under ``op`` (before the write-mask merge);
+    the JAX package's raster_xla.stencil_apply_op (VkStencilOp)."""
+    if op == "keep":
+        return sbuf
+    if op == "zero":
+        return torch.zeros_like(sbuf)
+    if op == "replace":
+        return torch.full_like(sbuf, ref)
+    if op == "increment_clamp":
+        return torch.clamp_max(sbuf + 1, 255)
+    if op == "decrement_clamp":
+        return torch.clamp_min(sbuf - 1, 0)
+    if op == "invert":
+        return ~sbuf & 0xFF
+    if op == "increment_wrap":
+        return (sbuf + 1) & 0xFF
+    if op == "decrement_wrap":
+        return (sbuf - 1) & 0xFF
+    raise ValueError(op)
 
 
-def _check_sublane(sublane, sublane_group, bin_rows, tile_w, tile_h, depth_test, depth_write,
-                   depth_compare, stencil, two_pass, batch, msaa4):
-    """The JAX package's ValueErrors for the sublane route (raster_pallas.py:1946-1976)."""
+def stencil_update(state, sbuf, covered, s_pass, d_pass) -> torch.Tensor:
+    """Post-fragment stencil buffer (raster_xla.stencil_update): fail_op
+    where the stencil test fails, depth_fail_op where it passes and the
+    depth test (True where off) fails, pass_op where both pass; merged
+    under write_mask, on covered fragments only."""
+    new_fail = stencil_apply_op(state.fail_op, sbuf, state.ref)
+    new_dfail = stencil_apply_op(state.depth_fail_op, sbuf, state.ref)
+    new_pass = stencil_apply_op(state.pass_op, sbuf, state.ref)
+    nv = torch.where(s_pass, torch.where(d_pass, new_pass, new_dfail), new_fail)
+    wm = state.write_mask
+    return torch.where(covered, (sbuf & ~wm) | (nv & wm), sbuf)
+
+
+def stencil_test(state, sbuf) -> torch.Tensor:
+    """compare(ref & compare_mask, stencil & compare_mask) (raster_xla.stencil_test)."""
+    cm = state.compare_mask
+    return _compare(state.compare, torch.full_like(sbuf, state.ref & cm), sbuf & cm)
+
+
+def _check_modes(sublane, sublane_group, bin_rows, tile_w, tile_h, depth_test, depth_write,
+                 depth_compare, stencil, two_pass, batch, msaa4):
+    """The JAX package's ValueErrors for the sublane and batched routes, in
+    its order (raster_pallas.py:1945-2011)."""
     if bin_rows is not None and not sublane:
         raise ValueError("bin_rows (sub-tile band binning) requires the sublane kernel")
+    ordered = depth_test and depth_write and depth_compare in _ORDERED_OPS
     if not sublane:
+        if batch > 0:
+            if not (ordered and not _stencil_on(stencil) and not msaa4 and not two_pass):
+                raise ValueError(
+                    "batch rasterization requires depth test+write with an "
+                    "ordered compare and no stencil/msaa/two_pass"
+                )
+            if 128 % batch:
+                raise ValueError("batch must divide 128")
         return
-    if not (
-        depth_test
-        and depth_write
-        and depth_compare in _ORDERED_OPS
-        and not _stencil_on(stencil)
-        and not two_pass
-        and not batch
-    ):
+    if not (ordered and not _stencil_on(stencil) and not two_pass and not batch > 0):
         raise ValueError(
             "sublane rasterization requires depth test+write with an "
             "ordered compare and no stencil/two_pass/batch"
@@ -152,7 +208,11 @@ def _check_tile(tile_w: int, tile_h: int):
 
 
 def _package(ints: torch.Tensor, floats: torch.Tensor, num_channels: int):
-    vis = VisBuffer(tri_id=ints[0], depth_q=ints[1], b0=floats[0], b1=floats[1], b2=floats[2])
+    """ints (2 or 3 with stencil, [4,] H, W), floats (4 + K, [4,] H, W)."""
+    vis = VisBuffer(
+        tri_id=ints[0], depth_q=ints[1], b0=floats[0], b1=floats[1], b2=floats[2],
+        stencil=ints[2] if ints.shape[0] > 2 else None,
+    )
     if num_channels == 0:
         return vis
     return vis, floats[4:], floats[3]
@@ -173,13 +233,17 @@ def _raster_planes_reference(
     num_channels,
     scissor,
     msaa4=False,
+    stencil=None,
+    stencil_clear=0,
 ):
     """Plain PyTorch raster over all tiles at once.
 
     Each tile's record list is padded to the largest count; a loop over
     the record index updates the (S, num_tiles, th, tw) state with
     torch.where, S = 4 sample layers under ``msaa4`` and 1 otherwise.
-    Returns (ints (2, [S,] H, W), floats (4 + K, [S,] H, W)).
+    With stencil on, every covered sample updates its stencil value and
+    only samples passing both tests win.  Returns (ints (2, or 3 with the
+    stencil, [S,] H, W), floats (4 + K, [S,] H, W)).
     """
     dev = binned.records.device
     i32 = torch.int32
@@ -210,6 +274,14 @@ def _raster_planes_reference(
     else:
         zbuf = torch.full((S, nt, tile_h, tile_w), clear_q, dtype=i32, device=dev)
         ids = torch.full((S, nt, tile_h, tile_w), -1, dtype=i32, device=dev)
+    use_stencil = _stencil_on(stencil)
+    if use_stencil:
+        # From init.stencil, or the clear value (raster_pallas.py:2060-2066).
+        st_clear = stencil_clear & 0xFF
+        if init is not None and init.stencil is not None:
+            st = to_tiles(init.stencil, st_clear)
+        else:
+            st = torch.full((S, nt, tile_h, tile_w), st_clear, dtype=i32, device=dev)
     win = torch.full((S, nt, tile_h, tile_w), -1, dtype=torch.int64, device=dev)
 
     start = binned.tile_start.to(torch.int64)
@@ -249,8 +321,12 @@ def _raster_planes_reference(
                     z = z.clamp(0, one_q)
                 elif clip_mode == 1:
                     passes &= (z >= 0) & (z <= one_q)
-                if depth_test:
-                    passes &= _compare(depth_compare, z, zbuf[s])
+                d_pass = _compare(depth_compare if depth_test else "always", z, zbuf[s])
+                if use_stencil:
+                    s_pass = stencil_test(stencil, st[s])
+                    st[s] = stencil_update(stencil, st[s], passes, s_pass, d_pass)
+                    passes &= s_pass
+                passes &= d_pass
                 if depth_write:
                     zbuf[s] = torch.where(passes, z, zbuf[s])
                 ids[s] = torch.where(passes, f[13], ids[s])
@@ -284,7 +360,7 @@ def _raster_planes_reference(
         x = x.reshape(n, S, pad_h, pad_w)[..., :height, :width]
         return (x if msaa4 else x[:, 0]).contiguous()
 
-    ints = untile(torch.stack([ids, zbuf]))
+    ints = untile(torch.stack([ids, zbuf, st] if use_stencil else [ids, zbuf]))
     floats = untile(torch.stack([b0, b1, b2, invw, *chans]))
     return ints, floats
 
@@ -304,8 +380,9 @@ def _compare(op: str, z, zbuf):
     }[op](z, zbuf)
 
 
-def _kernel_operands(binned, width, height, num_bins, num_channels, init, msaa4=False):
-    """Check what a raster kernel reads; returns the init planes (or Nones)."""
+def _kernel_operands(binned, width, height, num_bins, num_channels, init, msaa4=False, stencil_on=False):
+    """Check what a raster kernel reads; returns the init planes tri_id,
+    depth_q, b0, b1, b2 and stencil (None where absent or unused)."""
     records, frecords = binned.records, binned.frecords
     dev = records.device
     stride = records.shape[1]
@@ -324,21 +401,38 @@ def _kernel_operands(binned, width, height, num_bins, num_channels, init, msaa4=
             f"frecords have {frecords.shape[0]} rows; {num_channels} channels need {9 + 3 * num_channels}"
         )
     if init is None:
-        return [None] * 5
+        return [None] * 6
     init_t = [init.tri_id, init.depth_q, init.b0, init.b1, init.b2]
+    init_t.append(init.stencil if stencil_on else None)
     plane = (NUM_SAMPLES, height, width) if msaa4 else (height, width)
-    for name, t, dtype in zip(
-        ("tri_id", "depth_q", "b0", "b1", "b2"), init_t, (torch.int32,) * 2 + (torch.float32,) * 3
-    ):
-        _build.check_operand("init." + name, t, dtype, plane, dev)
+    dtypes = (torch.int32,) * 2 + (torch.float32,) * 3 + (torch.int32,)
+    for name, t, dtype in zip(("tri_id", "depth_q", "b0", "b1", "b2", "stencil"), init_t, dtypes):
+        if t is not None:
+            _build.check_operand("init." + name, t, dtype, plane, dev)
     return init_t
 
 
-def _outputs(width, height, num_channels, dev, msaa4=False):
+def _outputs(width, height, num_channels, dev, msaa4=False, int_planes=2):
     plane = (NUM_SAMPLES, height, width) if msaa4 else (height, width)
-    ints = torch.empty((2, *plane), dtype=torch.int32, device=dev)
+    ints = torch.empty((int_planes, *plane), dtype=torch.int32, device=dev)
     floats = torch.empty((4 + num_channels, *plane), dtype=torch.float32, device=dev)
     return ints, floats
+
+
+def _stencil_args(stencil, stencil_clear):
+    """The sequential kernels' stencil parameters: on, compare, ref,
+    compare_mask, write_mask, fail_op, depth_fail_op, pass_op, clear."""
+    if not _stencil_on(stencil):
+        return (0,) * 9
+    ops = (stencil.fail_op, stencil.depth_fail_op, stencil.pass_op)
+    return (
+        1, _COMPARE_OPS.index(stencil.compare), stencil.ref, stencil.compare_mask, stencil.write_mask,
+        *(_STENCIL_OPS.index(op) for op in ops), stencil_clear & 0xFF,
+    )
+
+
+def _count(counter: str):
+    globals()[counter] += 1
 
 
 def _sample_offsets(msaa4):
@@ -363,15 +457,20 @@ def _raster_planes_kernel(
     num_channels,
     scissor,
     msaa4=False,
+    stencil=None,
+    stencil_clear=0,
+    *,
+    counter,
 ):
-    """Launch csrc/raster_tile.cu, or csrc/raster_msaa4.cu under ``msaa4``;
-    returns (ints (2, [4,] H, W), floats (4 + K, [4,] H, W))."""
-    global KERNEL_LAUNCHES, MSAA_LAUNCHES
+    """Launch csrc/raster_tile.cu, or csrc/raster_msaa4.cu under ``msaa4``,
+    and add one to the module count named ``counter``; returns (ints (2,
+    or 3 with the stencil, [4,] H, W), floats (4 + K, [4,] H, W))."""
     dev = binned.records.device
     num_tx = -(-width // tile_w)
     num_tiles = num_tx * -(-height // tile_h)
-    init_t = _kernel_operands(binned, width, height, num_tiles, num_channels, init, msaa4)
-    ints, floats = _outputs(width, height, num_channels, dev, msaa4)
+    use_stencil = _stencil_on(stencil)
+    init_t = _kernel_operands(binned, width, height, num_tiles, num_channels, init, msaa4, use_stencil)
+    ints, floats = _outputs(width, height, num_channels, dev, msaa4, 3 if use_stencil else 2)
     sc = (0, 0, 0, 0) if scissor is None else tuple(int(v) for v in scissor)
     lib = _build.load()
     rc = (lib.brt_raster_msaa4 if msaa4 else lib.brt_raster_tile)(
@@ -397,26 +496,24 @@ def _raster_planes_kernel(
         num_channels,
         int(scissor is not None),
         *sc,
+        *_stencil_args(stencil, stencil_clear),
         *_sample_offsets(msaa4),
         _build.stream(dev),
     )
     if rc != 0:
         raise RuntimeError(f"{'raster_msaa4' if msaa4 else 'raster_tile'} kernel launch failed: cudaError {rc}")
-    if msaa4:
-        MSAA_LAUNCHES += 1
-    else:
-        KERNEL_LAUNCHES += 1
+    _count(counter)
     return ints, floats
 
 
 def _sublane_planes_kernel(
     binned, width, height, tile_w, tile_h, depth_compare, clip_mode, clear_q, init, num_channels,
-    scissor, bin_rows, msaa4=False,
+    scissor, bin_rows, msaa4=False, *, counter,
 ):
     """Launch csrc/raster_sublane.cu, or csrc/raster_msaa4_sublane.cu under
-    ``msaa4`` (which has no band binning); returns (ints (2, [4,] H, W),
-    floats (4 + K, [4,] H, W))."""
-    global SUBLANE_LAUNCHES, MSAA_SUBLANE_LAUNCHES
+    ``msaa4`` (which has no band binning), and add one to the module count
+    named ``counter``; returns (ints (2, [4,] H, W), floats (4 + K, [4,]
+    H, W))."""
     dev = binned.records.device
     num_tx = -(-width // tile_w)
     num_ty = -(-height // tile_h)
@@ -455,10 +552,7 @@ def _sublane_planes_kernel(
     if rc != 0:
         name = "raster_msaa4_sublane" if msaa4 else "raster_sublane"
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
-    if msaa4:
-        MSAA_SUBLANE_LAUNCHES += 1
-    else:
-        SUBLANE_LAUNCHES += 1
+    _count(counter)
     return ints, floats
 
 
@@ -621,24 +715,26 @@ def _rasterize(
 ):
     if depth_compare not in _COMPARE_OPS:
         raise ValueError(f"bad depth compare {depth_compare!r}; one of {_COMPARE_OPS}")
-    _check_sublane(sublane, sublane_group, bin_rows, tile_w, tile_h, depth_test, depth_write,
-                   depth_compare, stencil, two_pass, batch, msaa4)
-    _check_slice(stencil, two_pass, msaa4, batch)
+    _check_modes(sublane, sublane_group, bin_rows, tile_w, tile_h, depth_test, depth_write,
+                 depth_compare, stencil, two_pass, batch, msaa4)
     _check_tile(tile_w, tile_h)
     clip_mode = _clip_mode(depth_clip)
     clear_q = int(round(depth_clear * fp.DEPTH_ONE_Q))
     args = (binned, width, height, tile_w, tile_h)
-    if sublane:
-        fn = _sublane_planes_kernel if use_kernel else _sublane_planes_reference
-        ints, floats = fn(
-            *args, depth_compare, clip_mode, clear_q, init, num_channels, scissor, bin_rows, msaa4=msaa4
-        )
+    if sublane or batch > 0:
+        # The batched route is the sublane raster without band bins.
+        counter = "MSAA_SUBLANE_LAUNCHES" if msaa4 else "SUBLANE_LAUNCHES" if sublane else "BATCH_LAUNCHES"
+        args += (depth_compare, clip_mode, clear_q, init, num_channels, scissor, bin_rows)
+        kw = dict(msaa4=msaa4)
+        kernel, plain = _sublane_planes_kernel, _sublane_planes_reference
     else:
-        fn = _raster_planes_kernel if use_kernel else _raster_planes_reference
-        ints, floats = fn(
-            *args, depth_test, depth_compare, depth_write, clip_mode, clear_q, init, num_channels, scissor,
-            msaa4=msaa4,
-        )
+        # The JAX package takes the MSAA kernel before two_pass
+        # (raster_pallas.py:2025-2028); two_pass maps onto raster_tile.cu.
+        counter = "MSAA_LAUNCHES" if msaa4 else "TWO_PASS_LAUNCHES" if two_pass else "KERNEL_LAUNCHES"
+        args += (depth_test, depth_compare, depth_write, clip_mode, clear_q, init, num_channels, scissor)
+        kw = dict(msaa4=msaa4, stencil=stencil, stencil_clear=stencil_clear)
+        kernel, plain = _raster_planes_kernel, _raster_planes_reference
+    ints, floats = kernel(*args, counter=counter, **kw) if use_kernel else plain(*args, **kw)
     return _package(ints, floats, num_channels)
 
 
@@ -654,14 +750,19 @@ def rasterize_binned(binned, *args, **kwargs):
     ineligible modes; ``bin_rows`` reads a band-binned stream (see
     rasterize_vis).  ``msaa4`` reads 24-row MSAA records (bin_triangles
     with ``msaa4``) and rasterizes coverage MSAA-4x: every output gains a
-    leading sample axis of 4.  CUDA tensors launch the Hopper kernels; CPU
-    tensors take the plain PyTorch versions.  Returns a VisBuffer when
+    leading sample axis of 4.  ``stencil`` (a StencilState) runs the
+    stencil test and update in the sequential rasters, starting from
+    ``init.stencil`` or ``stencil_clear``; the VisBuffer then carries the
+    stencil plane.  ``two_pass`` takes the sequential raster (counted in
+    TWO_PASS_LAUNCHES), and ``batch`` the sublane raster at any tile that
+    divides 128 (BATCH_LAUNCHES), with the JAX package's ValueErrors on
+    ineligible modes.  CUDA tensors launch the Hopper kernels; CPU tensors
+    take the plain PyTorch versions.  Returns a VisBuffer when
     ``num_channels`` is 0, else (vis, interp (K, [4,] H, W), invw
     ([4,] H, W)).  ``skip_losers``, ``unroll`` and ``sublane_group`` only
     schedule work on a TPU: they are accepted and change nothing; so is
     ``two_pass`` under ``msaa4``, which the MSAA kernel serves, as in the
-    JAX package.  Stencil, two-pass and batched rasterization raise
-    FeatureNotPresentError.
+    JAX package.
     """
     dev = binned.records.device
     if dev.type not in ("cuda", "cpu"):
@@ -732,11 +833,11 @@ def rasterize_vis(
     padded to the tile grid, each record anchored at its output tile, so
     every band of a tile reads only its own records.  ``msaa4`` bins
     24-row MSAA records and rasterizes coverage MSAA-4x (per-sample planes
-    (4, H, W); set up with bbox_pad_fp=fp.MSAA4_BBOX_PAD_FP).
+    (4, H, W); set up with bbox_pad_fp=fp.MSAA4_BBOX_PAD_FP).  ``stencil``,
+    ``two_pass`` and ``batch`` as in rasterize_binned.
     """
-    _check_sublane(sublane, sublane_group, bin_rows, tile_w, tile_h, depth_test, depth_write,
-                   depth_compare, stencil, two_pass, batch, msaa4)
-    _check_slice(stencil, two_pass, msaa4, batch)
+    _check_modes(sublane, sublane_group, bin_rows, tile_w, tile_h, depth_test, depth_write,
+                 depth_compare, stencil, two_pass, batch, msaa4)
     num_ch = 0 if channels is None else channels.shape[-1]
     bin_kw = dict(
         max_pairs=max_pairs,
@@ -776,6 +877,9 @@ def rasterize_vis(
         bin_rows=bin_rows,
         two_pass=two_pass,
         msaa4=msaa4,
+        stencil=stencil,
+        stencil_clear=stencil_clear,
+        batch=batch,
     )
     if not return_overflow:
         return out

@@ -56,8 +56,9 @@ def setup_triangles(
     w_eps: float = 1e-6,
     scissor=None,
     bbox_pad_fp: int = 0,
+    depth_bias=None,
 ) -> TriSetup:
-    """Vectorized triangle setup (no depth bias: ROADMAP A.10).
+    """Vectorized triangle setup.
 
     Args:
       clip_pos: (T, 3, 4) float32 clip-space positions.
@@ -71,6 +72,12 @@ def setup_triangles(
       bbox_pad_fp: widen the pixel bbox by this many subpixel (1/16-px)
         units on every side: fp.MSAA4_BBOX_PAD_FP for coverage-sample
         MSAA, whose samples lie up to 6/16 px from the pixel center.
+      depth_bias: optional (constant, slope, clamp), the depthBiasEnable
+        state: a per-triangle offset o = rint(constant) + rint(slope * m)
+        quantized-LSB units on the three vertex depths, m the triangle's
+        max f32 depth slope per pixel, bounded by ``clamp`` (depth units,
+        0 = none).  The edge coefficients sum to zero, so the gradients
+        stay as they are and only the plane's base value moves.
     """
     if cull_mode not in ("none", "back", "front"):
         raise ValueError(f"bad cull_mode {cull_mode!r}")
@@ -153,6 +160,22 @@ def setup_triangles(
     gy16 = gy * fp.f32(fp.SUBPIXEL_SCALE, gy)
     dzdx_q = torch.round((gx16 * unit_scale).clamp(-gclamp, gclamp)).to(torch.int32)
     dzdy_q = torch.round((gy16 * unit_scale).clamp(-gclamp, gclamp)).to(torch.int32)
+
+    if depth_bias is not None:
+        # The JAX package's steps (setup.py:223-243): one f32 multiply,
+        # the +/-2^29 clip, half-even rint; the constant and the clamp
+        # through Python's (half-even) round.
+        bias_c, bias_s, bias_cl = depth_bias
+        blim = float(1 << 29)
+        m_slope = torch.maximum(gx16.abs(), gy16.abs())
+        o = torch.round((m_slope * fp.f32(bias_s, m_slope)).clamp(-blim, blim)).to(torch.int32)
+        o = o + int(round(float(bias_c)))
+        cl = int(round(float(bias_cl) * (1 << fp.DEPTH_LSB_BITS)))
+        if bias_cl > 0:
+            o = torch.clamp_max(o, cl)
+        elif bias_cl < 0:
+            o = torch.clamp_min(o, cl)
+        zq = (zq + o[:, None]).clamp(-fp.DEPTH_VERTEX_CLAMP, fp.DEPTH_VERTEX_CLAMP)
 
     return TriSetup(
         valid=valid,

@@ -1,16 +1,18 @@
 """Renderer: record draws, then run the frame eagerly on one device.
 
-The PyTorch counterpart of ``based_renderer_tpu/renderer.py`` for the
-single-draw, dense-mesh and MSAA paths: ``begin_frame``/``draw``/
-``end_frame`` record a draw list, and ``end_frame`` runs, per draw,
-expand_instances -> the vertex stage -> gather_triangles -> clip_near ->
-setup_triangles -> rasterize_vis with the varyings as channels (the Hopper
-kernels on CUDA: the sequential raster, or the record assembly and the
-sublane raster for ``raster_assemble="pallas"`` and eligible
-``raster_sublane`` draws; their MSAA-4x forms under coverage MSAA), then
-per draw the gather-free shading from the interpolated planes and the
-opaque composite, and the MSAA resolve.  PyTorch runs eagerly, so there is
-no program cache.
+The PyTorch counterpart of ``based_renderer_tpu/renderer.py`` for
+single- and multi-draw frames: ``begin_frame``/``draw``/``end_frame``
+record a draw list, and ``end_frame`` runs, per draw, expand_instances ->
+the vertex stage -> gather_triangles -> clip_near -> setup_triangles (with
+the draw's depth bias) -> rasterize_vis with the varyings as channels, the
+draw's stencil state and the previous draw's visibility as init (the
+Hopper kernels on CUDA: the sequential raster, also for
+``raster_two_pass``; the record assembly for ``raster_assemble="pallas"``;
+the sublane raster for eligible ``raster_sublane`` and ``raster_batch``
+draws; the MSAA-4x forms under coverage MSAA), then per draw the
+gather-free shading from the interpolated planes and the blend composite
+against that draw's own visibility snapshot, and the MSAA resolve.
+PyTorch runs eagerly, so there is no program cache.
 
 ``RendererConfig.msaa=4`` is coverage-sample MSAA-4x: per-sample
 visibility at the four standard sample positions, attributes and shading
@@ -19,8 +21,9 @@ box resolve.  With ``msaa_supersample`` it is 2x2 supersampling instead:
 the frame rasterizes without MSAA at twice the extent and a 2x2 box
 resolve follows.  With ``msaa=1`` ``msaa_supersample`` changes nothing.
 
-Render state outside this slice raises FeatureNotPresentError naming the
-ROADMAP step that will port it.
+Render state the port does not have yet (``shade_compact``,
+``instance_cull``, ``raster_tmpl="pallas"``, textures) raises
+FeatureNotPresentError naming the ROADMAP step that will port it.
 """
 
 from __future__ import annotations
@@ -80,14 +83,14 @@ class FrameResult:
     """Rendered frame (device tensors; fetch lazily).
 
     ``color_planar`` is always the resolved (4, H, W) colour.  ``tri_id``
-    and ``depth_q`` are (4, H, W) per-sample planes under coverage MSAA
-    and (2H, 2W) under ``msaa_supersample``.
+    and ``depth_q`` (and ``stencil``) are (4, H, W) per-sample planes under
+    coverage MSAA and (2H, 2W) under ``msaa_supersample``.
     """
 
     color_planar: torch.Tensor  # (4, H, W) f32
     depth_q: torch.Tensor  # (H, W) int32 quantized depth
     tri_id: torch.Tensor  # (H, W) int32
-    stencil: Any = None
+    stencil: Any = None  # int32 8-bit values when a draw turned stencil on, else None
     # True when a draw's binned (tile, triangle) pair count exceeded its
     # raster_pairs_factor / raster_slots_factor budget (a () bool tensor).
     overflowed: Any = False
@@ -111,26 +114,99 @@ class FrameResult:
 
 
 def _blend(src, dst, state):
-    """Opaque composite in planar (4, H, W) layout: blending disabled, so
-    the source replaces the destination in the channels of the write mask."""
+    """Blend in planar layout, the channel axis third from last: (4, H, W),
+    or (4 samples, 4, H, W) under coverage MSAA, where every sample blends
+    on its own (the JAX package vmaps _blend over samples).
+
+    The full VkPipelineColorBlendAttachmentState of the JAX package's
+    renderer._blend: separate colour and alpha factors and ops (the alpha
+    ones default to the colour ones), the constant-colour family,
+    src_alpha_saturate, min/max ignoring the factors, and a write mask
+    that applies even with blending off.
+    """
+    const = torch.tensor(state.constants, dtype=torch.float32, device=src.device).reshape(4, 1, 1)
+
+    def rgb(x):
+        return x[..., 0:3, :, :]
+
+    def alpha(x):
+        return x[..., 3:4, :, :]
+
+    def factor(name, is_alpha):
+        comp = alpha if is_alpha else rgb  # colour-valued factors by component
+        if name == "zero":
+            return 0.0
+        if name == "one":
+            return 1.0
+        if name == "src_color":
+            return comp(src)
+        if name == "one_minus_src_color":
+            return 1.0 - comp(src)
+        if name == "dst_color":
+            return comp(dst)
+        if name == "one_minus_dst_color":
+            return 1.0 - comp(dst)
+        if name == "src_alpha":
+            return alpha(src)
+        if name == "one_minus_src_alpha":
+            return 1.0 - alpha(src)
+        if name == "dst_alpha":
+            return alpha(dst)
+        if name == "one_minus_dst_alpha":
+            return 1.0 - alpha(dst)
+        if name == "constant_color":
+            return comp(const)
+        if name == "one_minus_constant_color":
+            return 1.0 - comp(const)
+        if name == "constant_alpha":
+            return alpha(const)
+        if name == "one_minus_constant_alpha":
+            return 1.0 - alpha(const)
+        if name == "src_alpha_saturate":  # min(src.a, 1 - dst.a) for colour, 1 for alpha
+            return 1.0 if is_alpha else torch.minimum(alpha(src), 1.0 - alpha(dst))
+        raise ValueError(name)
+
+    def combine(op, sf, df, is_alpha):
+        comp = alpha if is_alpha else rgb
+        s, d = comp(src), comp(dst)
+        if op == "min":
+            return torch.minimum(s, d)
+        if op == "max":
+            return torch.maximum(s, d)
+        a, b = s * factor(sf, is_alpha), d * factor(df, is_alpha)
+        if op == "add":
+            return a + b
+        if op == "subtract":
+            return a - b
+        if op == "reverse_subtract":
+            return b - a
+        raise ValueError(op)
+
+    out = src
     if state.enable:
-        raise FeatureNotPresentError("blending is not ported yet (ROADMAP A.10)")
+        out = torch.cat(
+            [
+                combine(state.color_op, state.src_factor, state.dst_factor, False),
+                combine(
+                    state.alpha_op if state.alpha_op is not None else state.color_op,
+                    state.src_alpha_factor if state.src_alpha_factor is not None else state.src_factor,
+                    state.dst_alpha_factor if state.dst_alpha_factor is not None else state.dst_factor,
+                    True,
+                ),
+            ],
+            dim=-3,
+        )
     if set(state.write_mask) == set("rgba"):
-        return src
+        return out
     mask = torch.tensor([ch in state.write_mask for ch in "rgba"], device=src.device)
-    return torch.where(mask.reshape(4, 1, 1), src, dst)
+    return torch.where(mask.reshape(4, 1, 1), out, dst)
 
 
 def _check_draw_state(pipe: Pipeline):
-    """Raise FeatureNotPresentError for render state outside this slice."""
+    """Raise FeatureNotPresentError for render state outside the port."""
     checks = (
-        (pipe.stencil.enable, "stencil", "A.10"),
-        (pipe.blend.enable, "blending", "A.10"),
-        (pipe.depth.bias_enable, "depth bias", "A.10"),
         (pipe.shade_compact is not None, "shade_compact", "A.11"),
         (pipe.instance_cull is not None, "instance_cull", "A.12"),
-        (pipe.raster_batch, "raster_batch", "queue B7"),
-        (pipe.raster_two_pass, "raster_two_pass", "queue B6"),
         (pipe.raster_tmpl == "pallas", "raster_tmpl='pallas'", "queue B8"),
     )
     for on, what, step in checks:
@@ -138,17 +214,22 @@ def _check_draw_state(pipe: Pipeline):
             raise FeatureNotPresentError(f"{what} is not ported yet (ROADMAP {step})")
 
 
-def _sublane_ineligible_reason(pipe: Pipeline):
-    """Why the order-independent sublane raster cannot serve this draw, or
-    None: the JAX package's _reduction_ineligible_reason for the sublane
-    kernel (which has an MSAA form, so MSAA is no reason), less its stencil
-    and two-pass clauses, whose state _check_draw_state rejects before a
-    frame runs."""
+def _reduction_ineligible_reason(pipe: Pipeline, coverage_msaa: bool, need_tile128: bool):
+    """Why an order-independent raster cannot serve this draw, or None: the
+    JAX package's _reduction_ineligible_reason (renderer.py:496-516).  The
+    sublane raster (``need_tile128``) has an MSAA form; the batched one
+    does not."""
     if not (pipe.depth.test and pipe.depth.write):
         return "depth test+write disabled"
     if pipe.depth.compare not in ("less", "less_equal", "greater", "greater_equal"):
         return f"unordered depth compare {pipe.depth.compare!r}"
-    if pipe.raster_tile[0] != 128:
+    if pipe.stencil.enable:
+        return "stencil enabled"
+    if coverage_msaa and not need_tile128:
+        return "coverage-sample MSAA"
+    if pipe.raster_two_pass:
+        return "two-pass rasterization requested"
+    if need_tile128 and pipe.raster_tile[0] != 128:
         return f"tile_w {pipe.raster_tile[0]} != 128"
     return None
 
@@ -258,7 +339,7 @@ class Renderer:
             raise FrameError("end_frame without begin_frame")
         self._in_frame = False
         draws, self._draws = self._draws, []
-        color, depth_q, tri_id, overflowed = self._run_frame(draws, *self._frame_clear)
+        color, depth_q, tri_id, stencil, overflowed = self._run_frame(draws, *self._frame_clear)
         if self.config.debug:
             if bool(overflowed):
                 raise AllocationError(
@@ -273,6 +354,7 @@ class Renderer:
             color_planar=color,
             depth_q=depth_q,
             tri_id=tri_id,
+            stencil=stencil,
             overflowed=overflowed,
             srgb=self.config.framebuffer_srgb,
         )
@@ -325,12 +407,17 @@ class Renderer:
             pipe = d.pipeline
             shd = shader_lib.get(pipe.shader)
             uniforms = self._uniforms(d.uniforms)
-            sublane = False
+            sublane = batch = False
             if pipe.raster_sublane:
-                why = _sublane_ineligible_reason(pipe)
+                why = _reduction_ineligible_reason(pipe, coverage_msaa, True)
                 sublane = why is None
                 if not sublane:
                     self._signal_fallback(pipe, "raster_sublane", why)
+            if pipe.raster_batch and not pipe.raster_sublane:
+                why = _reduction_ineligible_reason(pipe, coverage_msaa, False)
+                batch = why is None
+                if not batch:
+                    self._signal_fallback(pipe, "raster_batch", why)
             instances = self._uniforms(d.instances) if d.instances else None
             attrs, tri_idx = expand_instances(d.mesh, instances)
             clip, varyings = shd.vertex(attrs, uniforms)
@@ -339,6 +426,7 @@ class Renderer:
                 clip_tri, var_tri = clip_near(clip_tri, var_tri)
             num_t = clip_tri.shape[0]
             scissor = self._scaled_scissor(pipe, scale)
+            prev_stencil = None if vis is None else vis.stencil
             ts = setup_triangles(
                 clip_tri,
                 rw,
@@ -347,6 +435,11 @@ class Renderer:
                 front_face=pipe.front_face,
                 scissor=scissor,
                 bbox_pad_fp=fp.MSAA4_BBOX_PAD_FP if coverage_msaa else 0,
+                depth_bias=(
+                    (pipe.depth.bias_constant, pipe.depth.bias_slope, pipe.depth.bias_clamp)
+                    if pipe.depth.bias_enable
+                    else None
+                ),
             )
             var_keys = sorted(var_tri)
             channels = torch.cat([var_tri[k] for k in var_keys], dim=-1) if var_keys else None
@@ -376,6 +469,10 @@ class Renderer:
                 skip_losers=pipe.raster_skip_losers,
                 unroll=pipe.raster_unroll,
                 msaa4=coverage_msaa,
+                two_pass=pipe.raster_two_pass,
+                stencil=pipe.stencil if pipe.stencil.enable else None,
+                stencil_clear=cfg.clear_stencil,
+                batch=pipe.raster_batch if batch else 0,
                 sublane=sublane,
                 sublane_group=pipe.raster_group,
                 # No band binning under MSAA, as in the JAX package.
@@ -390,10 +487,12 @@ class Renderer:
             else:
                 vis, interp, invw, of = out
             overflowed = overflowed | of
+            if vis.stencil is None and prev_stencil is not None:
+                vis = vis._replace(stencil=prev_stencil)  # a stencil-off draw leaves the attachment
             per_draw.append((var_tri, offset, num_t, interp, invw, vis, uniforms))
             offset += num_t
 
-        # Pass 2: gather-free shading and the opaque composite, per draw,
+        # Pass 2: gather-free shading and the blend composite, per draw,
         # against each draw's own visibility snapshot (Vulkan's sequential
         # semantics for multi-draw frames).  Under coverage MSAA every
         # plane has a leading sample axis; the sample layers fold into
@@ -430,6 +529,6 @@ class Renderer:
         if vis is None:  # a frame without draws is the cleared frame
             clear_q = int(round(clear_depth * fp.DEPTH_ONE_Q))
             depth_q = torch.full(fbs, clear_q, dtype=torch.int32, device=dev)
-            return color.contiguous(), depth_q, torch.full_like(depth_q, -1), overflowed
-        return color.contiguous(), vis.depth_q, vis.tri_id, overflowed
+            return color.contiguous(), depth_q, torch.full_like(depth_q, -1), None, overflowed
+        return color.contiguous(), vis.depth_q, vis.tri_id, vis.stencil, overflowed
 

@@ -10,27 +10,39 @@ result lines):
   3. raster_tile (B1) vs its plain version on the same binned records (cube
      1920x1080, a 16384-triangle stress stream with exact depth ties and
      tiles of > 128 records, an init chain, greater_equal + depth clamp +
-     scissor): tri_id and depth_q exact, float planes within 1e-6;
+     scissor): tri_id and depth_q exact, float planes within 1e-6; then B1
+     with stencil on the stress stream (increment overdraw, the ops zoo
+     with masks and clear 0x40, never with a fail op, a stamp -> equal
+     init chain carrying init.stencil; depth test on and off), stencil
+     exact, and the two-pass route (B6, mapped onto raster_tile.cu) on the
+     same inputs equal to B1 and to the plain version;
   4. assemble_records (B3) vs its plain version on the 1M-triangle
      big_mesh stream at 1920x1080 (16-row records) and on the 4K MSAA-4x
      stream (24-row records): int records exact, float records bitwise;
   5. raster_sublane (B2) vs its plain version and vs raster_tile on the
      B3-assembled 1M-triangle stream (group 64), the 10k-instance stream
      (group 32, depth_clip False), the stress tie stream under the four
-     ordered compares, and a band-binned stream (bin_rows 4);
+     ordered compares, and a band-binned stream (bin_rows 4); the batched
+     route (B7, mapped onto raster_sublane.cu) vs B2's plain version and vs
+     raster_tile on the 1M-triangle stream (batch 16) and on the stress tie
+     stream under the four ordered compares at tiles 32x16, 64x64, 128x32
+     and 128x128, an init chain, and clamp with scissor;
   6. raster_msaa4 (B4) vs its plain version on the MSAA cube stream at
      1920x1080 and on the padded stress stream (an init chain,
      greater_equal + depth clamp + scissor, depth test off);
      raster_msaa4_sublane (B5) vs its plain version and vs B4 on the 4K
      MSAA big_mesh stream (group 64) and on the stress tie stream under the
      four ordered compares: per-sample tri_id and depth_q exact, floats
-     within 1e-6;
+     within 1e-6; B4 with per-sample stencil vs its plain version on the
+     MSAA stress stream and the MSAA cube, stencil exact;
   7. oracle: tri_id and depth_q equal the port's own copy of the numpy
      oracle (based_renderer_tpu_torch/reference/oracle.py) for the cube and
      the stress stream through raster_tile, for big_mesh (2000 triangles)
      through the dense path, and per sample (rasterize_msaa4) for the MSAA
      cube through B4 and the MSAA big_mesh (2000 triangles) through B3 + B5,
-     at 1920x1080;
+     stencil streams (with the stencil plane) through B1 and the two-pass
+     route, per-sample stencil through B4, and a depth-biased stream
+     through setup and B1, at 1920x1080;
   8. end to end: Renderer.render_frame with big_mesh (1M triangles) at
      1920x1080 and 3840x2160, instanced (10k cubes) at 1920x1080, cube at
      1920x1080 and triangle at 800x600, and the three MSAA runs: big_mesh at
@@ -39,8 +51,13 @@ result lines):
      asserted (dense frames assemble_records and raster_sublane once, MSAA
      big_mesh assemble_records and raster_msaa4_sublane once, the MSAA cube
      raster_msaa4 once, cube, triangle and supersampled cube raster_tile
-     once); no frame overflows; median ms/frame on the kernel path and on
-     the plain path (fewer frames).
+     once); the render-state frames at 1920x1080, plain and MSAA-4x (three
+     draws: the cube stamping the stencil, the 10k instances drawn
+     two-pass where the stencil is not the stamp, the cube again with depth
+     bias and constant-alpha blending), and big_mesh with raster_batch 16;
+     no frame overflows; one kernel-path frame of each new run equals the
+     plain-path frame (tri_id, depth_q and stencil exact, colour within
+     1e-5); median ms/frame on the kernel path and on the plain path.
 Every kernel time is the median of 7 CUDA-event windows in this run, with
 the spread and the SM clock nvidia-smi read right after.  Then one JSON
 line of per-kernel numbers (with each kernel's bound: the larger of its
@@ -67,7 +84,16 @@ FLOAT_TOL = 1e-6
 WINDOWS = 7
 W, H = 1920, 1080
 W4K, H4K = 3840, 2160
-KERNELS = ("raster_tile", "raster_sublane", "assemble_records", "raster_msaa4", "raster_msaa4_sublane")
+KERNELS = (
+    "raster_tile",
+    "raster_sublane",
+    "assemble_records",
+    "raster_msaa4",
+    "raster_msaa4_sublane",
+    "raster_two_pass",
+    "raster_batched",
+)
+COLOR_TOL = 1e-5
 # The least time for a kernel's work: bytes over the H100 SXM's HBM3 rate
 # (3.35 TB/s), or its integer instructions over the int32 issue rate of 132
 # SMs x 64 INT32 lanes at the 1980 MHz boost clock (Hopper white paper), the
@@ -82,16 +108,20 @@ def bound(bytes_: float, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def raster_bound(binned, width, height, tile, num_channels, samples, int_rows, ops_per_item, per_pixel):
+def raster_bound(binned, width, height, tile, num_channels, samples, int_rows, ops_per_item, per_pixel,
+                 stencil=False, init=False):
     """Bound of a raster kernel: every output plane written once ((2 + 4 +
-    K) planes, per sample), the int record rows it stages (int_rows rows of
-    the live slots: B1 14, B2 13, B4 20, B5 19) and tile_start/tile_count
-    read once; the winners' float records and B2/B5's tri_id row, read per
-    winner only, are not counted.  Integer
-    work: ``ops_per_item`` per (record, pixel) test when ``per_pixel`` (the
-    sequential kernels), per (record, tile row) span solve otherwise."""
+    K) planes, and the stencil plane when ``stencil``, per sample), the init
+    planes read once when ``init`` (tri_id, depth_q, b0, b1, b2, and the
+    stencil), the int record rows it stages (int_rows rows of the live
+    slots: B1 14, B2 13, B4 20, B5 19) and tile_start/tile_count read once;
+    the winners' float records and B2/B5's tri_id row, read per winner
+    only, are not counted.  Integer work: ``ops_per_item`` per (record,
+    pixel) test when ``per_pixel`` (the sequential kernels), per (record,
+    tile row) span solve otherwise."""
     live = int(binned.tile_count.sum())
-    bytes_ = (6 + num_channels) * samples * width * height * 4 + int_rows * live * 4
+    planes = 6 + num_channels + int(stencil) + (5 + int(stencil) if init else 0)
+    bytes_ = planes * samples * width * height * 4 + int_rows * live * 4
     bytes_ += 2 * binned.tile_count.numel() * 4
     items = live * tile[1] * (tile[0] if per_pixel else 1)
     return bound(bytes_, items * ops_per_item)
@@ -151,9 +181,11 @@ class Checker:
         torch.cuda.synchronize()
         gv, gf = (got, []) if len(got) == 6 else (got[0], list(got[1:]))
         wv, wf = (want, []) if len(want) == 6 else (want[0], list(want[1:]))
-        for k in ("tri_id", "depth_q"):
+        if (gv.stencil is None) != (wv.stencil is None):
+            raise AssertionError(f"{label}: one stencil plane is missing")
+        for k in ("tri_id", "depth_q", "stencil"):
             a, b = getattr(gv, k), getattr(wv, k)
-            if not torch.equal(a, b):
+            if a is not None and not torch.equal(a, b):
                 raise AssertionError(f"{label}: {k} differs at {int((a != b).sum())} pixels")
         pairs = [(gv.b0, wv.b0), (gv.b1, wv.b1), (gv.b2, wv.b2), *zip(gf, wf)]
         diff = max(float((a - b).abs().max()) for a, b in pairs)
@@ -169,8 +201,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # the vertex matmuls stay full f32
     torch.backends.cudnn.allow_tf32 = False
     card = nvidia_smi("name,power.limit")
-    name = torch.cuda.get_device_name(0)
-    print(f"[device] {card} | torch {torch.__version__} cuda {torch.version.cuda} | {name}", flush=True)
+    device_name = torch.cuda.get_device_name(0)
+    print(f"[device] {card} | torch {torch.__version__} cuda {torch.version.cuda} | {device_name}", flush=True)
 
     sys.path.insert(0, str(ROOT))
     import based_renderer_tpu_torch as brt
@@ -193,6 +225,8 @@ def main() -> int:
         (binassem, "LAUNCHES"),
         (raster, "MSAA_LAUNCHES"),
         (raster, "MSAA_SUBLANE_LAUNCHES"),
+        (raster, "TWO_PASS_LAUNCHES"),
+        (raster, "BATCH_LAUNCHES"),
     )
 
     def counts():
@@ -251,7 +285,8 @@ def main() -> int:
         raise AssertionError(f"stress stream's fullest tile has {max_count} records")
     b1_vs_plain("stress", stress_b, W, H)
     half = n_stress // 2
-    first = b1_vs_plain("init-a", binned_for(s_clip[:half], s_col[:half], W, H), W, H)
+    first_b = binned_for(s_clip[:half], s_col[:half], W, H)
+    first = b1_vs_plain("init-a", first_b, W, H)
     second_b = bin_triangles(
         setup_triangles(s_clip[half:], W, H), W, H, 128, 32, channels=s_col[half:], id_offset=half
     )
@@ -269,6 +304,48 @@ def main() -> int:
         f"init chain, greater_equal+clamp+scissor: ints exact, max float diff "
         f"{check.worst['raster_tile']:.3g} (tol {FLOAT_TOL}) | cube kernel {fmt(times['raster_tile'])}, "
         f"plain {fmt(times['raster_tile_plain'])} | stress kernel {fmt(t_stress)} | {card}",
+        flush=True,
+    )
+
+    # B1 with stencil, and the two-pass route (B6) on the same inputs.
+    ST = brt.StencilState
+    increment = ST(enable=True, compare="always", pass_op="increment_clamp", depth_fail_op="increment_wrap")
+    zoo = ST(enable=True, compare="greater_equal", ref=0x35, compare_mask=0xF0, write_mask=0x66,
+             pass_op="replace", fail_op="invert", depth_fail_op="decrement_clamp")
+    stencil_cases = (("increment", increment, 0), ("ops zoo", zoo, 0x40),
+                     ("never", ST(enable=True, compare="never", fail_op="increment_clamp"), 0))
+    stamp = ST(enable=True, compare="always", ref=1, pass_op="replace")
+    masked = ST(enable=True, compare="equal", ref=1, pass_op="increment_clamp", fail_op="invert")
+
+    def b1_b6_vs_plain(label, binned, width, height, init=None, **kw):
+        """B1 against its plain version, then the two-pass route (B6)
+        against both; ``init`` is a (kernel, plain) VisBuffer pair."""
+        got, want = b1_vs_plain(label, binned, width, height, init=init, **kw)
+        tp = raster.rasterize_binned(binned, width, height, num_channels=3, two_pass=True,
+                                     init=None if init is None else init[0], **kw)
+        check("raster_two_pass", f"{label} vs raster_tile", tp, got)
+        check("raster_two_pass", f"{label} vs plain", tp, want)
+        return got, want
+
+    for name, st, clear in stencil_cases:
+        for test in (True, False):
+            got, _ = b1_b6_vs_plain(f"stencil {name}, depth test {test}", stress_b, W, H, stencil=st,
+                                    stencil_clear=clear, depth_test=test, depth_write=test)
+            if name == "increment" and int(got[0].stencil.max()) < 2:
+                raise AssertionError("the stress stream's stencil overdraw count stayed below 2")
+    st_a = b1_b6_vs_plain("stamp", first_b, W, H, stencil=stamp)
+    b1_b6_vs_plain("equal after stamp", second_b, W, H, init=(st_a[0][0], st_a[1][0]), stencil=masked)
+    st_init = st_a[0][0]
+    st_kw = dict(num_channels=3, init=st_init, stencil=zoo, stencil_clear=0x40)
+    t_b1_st = timed(lambda: raster.rasterize_binned(stress_b, W, H, **st_kw), 5)
+    t_b1_st_plain = timed(lambda: raster.rasterize_binned_reference(stress_b, W, H, **st_kw))
+    b_b1_st = raster_bound(stress_b, W, H, (128, 32), 3, 1, 14, 20, True, stencil=True, init=True)
+    print(
+        f"[raster_tile with stencil, two-pass route] stress at {W}x{H}: increment, ops zoo (clear 0x40), "
+        f"never, each with depth test on and off, stamp -> equal init chain with init.stencil: tri_id, "
+        f"depth_q, stencil exact, two-pass == raster_tile == plain | stress + init + ops zoo kernel "
+        f"{fmt(t_b1_st)} (bound {b_b1_st[0]:.4f} ms, {b_b1_st[1]}), plain {fmt(t_b1_st_plain)}, "
+        f"stress without stencil {fmt(t_stress)} | {card}",
         flush=True,
     )
 
@@ -364,6 +441,20 @@ def main() -> int:
     t_inst_b2 = timed(lambda: raster.rasterize_binned(inst_b, W, H, sublane=True, sublane_group=32, **inst_rkw), 10)
     t_inst_b1 = timed(lambda: raster.rasterize_binned(inst_b, W, H, **inst_rkw), 10)
 
+    # The two-pass route (B6) on the instanced stream: not_equal 1 over the
+    # cube's stamp, as the render-state frame draws it.
+    cube_stamp = raster.rasterize_binned(cube_b, W, H, num_channels=3, stencil=stamp)[0]
+    inst_st_kw = dict(inst_rkw, init=cube_stamp, stencil=ST(enable=True, compare="not_equal", ref=1))
+    tp = raster.rasterize_binned(inst_b, W, H, two_pass=True, **inst_st_kw)
+    check("raster_two_pass", "instanced vs raster_tile", tp, raster.rasterize_binned(inst_b, W, H, **inst_st_kw))
+    check("raster_two_pass", "instanced vs plain", tp, raster.rasterize_binned_reference(inst_b, W, H, **inst_st_kw))
+    times["raster_two_pass"] = timed(lambda: raster.rasterize_binned(inst_b, W, H, two_pass=True, **inst_st_kw), 10)
+    times["raster_two_pass_plain"] = timed(
+        lambda: raster.rasterize_binned_reference(inst_b, W, H, two_pass=True, **inst_st_kw)
+    )
+    bounds["raster_two_pass"] = raster_bound(inst_b, W, H, (128, 8), inst_rkw["num_channels"], 1, 14, 20, True,
+                                             stencil=True, init=True)
+
     for compare in ("less", "less_equal", "greater", "greater_equal"):
         clear = 0.0 if compare.startswith("greater") else 1.0
         b2_checks(f"stress {compare}", stress_b, W, H, num_channels=3, depth_compare=compare, depth_clear=clear)
@@ -384,13 +475,50 @@ def main() -> int:
         f"{fmt(times['raster_tile_dense'])} | instanced sublane {fmt(t_inst_b2)}, raster_tile {fmt(t_inst_b1)} | {card}",
         flush=True,
     )
+    print(
+        f"[raster_two_pass vs raster_tile, vs plain] instanced 1080p with stencil not_equal 1 over the cube's "
+        f"stamp: ints and stencil exact | kernel {fmt(times['raster_two_pass'])} (bound "
+        f"{bounds['raster_two_pass'][0]:.4f} ms), plain {fmt(times['raster_two_pass_plain'])} | {card}",
+        flush=True,
+    )
+
+    # The batched route (B7) vs B2's plain version and vs raster_tile.
+    def b7_checks(label, binned, width, height, **kw):
+        got = raster.rasterize_binned(binned, width, height, batch=16, **kw)
+        check("raster_batched", f"{label} vs plain", got,
+              raster.rasterize_binned_reference(binned, width, height, batch=16, **kw))
+        check("raster_batched", f"{label} vs raster_tile", got, raster.rasterize_binned(binned, width, height, **kw))
+        return got
+
+    b7_checks("big_mesh 1080p", big_b, W, H, **dense_kw)
+    times["raster_batched"] = timed(lambda: raster.rasterize_binned(big_b, W, H, batch=16, **dense_kw), 10)
+    times["raster_batched_plain"] = timed(lambda: raster.rasterize_binned_reference(big_b, W, H, batch=16, **dense_kw))
+    bounds["raster_batched"] = raster_bound(big_b, W, H, (128, 8), k_big, 1, 13, 40, False)
+    for tile in ((32, 16), (64, 64), (128, 32), (128, 128)):
+        tile_b = binned_for(s_clip, s_col, W, H, tile=tile, max_pairs=32 * n_stress)
+        for compare in ("less", "less_equal", "greater", "greater_equal"):
+            b7_checks(f"stress {tile} {compare}", tile_b, W, H, tile_w=tile[0], tile_h=tile[1], num_channels=3,
+                      depth_compare=compare, depth_clear=0.0 if compare.startswith("greater") else 1.0)
+    b7_a = b7_checks("init-a", first_b, W, H, num_channels=3)
+    b7_checks("init-b", second_b, W, H, num_channels=3, init=b7_a[0])
+    b7_checks("ge-clamp-scissor", sc_b, W, H, tile_w=64, tile_h=64, num_channels=3, depth_compare="greater_equal",
+              depth_clip="clamp", depth_clear=0.0, scissor=sc)
+    print(
+        f"[raster_batched vs plain, vs raster_tile] big_mesh 1080p batch 16, stress ties under "
+        f"less/less_equal/greater/greater_equal at tiles 32x16, 64x64, 128x32, 128x128, init chain, "
+        f"greater_equal+clamp+scissor: ints exact, max float diff {check.worst['raster_batched']:.3g} (tol "
+        f"{FLOAT_TOL}) | big_mesh kernel {fmt(times['raster_batched'])} (bound {bounds['raster_batched'][0]:.4f} ms), "
+        f"plain {fmt(times['raster_batched_plain'])}, sublane {fmt(times['raster_sublane'])} | {card}",
+        flush=True,
+    )
 
     # ---- 6. raster_msaa4 (B4) and raster_msaa4_sublane (B5) --------------
     cube_mb = binned_for(cube_clip, cube_col, W, H, msaa4=True)
     b1_vs_plain("cube", cube_mb, W, H, msaa4=True)
     stress_mb = binned_for(s_clip, s_col, W, H, max_pairs=16 * n_stress, msaa4=True)
     b1_vs_plain("stress", stress_mb, W, H, msaa4=True)
-    first = b1_vs_plain("init-a", binned_for(s_clip[:half], s_col[:half], W, H, msaa4=True), W, H, msaa4=True)
+    first_mb = binned_for(s_clip[:half], s_col[:half], W, H, msaa4=True)
+    first = b1_vs_plain("init-a", first_mb, W, H, msaa4=True)
     second_mb = binned_for(s_clip[half:], s_col[half:], W, H, id_offset=half, msaa4=True)
     b1_vs_plain("init-b", second_mb, W, H, init=(first[0][0], first[1][0]), msaa4=True)
     sc_mb = binned_for(s_clip, s_col, W, H, tile=(64, 64), scissor=sc, max_pairs=16 * n_stress, msaa4=True)
@@ -403,6 +531,23 @@ def main() -> int:
     )
     bounds["raster_msaa4"] = raster_bound(cube_mb, W, H, (128, 32), 3, 4, 20, 44, True)
     t_b4_stress = timed(lambda: raster.rasterize_binned(stress_mb, W, H, num_channels=3, msaa4=True), 5)
+    # B4 with per-sample stencil.
+    for name, st, clear in stencil_cases:
+        got, _ = b1_vs_plain(f"stencil {name}", stress_mb, W, H, msaa4=True, stencil=st, stencil_clear=clear)
+        if name == "increment" and int(got[0].stencil.max()) < 2:
+            raise AssertionError("the MSAA stress stream's stencil overdraw count stayed below 2")
+    b1_vs_plain("stencil increment, depth test off", stress_mb, W, H, msaa4=True, stencil=increment,
+                depth_test=False, depth_write=False)
+    got, _ = b1_vs_plain("cube stencil increment", cube_mb, W, H, msaa4=True, stencil=increment)
+    st_s = got[0].stencil
+    if not (st_s[0] != st_s[1]).any() and not (st_s[0] != st_s[2]).any():
+        raise AssertionError("the MSAA cube's stencil layers agree everywhere")
+    m_a = b1_vs_plain("stamp", first_mb, W, H, msaa4=True, stencil=stamp)
+    b1_vs_plain("equal after stamp", second_mb, W, H, init=(m_a[0][0], m_a[1][0]), msaa4=True, stencil=masked)
+    m_kw = dict(num_channels=3, msaa4=True, init=m_a[0][0], stencil=zoo, stencil_clear=0x40)
+    t_b4_st = timed(lambda: raster.rasterize_binned(stress_mb, W, H, **m_kw), 5)
+    t_b4_st_plain = timed(lambda: raster.rasterize_binned_reference(stress_mb, W, H, **m_kw))
+    b_b4_st = raster_bound(stress_mb, W, H, (128, 32), 3, 4, 20, 52, True, stencil=True, init=True)
 
     def b5_checks(label, binned, width, height, **kw):
         got = raster.rasterize_binned(binned, width, height, sublane=True, msaa4=True, **kw)
@@ -438,6 +583,13 @@ def main() -> int:
         flush=True,
     )
     print(
+        f"[raster_msaa4 with per-sample stencil vs plain] stress: increment, ops zoo, never, increment with "
+        f"depth test off, stamp -> equal init chain; the MSAA cube (sample layers differ): per-sample "
+        f"tri_id, depth_q, stencil exact | stress + init + ops zoo kernel {fmt(t_b4_st)} (bound "
+        f"{b_b4_st[0]:.4f} ms, {b_b4_st[1]}), plain {fmt(t_b4_st_plain)} | {card}",
+        flush=True,
+    )
+    print(
         f"[raster_msaa4_sublane vs plain, vs raster_msaa4] big_mesh 4K MSAA ({big4m_b.records.shape[1]} slots, "
         f"{int(big4m_b.tile_count.sum())} live), stress under less/less_equal/greater/greater_equal: per-sample "
         f"ints exact, max float diff {check.worst['raster_msaa4_sublane']:.3g} (tol {FLOAT_TOL}) | big_mesh 4K "
@@ -448,7 +600,9 @@ def main() -> int:
 
     # ---- 7. oracle (the port's own copy) --------------------------------
     def oracle_equal(label, got, want):
-        for k in ("tri_id", "depth_q"):
+        for k in ("tri_id", "depth_q", "stencil"):
+            if k not in want:
+                continue
             g = getattr(got, k).cpu().numpy()
             if not np.array_equal(g, want[k]):
                 raise AssertionError(f"oracle {label}: {k} differs at {int((g != want[k]).sum())} pixels")
@@ -483,34 +637,60 @@ def main() -> int:
         clip, _ = brt.shader.get(pipe.shader).vertex(mesh.attributes, {k: v.to(dev) for k, v in u.items()})
         return frame, clip.reshape(-1, 3, 4).cpu().numpy()
 
-    frame, clip = toy_big_mesh(brt.RendererConfig(W, H), (0, 1, 1, 0, 0))
+    frame, clip = toy_big_mesh(brt.RendererConfig(W, H), (0, 1, 1, 0, 0, 0, 0))
     oracle_equal("big_mesh 2000", frame, oracle.rasterize(clip, W, H, cull_mode="back"))
-    frame, clip = toy_big_mesh(brt.RendererConfig(W, H, msaa=4), (0, 0, 1, 0, 1))
+    frame, clip = toy_big_mesh(brt.RendererConfig(W, H, msaa=4), (0, 0, 1, 0, 1, 0, 0))
     oracle_equal("MSAA big_mesh 2000", frame, oracle.rasterize_msaa4(clip, W, H, cull_mode="back"))
+    # Stencil through B1 and the two-pass route, per sample through B4, and
+    # a depth-biased stream through the port's setup and B1.
+    s2k = s_clip[:2048]
+    s2k_np = s2k.cpu().numpy()
+    for name, st, clear in stencil_cases:
+        want = oracle.rasterize(s2k_np, W, H, stencil=st, stencil_clear=clear)
+        for two_pass in (False, True):
+            got, overflowed = raster.rasterize_vis(setup_triangles(s2k, W, H), W, H, max_pairs=16 * 2048, stencil=st,
+                                                   stencil_clear=clear, two_pass=two_pass, return_overflow=True)
+            if bool(overflowed):
+                raise AssertionError(f"oracle stencil {name}: binner overflowed")
+            oracle_equal(f"stencil {name} two_pass={two_pass}", got, want)
+    got = raster.rasterize_vis(setup_triangles(cube_clip, W, H, bbox_pad_fp=fp.MSAA4_BBOX_PAD_FP), W, H,
+                               max_pairs=4096, msaa4=True, stencil=increment)
+    oracle_equal("MSAA cube stencil", got, oracle.rasterize_msaa4(cube_clip.cpu().numpy(), W, H, stencil=increment))
+    bias = (-500.0, 1.25, 0.001)
+    got = raster.rasterize_vis(setup_triangles(s2k, W, H, depth_bias=bias), W, H, max_pairs=16 * 2048)
+    oracle_equal("depth bias", got, oracle.rasterize(s2k_np, W, H, depth_bias=bias))
     print(
         f"[oracle] cube ({cube_clip.shape[0]} tris) and stress[:2048] through raster_tile, big_mesh "
         f"(2000 tris, back-face cull) through assemble_records + raster_sublane; per sample: the MSAA cube "
         f"through raster_msaa4, MSAA big_mesh (2000 tris) through assemble_records + raster_msaa4_sublane; "
-        f"at {W}x{H}: tri_id, depth_q bit-exact",
+        f"stress[:2048] under increment, ops zoo and never through raster_tile and the two-pass route, the "
+        f"MSAA cube's per-sample stencil through raster_msaa4, stress[:2048] biased {bias} through setup and "
+        f"raster_tile; at {W}x{H}: tri_id, depth_q and stencil bit-exact",
         flush=True,
     )
 
     # ---- 8. end to end --------------------------------------------------
-    def run_frames(r, demo, frames, per_frame):
+    def render(r, draws, us):
+        """One frame of ``draws`` [(pipe, mesh, uniforms_fn, instances)] with uniforms ``us``."""
+        r.begin_frame()
+        for (pipe, mesh, _, inst), u in zip(draws, us):
+            r.draw(pipe, mesh, u, instances=inst)
+        return r.end_frame()
+
+    def run_frames(label, r, draws, frames, per_frame):
         """Median ms/frame over ``frames`` frames; each frame must add
         ``per_frame`` to the launch counts (see KERNELS)."""
-        pipe, mesh, uniforms, inst = demo
         times_, overflow, finite, covered = [], None, None, None
         for i in range(frames):
-            u = uniforms(0.05 * i)
+            us = [d[2](0.05 * i) for d in draws]
             before = counts()
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
-            f = r.render_frame(pipe, mesh, u, instances=inst)
+            f = render(r, draws, us)
             end.record()
             got = tuple(a - b for a, b in zip(counts(), before))
             if got != per_frame:
-                raise AssertionError(f"{pipe.shader} frame {i}: launches {got}, expected {per_frame}")
+                raise AssertionError(f"{label} frame {i}: launches {got}, expected {per_frame}")
             times_.append((start, end))
             ok = torch.isfinite(f.color_planar).all()
             cov = (f.tri_id >= 0).sum()
@@ -519,52 +699,114 @@ def main() -> int:
             covered = cov if covered is None else torch.minimum(covered, cov)
         torch.cuda.synchronize()
         if bool(overflow) or not bool(finite) or int(covered) <= 0:
-            raise AssertionError(f"{pipe.shader}: overflowed={bool(overflow)} finite={bool(finite)} covered={int(covered)}")
+            raise AssertionError(f"{label}: overflowed={bool(overflow)} finite={bool(finite)} covered={int(covered)}")
         w, h = r.config.width, r.config.height
         if tuple(f.color_planar.shape) != (4, h, w):
-            raise AssertionError(f"{pipe.shader}: color shape {tuple(f.color_planar.shape)}")
+            raise AssertionError(f"{label}: color shape {tuple(f.color_planar.shape)}")
         return statistics.median(s.elapsed_time(e) for s, e in times_), int(covered)
+
+    class plain_path:
+        """Within it, the renderer runs every kernel's plain version."""
+
+        def __enter__(self):
+            self.kernels = (raster.rasterize_binned, binassem.assemble_records)
+            raster.rasterize_binned = raster.rasterize_binned_reference
+            binassem.assemble_records = binassem.assemble_records_reference
+
+        def __exit__(self, *exc):
+            raster.rasterize_binned, binassem.assemble_records = self.kernels
+
+    def render_state_draws(r):
+        """Three draws: the cube stamps stencil 1; the 10k instances draw
+        two-pass where the stencil is not 1; the cube again, depth write
+        off, winning over its own coplanar copy only through its depth
+        bias, blended at constant alpha 0.5."""
+        cube_pipe, cube_mesh, cube_u, _ = brt.demos.cube_demo(r)
+        inst_pipe, inst_mesh, inst_u, inst = brt.demos.instanced_demo(r)
+        field = dataclasses.replace(inst_pipe, raster_sublane=False, raster_two_pass=True,
+                                    stencil=ST(enable=True, compare="not_equal", ref=1))
+        decal = dataclasses.replace(
+            cube_pipe,
+            depth=brt.DepthState(compare="less", write=False, bias_enable=True, bias_constant=-64.0),
+            blend=brt.BlendState(enable=True, src_factor="constant_alpha", dst_factor="one_minus_constant_alpha",
+                                 constants=(0.0, 0.0, 0.0, 0.5)),
+        )
+        return [
+            (dataclasses.replace(cube_pipe, stencil=stamp), cube_mesh, cube_u, None),
+            (field, inst_mesh, inst_u, inst),
+            (decal, cube_mesh, cube_u, None),
+        ]
+
+    def kernel_vs_plain(label, r, draws, decal_from=None):
+        """One frame on the kernel path against the plain path: tri_id,
+        depth_q and stencil exact, colour within COLOR_TOL.  ``decal_from``:
+        the first triangle id of the last draw, which must win pixels."""
+        us = [d[2](0.0) for d in draws]
+        got = render(r, draws, us)
+        with plain_path():
+            want = render(r, draws, us)
+        torch.cuda.synchronize()
+        for k in ("tri_id", "depth_q", "stencil"):
+            a, b = getattr(got, k), getattr(want, k)
+            if (a is None) != (b is None) or (a is not None and not torch.equal(a, b)):
+                raise AssertionError(f"{label} kernel vs plain frame: {k} differs")
+        diff = float((got.color_planar - want.color_planar).abs().max())
+        if not diff <= COLOR_TOL:
+            raise AssertionError(f"{label} kernel vs plain frame: colour differs by {diff}")
+        if decal_from is not None:
+            if not bool((got.stencil == 1).any()) or not bool((got.tri_id >= decal_from).any()):
+                raise AssertionError(f"{label}: no stamp in the stencil, or the biased decal won no pixel")
+        return diff
 
     big4k_r = brt.Renderer(brt.RendererConfig(W4K, H4K))
     cube_r = brt.Renderer(brt.RendererConfig(W, H))
     tri_r = brt.Renderer(brt.RendererConfig(800, 600))
     cube_m_r = brt.Renderer(brt.RendererConfig(W, H, msaa=4))
     cube_ss_r = brt.Renderer(brt.RendererConfig(W, H, msaa=4, msaa_supersample=True))
+    rs_r = brt.Renderer(brt.RendererConfig(W, H))
+    rs_m_r = brt.Renderer(brt.RendererConfig(W, H, msaa=4))
     # The cube's own pair budget (4.0 per triangle, at least 1024 pairs)
     # holds its 1080p frames but not the 3840x2160 raster of the
     # supersampled frame (~2100 pairs), in both packages; 128 holds them.
     ss_pipe, *ss_rest = brt.demos.cube_demo(cube_ss_r)
     ss_demo = (dataclasses.replace(ss_pipe, raster_pairs_factor=128.0), *ss_rest)
-    runs = [  # label, renderer, demo, kernel frames, plain frames, launches per frame (KERNELS order)
-        ("big_mesh 1920x1080", big_r, big_demo, 10, 2, (0, 1, 1, 0, 0)),
-        ("big_mesh 3840x2160", big4k_r, brt.demos.big_mesh_demo(big4k_r), 5, 1, (0, 1, 1, 0, 0)),
-        ("instanced 1920x1080", inst_r, inst_demo, 10, 2, (0, 1, 1, 0, 0)),
-        ("cube 1920x1080", cube_r, brt.demos.cube_demo(cube_r), 20, 5, (1, 0, 0, 0, 0)),
-        ("triangle 800x600", tri_r, brt.demos.triangle_demo(tri_r), 20, 5, (1, 0, 0, 0, 0)),
-        ("big_mesh 3840x2160 MSAA-4x", big4m_r, big4m_demo, 5, 1, (0, 0, 1, 0, 1)),
-        ("cube 1920x1080 MSAA-4x", cube_m_r, brt.demos.cube_demo(cube_m_r), 20, 5, (0, 0, 0, 1, 0)),
-        ("cube 1920x1080 supersampled", cube_ss_r, ss_demo, 10, 3, (1, 0, 0, 0, 0)),
+    batch_pipe, *batch_rest = brt.demos.big_mesh_demo(big_r)
+    batch_demo = (dataclasses.replace(batch_pipe, raster_sublane=False, raster_batch=16), *batch_rest)
+    # label, renderer, draws, kernel frames, plain frames, launches per frame (KERNELS order)
+    runs = [
+        ("big_mesh 1920x1080", big_r, [big_demo], 10, 2, (0, 1, 1, 0, 0, 0, 0)),
+        ("big_mesh 3840x2160", big4k_r, [brt.demos.big_mesh_demo(big4k_r)], 5, 1, (0, 1, 1, 0, 0, 0, 0)),
+        ("instanced 1920x1080", inst_r, [inst_demo], 10, 2, (0, 1, 1, 0, 0, 0, 0)),
+        ("cube 1920x1080", cube_r, [brt.demos.cube_demo(cube_r)], 20, 5, (1, 0, 0, 0, 0, 0, 0)),
+        ("triangle 800x600", tri_r, [brt.demos.triangle_demo(tri_r)], 20, 5, (1, 0, 0, 0, 0, 0, 0)),
+        ("big_mesh 3840x2160 MSAA-4x", big4m_r, [big4m_demo], 5, 1, (0, 0, 1, 0, 1, 0, 0)),
+        ("cube 1920x1080 MSAA-4x", cube_m_r, [brt.demos.cube_demo(cube_m_r)], 20, 5, (0, 0, 0, 1, 0, 0, 0)),
+        ("cube 1920x1080 supersampled", cube_ss_r, [ss_demo], 10, 3, (1, 0, 0, 0, 0, 0, 0)),
+        ("render-state 1920x1080", rs_r, render_state_draws(rs_r), 10, 2, (2, 0, 1, 0, 0, 1, 0)),
+        ("render-state 1920x1080 MSAA-4x", rs_m_r, render_state_draws(rs_m_r), 5, 1, (0, 0, 1, 3, 0, 0, 0)),
+        ("big_mesh 1920x1080 batched", big_r, [batch_demo], 10, 1, (0, 0, 1, 0, 0, 0, 1)),
     ]
     reset_counts()
-    results = {label: run_frames(r, demo, n, per) for label, r, demo, n, _, per in runs}
+    results = {label: run_frames(label, r, draws, n, per) for label, r, draws, n, _, per in runs}
     main_launches = dict(zip(KERNELS, counts()))
     expected = [sum(n * per[i] for _, _, _, n, _, per in runs) for i in range(len(KERNELS))]
     if list(main_launches.values()) != expected:
         raise AssertionError(f"main path launches {main_launches}, expected {expected}")
 
-    kernels = (raster.rasterize_binned, binassem.assemble_records)
-    raster.rasterize_binned = raster.rasterize_binned_reference  # the plain path, for timing only
-    binassem.assemble_records = binassem.assemble_records_reference
-    try:
-        plain = {label: run_frames(r, demo, n, (0,) * len(KERNELS))[0] for label, r, demo, _, n, _ in runs}
-    finally:
-        raster.rasterize_binned, binassem.assemble_records = kernels
+    # The cube's 12 triangles are 24 after the near clipper: the decal's
+    # ids start after the cube's and the 120,000 instance triangles.
+    frame_diffs = {label: kernel_vs_plain(label, r, draws, decal_from=24 + 120_000 if "render-state" in label else None)
+                   for label, r, draws, *_ in runs[-3:]}
+    with plain_path():
+        plain = {label: run_frames(label, r, draws, n, (0,) * len(KERNELS))[0] for label, r, draws, _, n, _ in runs}
     print(
         "[end-to-end] median ms/frame kernel/plain (frames): "
         + "; ".join(
             f"{label} {results[label][0]:.3f}/{plain[label]:.3f} ({n}/{pn}, min covered {results[label][1]} samples)"
             for label, _, _, n, pn, _ in runs
         )
+        + f" | kernel vs plain frame, max colour diff (tol {COLOR_TOL}): "
+        + ", ".join(f"{label} {d:.3g}" for label, d in frame_diffs.items())
         + f" | launches {main_launches} | {card}",
         flush=True,
     )
@@ -575,6 +817,8 @@ def main() -> int:
         "assemble_records": ("assemble_records.cu", "based_renderer_tpu/ops/binassem.py:97"),
         "raster_msaa4": ("raster_msaa4.cu", "based_renderer_tpu/ops/raster_pallas.py:1467"),
         "raster_msaa4_sublane": ("raster_msaa4_sublane.cu", "based_renderer_tpu/ops/raster_pallas.py:1160"),
+        "raster_two_pass": ("raster_tile.cu", "based_renderer_tpu/ops/raster_pallas.py:282"),
+        "raster_batched": ("raster_sublane.cu", "based_renderer_tpu/ops/raster_pallas.py:504"),
     }
     print(json.dumps({"kernels": [
         {
@@ -594,7 +838,7 @@ def main() -> int:
         for k, (src, replaces) in sources.items()
     ]}))
     print(card)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()}}))
     return 0
 
 

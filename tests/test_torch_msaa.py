@@ -8,12 +8,15 @@ oracle's ``rasterize_msaa4`` (the port's own copy); the float planes
 the JAX package's barycentric tolerance (tests/test_pallas.py:40).
 """
 
+import dataclasses
+
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 import torch
 
+import based_renderer_tpu as jbrt
 import based_renderer_tpu_torch as tbrt
 from based_renderer_tpu.ops import setup as jsetup
 from based_renderer_tpu.ops.raster_pallas import rasterize_vis_pallas
@@ -195,11 +198,31 @@ def test_cpu_tensors_take_the_plain_version():
 @pytest.mark.parametrize(
     "kw",
     [
-        dict(stencil=tbrt.StencilState(enable=True), depth_compare="greater"),
+        dict(
+            stencil=tbrt.StencilState(enable=True, pass_op="increment_clamp", depth_fail_op="invert"),
+            depth_compare="greater",
+            depth_clear=0.0,
+        ),
         dict(tmpl="pallas", tile_w=64, tile_h=32),
     ],
 )
 def test_msaa_out_of_slice_raises(kw):
+    """Per-sample stencil under MSAA was outside the port's slice; it now
+    equals the JAX kernel (stencil exact).  tmpl='pallas' (B8) still raises."""
+    if "stencil" in kw:
+        jst = jbrt.StencilState(**dataclasses.asdict(kw["stencil"]))
+        t = traster.rasterize_vis(
+            tsetup.setup_triangles(torch.from_numpy(random_clip(13)), W, H, bbox_pad_fp=PAD), W, H,
+            tile_w=32, tile_h=16, msaa4=True, **kw,
+        )
+        j = rasterize_vis_pallas(
+            _jax_setup(jnp.asarray(random_clip(13)), W, H, bbox_pad_fp=PAD), W, H, tile_w=32, tile_h=16,
+            msaa4=True, interpret=True, **dict(kw, stencil=jst),
+        )
+        _assert_match(t, j)
+        np.testing.assert_array_equal(t.stencil.numpy(), np.asarray(j.stencil))
+        assert int(t.stencil.max()) >= 1
+        return
     ts = tsetup.setup_triangles(torch.from_numpy(random_clip(13, 4)), W, H, bbox_pad_fp=PAD)
     with pytest.raises(FeatureNotPresentError, match="ROADMAP"):
         traster.rasterize_vis(ts, W, H, msaa4=True, **kw)

@@ -1,10 +1,12 @@
-"""The port as a package: no jax, the same knobs, out-of-slice errors."""
+"""The port as a package: no jax, the same knobs, the render state it has
+and the errors for what it has not."""
 
 import dataclasses
 import pathlib
 import re
 import subprocess
 import sys
+import warnings
 
 import numpy as np
 import pytest
@@ -64,9 +66,10 @@ def test_validation_matches_jax():
 
 
 _OUT_OF_SLICE = [
-    dict(stencil=tbrt.StencilState(enable=True)),
-    dict(blend=tbrt.BlendState(enable=True)),
-    dict(depth=tbrt.DepthState(bias_enable=True)),
+    dict(stencil=tbrt.StencilState(enable=True, ref=3, pass_op="replace", depth_fail_op="increment_clamp")),
+    dict(blend=tbrt.BlendState(enable=True, src_factor="constant_alpha", dst_factor="one_minus_constant_alpha",
+                               constants=(0.0, 0.0, 0.0, 0.5))),
+    dict(depth=tbrt.DepthState(bias_enable=True, bias_constant=-64.0, bias_slope=1.5)),
     dict(shade_compact=0.5),
     dict(instance_cull=0.5),
     dict(raster_batch=8, raster_tile=(128, 8)),  # batch with eligible depth state
@@ -75,26 +78,66 @@ _OUT_OF_SLICE = [
     dict(raster_sublane=True, raster_two_pass=True),
     dict(raster_tmpl="pallas"),
 ]
+_STILL_OUT = ("shade_compact", "instance_cull", "raster_tmpl")
+
+
+def _as_jax(value):
+    """A port state dataclass as the JAX package's, field for field."""
+    if dataclasses.is_dataclass(value):
+        return getattr(jbrt, type(value).__name__)(**dataclasses.asdict(value))
+    return value
+
+
+def _frame(r, pipe, mesh, u):
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        f = r.render_frame(pipe, mesh, u)
+    return f, sorted(str(w.message).split(" requested")[0] for w in caught if w.category is RuntimeWarning)
 
 
 @pytest.mark.parametrize("kw", _OUT_OF_SLICE)
 def test_out_of_slice_state_raises(kw):
+    """shade_compact, instance_cull and raster_tmpl='pallas' still raise,
+    naming their ROADMAP step.  Stencil, blending, depth bias, raster_batch
+    and raster_two_pass were outside the port's slice: they now draw, warn
+    about an ineligible kernel variant as the JAX package does, and the
+    cube frame equals the JAX package's (each package runs its own vertex
+    matmul: tri_id and stencil on >= 99.9% of pixels, colour within 1e-4
+    where tri_id agrees)."""
     r = tbrt.Renderer(tbrt.RendererConfig(64, 32), device="cpu")
     pipe, mesh, u, _ = tbrt.demos.cube_demo(r)
-    r.begin_frame()
-    with pytest.raises(FeatureNotPresentError, match="ROADMAP"):
-        r.draw(dataclasses.replace(pipe, **kw), mesh, u(0.0))
+    if set(kw) & set(_STILL_OUT):
+        r.begin_frame()
+        with pytest.raises(FeatureNotPresentError, match="ROADMAP"):
+            r.draw(dataclasses.replace(pipe, **kw), mesh, u(0.0))
+        return
+    tf, t_warn = _frame(r, dataclasses.replace(pipe, **kw), mesh, u(0.7))
+    jr = jbrt.Renderer(jbrt.RendererConfig(64, 32, raster_backend="pallas"))
+    jpipe, jmesh, ju, _ = jdemos.cube_demo(jr)
+    jf, j_warn = _frame(jr, dataclasses.replace(jpipe, **{k: _as_jax(v) for k, v in kw.items()}), jmesh, ju(0.7))
+    assert t_warn == j_warn
+    same = tf.tri_id.numpy() == np.asarray(jf.tri_id)
+    assert same.mean() >= 0.999 and (tf.tri_id >= 0).any()
+    np.testing.assert_allclose(tf.color_np()[same], jf.color_np()[same], rtol=0, atol=1e-4)
+    assert (tf.stencil is None) == (jf.stencil is None) == ("stencil" not in kw)
+    if tf.stencil is not None:
+        assert (tf.stencil.numpy() == np.asarray(jf.stencil)).mean() >= 0.999 and int(tf.stencil.max()) >= 3
 
 
 def test_out_of_slice_renderer_state_raises():
-    # MSAA renders; under it stencil (A.10) and shade_compact (A.11) still raise.
-    for kw in (dict(msaa=4), dict(msaa=4, msaa_supersample=True)):
+    # Under MSAA and supersampling stencil draws now, one layer per sample
+    # (or at twice the extent); shade_compact (A.11) still raises.
+    for kw, shape in ((dict(msaa=4), (4, 32, 64)), (dict(msaa=4, msaa_supersample=True), (64, 128))):
         r = tbrt.Renderer(tbrt.RendererConfig(64, 32, **kw), device="cpu")
         pipe, mesh, u, _ = tbrt.demos.cube_demo(r)
+        stamp = dataclasses.replace(pipe, stencil=tbrt.StencilState(enable=True, ref=5, pass_op="replace"))
+        f = r.render_frame(stamp, mesh, u(0.0))
+        assert tuple(f.stencil.shape) == shape
+        assert torch.equal(f.stencil == 5, f.tri_id >= 0)
         r.begin_frame()
-        for state in (dict(stencil=tbrt.StencilState(enable=True)), dict(shade_compact=0.5)):
-            with pytest.raises(FeatureNotPresentError, match="ROADMAP"):
-                r.draw(dataclasses.replace(pipe, **state), mesh, u(0.0))
+        with pytest.raises(FeatureNotPresentError, match="ROADMAP"):
+            r.draw(dataclasses.replace(pipe, shade_compact=0.5), mesh, u(0.0))
+        r.end_frame()
     r = tbrt.Renderer(tbrt.RendererConfig(64, 32), device="cpu")
     with pytest.raises(FeatureNotPresentError, match="ROADMAP"):
         r.upload_texture(np.zeros((4, 4, 3), np.float32))
@@ -105,6 +148,7 @@ def test_out_of_slice_renderer_state_raises():
     r.draw(pipe, mesh, u(0.0), instances={"transform": np.eye(4, dtype=np.float32)[None]})
     inst = r.end_frame()
     assert torch.equal(inst.tri_id, r.render_frame(pipe, mesh, u(0.0)).tri_id)
+    assert inst.stencil is None  # no draw turned stencil on
     # The default shader name is not registered, in either package.
     r.begin_frame()
     with pytest.raises(ShaderError):

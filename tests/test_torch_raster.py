@@ -5,15 +5,19 @@ channels) agree within atol 2e-4, the JAX package's own barycentric
 tolerance (tests/test_pallas.py).
 """
 
+import dataclasses
+
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 import torch
 
+import based_renderer_tpu as jbrt
 from based_renderer_tpu.ops import setup as jsetup
 from based_renderer_tpu.ops.raster_pallas import rasterize_vis_pallas
 from based_renderer_tpu_torch import StencilState
+from based_renderer_tpu_torch.ops import fixedpoint as fp
 from based_renderer_tpu_torch.ops import raster as traster
 from based_renderer_tpu_torch.ops import setup as tsetup
 from based_renderer_tpu_torch.utils.errors import FeatureNotPresentError
@@ -147,16 +151,35 @@ def test_plain_version_is_the_cpu_path():
     "kw",
     [
         dict(two_pass=True),
-        dict(msaa4=True, stencil=StencilState(enable=True)),  # MSAA stencil: A.10
+        dict(msaa4=True, stencil=StencilState(enable=True, pass_op="increment_clamp")),
         dict(batch=8),
         dict(sublane=True, msaa4=True, tile_w=128, tile_h=8, tmpl="pallas"),  # B8
         dict(batch=8, depth_compare="less_equal", tile_w=128, tile_h=8),
     ],
 )
 def test_out_of_slice_raises(kw):
-    ts = tsetup.setup_triangles(torch.from_numpy(random_clip(12, 4)), 128, 64)
-    with pytest.raises(FeatureNotPresentError, match="ROADMAP"):
-        traster.rasterize_vis(ts, 128, 64, **kw)
+    """Two-pass, MSAA stencil and batched rasterization were outside the
+    port's slice; they now render and equal the JAX kernels (ints and
+    stencil exact, planes atol 2e-4).  tmpl='pallas' (B8) still raises."""
+    clip = random_clip(12, 16)
+    if kw.get("tmpl") == "pallas":
+        ts = tsetup.setup_triangles(torch.from_numpy(clip), 128, 64)
+        with pytest.raises(FeatureNotPresentError, match="ROADMAP"):
+            traster.rasterize_vis(ts, 128, 64, **kw)
+        return
+    pad = fp.MSAA4_BBOX_PAD_FP if kw.get("msaa4") else 0
+    ts = tsetup.setup_triangles(torch.from_numpy(clip), 128, 64, bbox_pad_fp=pad)
+    js = jsetup.setup_triangles(jnp.asarray(clip), 128, 64, bbox_pad_fp=pad)
+    jkw = dict(kw)
+    if "stencil" in kw:
+        jkw["stencil"] = jbrt.StencilState(**dataclasses.asdict(kw["stencil"]))
+    t = traster.rasterize_vis(ts, 128, 64, **kw)
+    j = rasterize_vis_pallas(js, 128, 64, interpret=True, **jkw)
+    _assert_match(t, j)
+    assert (t.stencil is None) == ("stencil" not in kw)
+    if t.stencil is not None:
+        np.testing.assert_array_equal(t.stencil.numpy(), np.asarray(j.stencil))
+        assert t.stencil.shape == (4, 64, 128) and int(t.stencil.max()) >= 1
 
 
 def test_schedule_knobs_change_nothing():
