@@ -4,11 +4,13 @@ The port runs the renderer's main path (one opaque draw), the dense-mesh
 path (the 1M-triangle ``big_mesh`` and 10k-instance ``instanced`` demos),
 coverage MSAA-4x (``RendererConfig(msaa=4)``, and 2x2 supersampling
 with ``msaa_supersample``) and the render state of multi-draw frames
-(stencil, blending, depth bias, ``raster_two_pass``, ``raster_batch``)
-with hand-written Hopper kernels on CUDA
-tensors (``csrc/raster_tile.cu``, ``csrc/raster_sublane.cu``,
-``csrc/assemble_records.cu``, ``csrc/raster_msaa4.cu``,
-``csrc/raster_msaa4_sublane.cu``) and their plain PyTorch versions on CPU
+(stencil, blending, depth bias, ``raster_two_pass``, ``raster_batch``,
+``raster_tmpl="pallas"``), and textured draws (textures, samplers and
+``shade_compact`` covered-tile compaction) with hand-written Hopper
+kernels on CUDA tensors (``csrc/raster_tile.cu``,
+``csrc/raster_sublane.cu``, ``csrc/assemble_records.cu``,
+``csrc/raster_msaa4.cu``, ``csrc/raster_msaa4_sublane.cu``,
+``csrc/transpose_templates.cu``) and their plain PyTorch versions on CPU
 tensors.  It imports torch and never jax; the JAX package stays the
 reference it is tested against.
 
@@ -25,7 +27,7 @@ from . import convert, math3d, models, shader
 from .models import demos
 from .pipeline import BlendState, DepthState, Pipeline, StencilState
 from .renderer import FrameResult, Renderer, RendererConfig
-from .scene import Mesh, upload_mesh
+from .scene import Mesh, Texture, upload_mesh, upload_texture
 from .shader import Shader, register
 from .utils import errors, image
 
@@ -41,6 +43,7 @@ __all__ = [
     "RendererConfig",
     "Shader",
     "StencilState",
+    "Texture",
     "convert",
     "demos",
     "errors",
@@ -50,5 +53,6 @@ __all__ = [
     "register",
     "shader",
     "upload_mesh",
+    "upload_texture",
     "__version__",
 ]

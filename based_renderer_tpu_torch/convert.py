@@ -1,7 +1,7 @@
 """State carried across from numpy (and so from the JAX package).
 
 The renderer has no weights: its state is meshes (indexed or not),
-instance tables, uniforms and pipeline state.  These helpers build the
+textures, instance tables, uniforms and pipeline state.  These helpers build the
 port's versions from plain numpy data, so one scene can be handed to both
 packages (a JAX array converts with ``numpy.asarray``; a JAX pipeline
 with ``dataclasses.asdict``).
@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from .pipeline import BlendState, DepthState, Pipeline, StencilState
-from .scene import Mesh
+from .scene import Mesh, Texture
 
 _TUPLE_FIELDS = ("raster_tile", "scissor", "shade_compact", "constants")
 
@@ -53,6 +53,22 @@ def uniforms_from_numpy(tree, device="cpu"):
         return type(tree)(uniforms_from_numpy(v, device) for v in tree)
     t = torch.tensor(np.asarray(tree), device=device)
     return t.to(torch.float32) if t.is_floating_point() else t
+
+
+def texture_from_numpy(data, packed, meta, device="cpu") -> Texture:
+    """Texture from numpy: the (H, W, C) level 0, the packed patch rows of
+    every mip level and the static sampler state, as a JAX texture holds
+    them (``numpy.asarray(tex.data)``, ``numpy.asarray(tex.packed)``,
+    ``tex.meta``)."""
+    data = np.asarray(data, np.float32)
+    packed = np.asarray(packed, np.float32)
+    wrap, channels, sizes = meta[:3]
+    if data.ndim != 3 or data.shape[-1] != channels or tuple(sizes[0]) != data.shape[:2]:
+        raise ValueError(f"texture data {data.shape} does not match meta {meta}")
+    if packed.shape != (sum(h * w for h, w in sizes), 4 * channels):
+        raise ValueError(f"packed patch rows {packed.shape} do not match meta {meta}")
+    meta = (wrap, int(channels), tuple((int(h), int(w)) for h, w in sizes), *meta[3:])
+    return Texture(data=torch.tensor(data, device=device), packed=torch.tensor(packed, device=device), meta=meta)
 
 
 def instances_from_numpy(instances: dict, device="cpu") -> dict:

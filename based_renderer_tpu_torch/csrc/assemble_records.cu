@@ -22,11 +22,19 @@
 // inputs, and writes 64 (MSAA: 96) bytes of int record and 4 * FW bytes of float
 // record (FW = 32 for the six varyings of the dense mesh): about 200 bytes
 // per slot read and written, with the arithmetic well under the memory
-// time.  The design: one thread per slot; each thread reads its triangle's
-// fields straight from the per-triangle tensors (no 64-wide fused template
-// row, which on the TPU only served its gather unit) and writes every
-// record row field-major, so neighbouring threads store to neighbouring
-// addresses and every store is coalesced.
+// time.  The design: one thread per slot, which writes every record row
+// field-major, so neighbouring threads store to neighbouring addresses
+// and every store is coalesced.  Two entries read the slot's triangle:
+//   brt_assemble_records       straight from the per-triangle tensors;
+//   brt_assemble_records_rows  from row t_slot[s] of the (T, row_width)
+//                              template matrix that transpose_templates.cu
+//                              builds under raster_tmpl="pallas": one
+//                              contiguous row of 256 B (row_width 64) per
+//                              slot, the gather the TPU kernel's caller
+//                              makes before its Pallas assembly
+//                              (binning.py:489-500), here done in-kernel.
+// Both fill one SlotFields and run the same write_slot, so they produce
+// bit-identical records.
 //
 // Exactness: the edge and depth arithmetic is int64 and exact; results are
 // truncated to int32 as the TPU's wrapping int32 lanes leave them.  The f32
@@ -48,6 +56,7 @@ constexpr int32_t kInvalidEdge = -(1 << 30);
 constexpr int kSubpixel = 16;
 constexpr int kHalfPixel = 8;
 constexpr int kDepthFracBits = 6;
+constexpr int kTemplateColumns = 21;  // 19 int + gx, gy: the planes start here
 
 struct Params {
   const int32_t* a;       // (T, 3)
@@ -62,17 +71,11 @@ struct Params {
   const float* gx;        // (T,)
   const float* gy;        // (T,)
   const float* planes;    // (T, num_planes)
-  int num_planes;
   const int64_t* t_slot;  // (P,)
   const int64_t* ox;      // (P,)
   const int64_t* oy;      // (P,)
   const int64_t* total;   // ()
   int64_t id_offset;
-  int32_t* records;       // (rw, P)
-  float* frecords;        // (fw, P)
-  int64_t num_slots;
-  int rw;
-  int fw;
 };
 
 __device__ __forceinline__ int64_t clamp64(int64_t v, int64_t lo, int64_t hi) {
@@ -103,66 +106,129 @@ __device__ __forceinline__ int64_t depth_tile_anchor(int32_t zq0, int32_t x0f, i
   return clamp64(s, -clamp_hi, clamp_hi);
 }
 
-__global__ void __launch_bounds__(kThreads) assemble_records_kernel(const Params p) {
-  const int64_t s = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= p.num_slots) return;
-  const int64_t P = p.num_slots;
-  const int64_t t = p.t_slot[s];
-  const int64_t ox = p.ox[s];
-  const int64_t oy = p.oy[s];
-  const bool invalid = s >= *p.total;
+// One slot's template fields, read from either layout.
+struct SlotFields {
+  int64_t a[3];
+  int64_t b[3];
+  int64_t e[3];
+  int64_t dzdx, dzdy, tid;
+  int32_t zshift, zq0, x0f, y0f;
+  float gx, gy;
+  const float* planes;  // num_planes floats: (p00, pdx, pdy) triples
+};
 
-  int32_t* rec = p.records + s;
+struct Out {
+  int32_t* records;  // (rw, P)
+  float* frecords;   // (fw, P)
+  int64_t num_slots;
+  int rw;
+  int fw;
+  int num_planes;
+};
+
+// The record arithmetic of both entries: slot s, tile origin (ox, oy).
+__device__ __forceinline__ void write_slot(const SlotFields& f, int64_t s, int64_t ox, int64_t oy,
+                                           bool invalid, const Out& o) {
+  const int64_t P = o.num_slots;
+  int32_t* rec = o.records + s;
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
-    const int64_t a = p.a[3 * t + i];
-    const int64_t b = p.b[3 * t + i];
-    const int64_t eb = clamp64(p.e[3 * t + i] + a * (ox * kSubpixel) + b * (oy * kSubpixel),
+    const int64_t eb = clamp64(f.e[i] + f.a[i] * (ox * kSubpixel) + f.b[i] * (oy * kSubpixel),
                                -kAnchorClamp, kAnchorClamp);
     rec[i * P] = invalid ? kInvalidEdge : (int32_t)eb;
-    rec[(3 + i) * P] = invalid ? 0 : (int32_t)(a * kSubpixel);
-    rec[(6 + i) * P] = invalid ? 0 : (int32_t)(b * kSubpixel);
-    if (p.rw == kRecordWidthMsaa) {
-      rec[(16 + i) * P] = invalid ? 0 : (int32_t)a;
-      rec[(19 + i) * P] = invalid ? 0 : (int32_t)b;
+    rec[(3 + i) * P] = invalid ? 0 : (int32_t)(f.a[i] * kSubpixel);
+    rec[(6 + i) * P] = invalid ? 0 : (int32_t)(f.b[i] * kSubpixel);
+    if (o.rw == kRecordWidthMsaa) {
+      rec[(16 + i) * P] = invalid ? 0 : (int32_t)f.a[i];
+      rec[(19 + i) * P] = invalid ? 0 : (int32_t)f.b[i];
     }
   }
 
-  const int32_t zshift = p.zshift[t];
-  const int64_t dzx = p.dzdx[t];
-  const int64_t dzy = p.dzdy[t];
   const int64_t can_x = (ox >> 7) << 7;  // floor to the 128-px depth grid
   const int64_t can_y = (oy >> 7) << 7;
-  const int64_t z_can = depth_tile_anchor(p.zq[3 * t], p.xf[3 * t], p.yf[3 * t], p.gx[t], p.gy[t],
-                                          zshift, can_x, can_y);
-  const int64_t zo = z_can + dzx * (ox - can_x) + dzy * (oy - can_y);
-  const int64_t tid = t + p.id_offset;
+  const int64_t z_can = depth_tile_anchor(f.zq0, f.x0f, f.y0f, f.gx, f.gy, f.zshift, can_x, can_y);
+  const int64_t zo = z_can + f.dzdx * (ox - can_x) + f.dzdy * (oy - can_y);
   rec[9 * P] = (int32_t)(uint32_t)(uint64_t)zo;  // int32 wrap, as the TPU lanes
-  rec[10 * P] = (int32_t)dzx;
-  rec[11 * P] = (int32_t)dzy;
-  rec[12 * P] = zshift;
-  rec[13 * P] = (int32_t)(uint32_t)(uint64_t)tid;
+  rec[10 * P] = (int32_t)f.dzdx;
+  rec[11 * P] = (int32_t)f.dzdy;
+  rec[12 * P] = f.zshift;
+  rec[13 * P] = (int32_t)(uint32_t)(uint64_t)f.tid;
   rec[14 * P] = 0;
   rec[15 * P] = 0;
-  if (p.rw == kRecordWidthMsaa) {
+  if (o.rw == kRecordWidthMsaa) {
     rec[22 * P] = 0;
     rec[23 * P] = 0;
   }
 
   const float oxf = (float)ox;
   const float oyf = (float)oy;
-  const float* pl = p.planes + t * p.num_planes;
-  float* frec = p.frecords + s;
-  for (int r = 0; r < p.num_planes; r += 3) {
-    const float p00 = pl[r];
-    const float pdx = pl[r + 1];
-    const float pdy = pl[r + 2];
+  float* frec = o.frecords + s;
+  for (int r = 0; r < o.num_planes; r += 3) {
+    const float p00 = f.planes[r];
+    const float pdx = f.planes[r + 1];
+    const float pdy = f.planes[r + 2];
     frec[r * P] = __fadd_rn(__fadd_rn(p00, __fmul_rn(pdx, oxf)), __fmul_rn(pdy, oyf));
     frec[(r + 1) * P] = pdx;
     frec[(r + 2) * P] = pdy;
   }
-  frec[p.num_planes * P] = __ll2float_rn(tid);
-  for (int r = p.num_planes + 1; r < p.fw; ++r) frec[r * P] = 0.0f;
+  frec[o.num_planes * P] = __ll2float_rn(f.tid);
+  for (int r = o.num_planes + 1; r < o.fw; ++r) frec[r * P] = 0.0f;
+}
+
+// Per-field entry: the slot's fields from the per-triangle tensors.
+__global__ void __launch_bounds__(kThreads) assemble_records_kernel(const Params p, const Out o) {
+  const int64_t s = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= o.num_slots) return;
+  const int64_t t = p.t_slot[s];
+  SlotFields f;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    f.a[i] = p.a[3 * t + i];
+    f.b[i] = p.b[3 * t + i];
+    f.e[i] = p.e[3 * t + i];
+  }
+  f.dzdx = p.dzdx[t];
+  f.dzdy = p.dzdy[t];
+  f.tid = t + p.id_offset;
+  f.zshift = p.zshift[t];
+  f.zq0 = p.zq[3 * t];
+  f.x0f = p.xf[3 * t];
+  f.y0f = p.yf[3 * t];
+  f.gx = p.gx[t];
+  f.gy = p.gy[t];
+  f.planes = p.planes + t * o.num_planes;
+  write_slot(f, s, p.ox[s], p.oy[s], s >= *p.total, o);
+}
+
+// Row entry: the slot's fields from row t_slot[s] of the (T, row_width)
+// template matrix (transpose_templates.cu's output; column layout in
+// binassem.py): one contiguous row of row_width int32 per slot.
+__global__ void __launch_bounds__(kThreads) assemble_records_rows_kernel(
+    const int32_t* __restrict__ fused, int row_width, const int64_t* __restrict__ t_slot,
+    const int64_t* __restrict__ ox, const int64_t* __restrict__ oy, const int64_t* __restrict__ total,
+    const Out o) {
+  const int64_t s = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= o.num_slots) return;
+  const int32_t* row = fused + t_slot[s] * row_width;
+  SlotFields f;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    f.a[i] = row[i];
+    f.b[i] = row[3 + i];
+    // (hi, lo) pair: hi * 2^32 + lo as uint32.
+    f.e[i] = (int64_t)(((uint64_t)(uint32_t)row[6 + 2 * i] << 32) | (uint32_t)row[7 + 2 * i]);
+  }
+  f.dzdx = row[12];
+  f.dzdy = row[13];
+  f.zshift = row[14];
+  f.tid = row[15];
+  f.zq0 = row[16];
+  f.x0f = row[17];
+  f.y0f = row[18];
+  f.gx = __int_as_float(row[19]);
+  f.gy = __int_as_float(row[20]);
+  f.planes = reinterpret_cast<const float*>(row + kTemplateColumns);
+  write_slot(f, s, ox[s], oy[s], s >= *total, o);
 }
 
 }  // namespace
@@ -192,18 +258,31 @@ extern "C" cudaError_t brt_assemble_records(
   p.gx = static_cast<const float*>(gx);
   p.gy = static_cast<const float*>(gy);
   p.planes = static_cast<const float*>(planes);
-  p.num_planes = num_planes;
   p.t_slot = static_cast<const int64_t*>(t_slot);
   p.ox = static_cast<const int64_t*>(ox);
   p.oy = static_cast<const int64_t*>(oy);
   p.total = static_cast<const int64_t*>(total);
   p.id_offset = id_offset;
-  p.records = static_cast<int32_t*>(records);
-  p.frecords = static_cast<float*>(frecords);
-  p.num_slots = num_slots;
-  p.rw = rw;
-  p.fw = fw;
+  const Out o{static_cast<int32_t*>(records), static_cast<float*>(frecords), num_slots, rw, fw, num_planes};
   const int64_t blocks = (num_slots + kThreads - 1) / kThreads;
-  assemble_records_kernel<<<(unsigned)blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  assemble_records_kernel<<<(unsigned)blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p, o);
+  return cudaGetLastError();
+}
+
+extern "C" cudaError_t brt_assemble_records_rows(
+    const void* fused, int row_width, int num_planes,
+    const void* t_slot, const void* ox, const void* oy, const void* total,
+    void* records, void* frecords, int64_t num_slots, int rw, int fw,
+    void* stream) {
+  if (num_planes % 3 || fw < num_planes + 1 || kTemplateColumns + num_planes > row_width) {
+    return cudaErrorInvalidValue;
+  }
+  if (rw != kRecordWidth && rw != kRecordWidthMsaa) return cudaErrorInvalidValue;
+  if (num_slots <= 0) return cudaSuccess;
+  const Out o{static_cast<int32_t*>(records), static_cast<float*>(frecords), num_slots, rw, fw, num_planes};
+  const int64_t blocks = (num_slots + kThreads - 1) / kThreads;
+  assemble_records_rows_kernel<<<(unsigned)blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(fused), row_width, static_cast<const int64_t*>(t_slot),
+      static_cast<const int64_t*>(ox), static_cast<const int64_t*>(oy), static_cast<const int64_t*>(total), o);
   return cudaGetLastError();
 }

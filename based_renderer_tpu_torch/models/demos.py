@@ -49,6 +49,61 @@ def cube_demo(r: Renderer, vertex_colors: bool = True):
     return pipe, mesh, uniforms, None
 
 
+def textured_cube_demo(r: Renderer):
+    """BASELINE config 3: textured + Lambert-lit cube, back-face culled,
+    shaded per covered tile through a ladder of budgets (the cube covers
+    ~20-30% of the tiles as it turns)."""
+    data = geometry.cube_mesh_data()
+    mesh = r.upload_mesh(data["positions"], uv=data["uv"], normal=data["normal"])
+    tex = r.upload_texture(geometry.checkerboard_texture(), mipmaps=True)
+    pipe = Pipeline(
+        shader="textured_lit",
+        depth=DepthState(test=True, write=True, compare="less"),
+        cull_mode="back",
+        front_face="ccw",
+        shade_compact=(0.125, 0.25, 0.375, 0.5),
+    )
+    aspect = r.config.width / r.config.height
+
+    def uniforms(t):
+        model = math3d.rotate(np.float32(t), (0.0, -1.0, 0.0))
+        model = math3d.rotate(np.float32(np.radians(-55.0)), (1.0, 0.0, 0.0), model)
+        view = math3d.translate((0.0, 0.0, 3.0))
+        proj = math3d.perspective(np.radians(45.0), aspect, 0.1, 10.0)
+        return {
+            "model": model,
+            "view": view,
+            "proj": proj,
+            "texture": tex,
+            "light_dir": torch.tensor([0.3, 0.4, 1.0]),
+            "ambient": 0.15,
+        }
+
+    return pipe, mesh, uniforms, None
+
+
+def textured_fullscreen_demo(r: Renderer):
+    """Full-screen textured quad (the sky/background tier of BASELINE
+    config 3): every pixel takes a texture tap, so there is nothing for
+    compaction to skip.  Frames scroll the UVs."""
+    data = geometry.fullscreen_quad_data()
+    mesh = r.upload_mesh(data["positions"], uv=data["uv"])
+    tex = r.upload_texture(geometry.checkerboard_texture(), mipmaps=True)
+    pipe = Pipeline(shader="textured_fullscreen", depth=DepthState(test=False, write=False))
+
+    def uniforms(t):
+        t = torch.tensor(t, dtype=torch.float32)
+        return {
+            "texture": tex,
+            "uv_offset": torch.stack([t * 0.11, t * 0.07]),
+            # Keeps per-frame checksums distinct (a scrolled periodic
+            # texture sums shift-invariant).
+            "tint": torch.tensor(0.9) + torch.tensor(0.1) * torch.sin(t),
+        }
+
+    return pipe, mesh, uniforms, None
+
+
 def instanced_demo(r: Renderer, count: int = 10_000):
     """BASELINE config 4: a field of instanced cubes."""
     data = geometry.cube_mesh_data()
@@ -132,6 +187,8 @@ def big_mesh_demo(r: Renderer, triangles: int = 1_000_000, generated: bool = Fal
 DEMOS = {
     "triangle": triangle_demo,
     "cube": cube_demo,
+    "textured_cube": textured_cube_demo,
+    "textured_fullscreen": textured_fullscreen_demo,
     "instanced": instanced_demo,
     "big_mesh": big_mesh_demo,
 }

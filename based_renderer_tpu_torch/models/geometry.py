@@ -5,7 +5,8 @@ NDC triangle (src/triangle.slang:4-13 of the reference) and a 36-vertex
 unit cube, 6 faces x 2 triangles (src/cube.slang:12-61).  Here the same
 shapes are mesh data, copied from based_renderer_tpu/models/geometry.py,
 with the instanced cube field and the procedural dense mesh of the
-dense-mesh demos.
+dense-mesh demos, and the full-screen quad and checkerboard texture of
+the textured demos.
 """
 
 from __future__ import annotations
@@ -24,6 +25,22 @@ def triangle_mesh_data():
     )
     colors = np.array([[1, 0, 0], [0, 1, 0], [0, 0, 1]], np.float32)
     return {"positions": positions, "color": colors}
+
+
+def fullscreen_quad_data(uv_tiles: float = 4.0):
+    """Two NDC triangles covering the whole screen, with tiled UVs: every
+    pixel samples (the sampler floor of a sky/background pass)."""
+    corners = {
+        "bl": ((-1.0, 1.0, 0.5), (0.0, uv_tiles)),
+        "br": ((1.0, 1.0, 0.5), (uv_tiles, uv_tiles)),
+        "tr": ((1.0, -1.0, 0.5), (uv_tiles, 0.0)),
+        "tl": ((-1.0, -1.0, 0.5), (0.0, 0.0)),
+    }
+    order = ["bl", "br", "tr", "bl", "tr", "tl"]
+    positions = np.array([corners[k][0] for k in order], np.float32)
+    uv = np.array([corners[k][1] for k in order], np.float32)
+    return {"positions": positions, "uv": uv}
+
 
 def cube_mesh_data(size: float = 1.0):
     """Unit cube centered at origin, 6 faces x 2 triangles, non-indexed
@@ -79,6 +96,15 @@ def cube_mesh_data(size: float = 1.0):
         "uv": np.array(uv, np.float32),
         "color": np.stack(col),
     }
+
+
+def checkerboard_texture(size: int = 256, squares: int = 8):
+    """Classic checkerboard albedo texture, (size, size, 3) float32."""
+    ij = np.arange(size)
+    cell = (ij[:, None] // (size // squares) + ij[None, :] // (size // squares)) % 2
+    base = np.where(cell[..., None] > 0, np.float32(0.9), np.float32(0.25))
+    tint = np.array([1.0, 0.85, 0.6], np.float32)
+    return (base * tint).astype(np.float32)
 
 
 def instanced_grid_transforms(count: int, spacing: float = 2.5, seed: int = 0):

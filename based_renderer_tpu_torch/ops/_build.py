@@ -194,3 +194,16 @@ def _declare(lib: ctypes.CDLL):
         p, p, i64, i, i,  # records, frecords, num_slots, rw (16 or 24), fw
         p,  # cudaStream_t
     ]
+    lib.brt_assemble_records_rows.restype = i
+    lib.brt_assemble_records_rows.argtypes = [
+        p, i, i,  # template rows (T, row_width), row_width, num_planes
+        p, p, p, p,  # t_slot, ox, oy, total
+        p, p, i64, i, i,  # records, frecords, num_slots, rw (16 or 24), fw
+        p,  # cudaStream_t
+    ]
+    lib.brt_transpose_templates.restype = i
+    lib.brt_transpose_templates.argtypes = [
+        p, p,  # fused_t (W8, T), out (T, out_width)
+        i, i64, i,  # W8, T, out_width
+        p,  # cudaStream_t
+    ]

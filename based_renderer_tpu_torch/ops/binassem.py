@@ -1,9 +1,11 @@
-"""Post-sort record assembly: the CUDA kernel and its plain version.
+"""Post-sort record assembly and the template transpose: CUDA kernels and
+their plain versions.
 
-The PyTorch counterpart of ``based_renderer_tpu/ops/binassem.py``
-(``assemble_records``, which runs the Pallas ``_assemble_kernel``).  Given
-the sorted (tile, triangle) pair stream, every slot of the record stream
-is assembled from its triangle's per-triangle template: the three edge
+The PyTorch counterpart of ``based_renderer_tpu/ops/binassem.py``.
+
+``assemble_records`` (the Pallas ``_assemble_kernel``): given the sorted
+(tile, triangle) pair stream, every slot of the record stream is
+assembled from its triangle's per-triangle template: the three edge
 values stepped from the pixel-(0, 0) centre to the slot's tile origin in
 int64 and clamped to +/-ANCHOR_CLAMP, the quantized depth plane anchored
 on the canonical 128-px grid and stepped to the tile origin, the f32
@@ -17,11 +19,18 @@ carry the raw (per-subpixel) edge coefficients A0..A2, B0..B2, zero on
 invalid slots, so the MSAA rasters can step the pixel-center edge values
 to the four sample positions; rows 22-23 are zero.
 
-``assemble_records`` launches ``csrc/assemble_records.cu`` on CUDA tensors
-and runs ``assemble_records_reference`` on CPU tensors.  The reference is
-also the binner's ``assemble="xla"`` assembly.  The TPU gathers one fused
-64-wide template row per slot (a TPU gather workaround); here the kernel
+Two template layouts feed the assembly.  The default (``tmpl="xla"``)
 reads each field straight from the per-triangle tensors of ``Templates``.
+Under ``tmpl="pallas"`` the binner builds the templates field-major, one
+(W8, T) int32 matrix in the JAX column layout (see TEMPLATE_COLUMNS),
+``transpose_templates`` (the Pallas ``_transpose_kernel``) turns it into
+one row per triangle, and ``assemble_records_rows`` reads every slot's
+fields from its triangle's row.
+
+Each wrapper launches its kernel (``csrc/assemble_records.cu``,
+``csrc/transpose_templates.cu``) on CUDA tensors and runs its plain
+version on CPU tensors.  The plain versions are also the binner's
+``assemble="xla"`` assembly under either layout.
 """
 
 from __future__ import annotations
@@ -38,8 +47,21 @@ RECORD_WIDTH = 16
 RECORD_WIDTH_MSAA = 24  # + raw A0..A2, B0..B2 (rows 16-21) and two zero rows
 INVALID_EDGE = -(1 << 30)  # edge value that no pixel of a tile can reach
 
-#: Launches of the CUDA assembly kernel in this process (main-path proof).
+# The JAX column layout of a template row (based_renderer_tpu/ops/binassem.py):
+#   int   0..2 A0..A2   3..5 B0..B2   6..11 origin edge values as (hi, lo)
+#         int32 pairs, value = hi * 2^32 + (lo as uint32)   12, 13 dzdx_q,
+#         dzdy_q   14 zshift   15 tri_id   16 zq0   17 x0f   18 y0f
+#   float (bitcast to int32) 19, 20 gx, gy   21.. the (p00, pdx, pdy)
+#         planes of b0, b1, invw and each channel
+N_TI = 19  # int columns
+TEMPLATE_COLUMNS = N_TI + 2  # + the float columns before the planes
+
+#: Launches of the CUDA assembly kernel, per-field entry (main-path proof).
 LAUNCHES = 0
+#: Launches of the CUDA assembly kernel, template-row entry.
+ROWS_LAUNCHES = 0
+#: Launches of the CUDA template transpose.
+TRANSPOSE_LAUNCHES = 0
 
 
 class Templates(NamedTuple):
@@ -58,6 +80,24 @@ class Templates(NamedTuple):
     gy: torch.Tensor  # f32 (T,)
     planes: torch.Tensor  # f32 (T, 3 * (3 + K)) (p00, pdx, pdy) at the pixel-(0, 0) centre
     id_offset: int  # tri_id = triangle index + id_offset
+
+
+class _SlotFields(NamedTuple):
+    """One template's fields gathered per slot (all leading dim P)."""
+
+    a: torch.Tensor  # int64 (P, 3)
+    b: torch.Tensor  # int64 (P, 3)
+    e: torch.Tensor  # int64 (P, 3)
+    dzdx: torch.Tensor  # (P,)
+    dzdy: torch.Tensor  # (P,)
+    zshift: torch.Tensor  # int32 (P,)
+    tid: torch.Tensor  # int64 (P,)
+    zq0: torch.Tensor  # int32 (P,)
+    x0f: torch.Tensor  # (P,)
+    y0f: torch.Tensor  # (P,)
+    gx: torch.Tensor  # f32 (P,)
+    gy: torch.Tensor  # f32 (P,)
+    planes: torch.Tensor  # f32 (P, 3 * (3 + K))
 
 
 def record_width(msaa4: bool) -> int:
@@ -81,50 +121,58 @@ def assemble_records(tmpl: Templates, t_slot, ox, oy, total, fw: int, msaa4: boo
 
 def assemble_records_reference(tmpl: Templates, t_slot, ox, oy, total, fw: int, msaa4: bool = False):
     """The plain PyTorch version of assemble_records, on any device."""
-    dev = t_slot.device
     i64 = torch.int64
-    n = t_slot.shape[0]
+    fields = _SlotFields(
+        a=tmpl.a[t_slot].to(i64),
+        b=tmpl.b[t_slot].to(i64),
+        e=tmpl.e[t_slot],
+        dzdx=tmpl.dzdx[t_slot],
+        dzdy=tmpl.dzdy[t_slot],
+        zshift=tmpl.zshift[t_slot],
+        tid=t_slot + int(tmpl.id_offset),
+        zq0=tmpl.zq[t_slot, 0],
+        x0f=tmpl.xf[t_slot, 0],
+        y0f=tmpl.yf[t_slot, 0],
+        gx=tmpl.gx[t_slot],
+        gy=tmpl.gy[t_slot],
+        planes=tmpl.planes[t_slot],
+    )
+    return _assemble_reference(fields, ox, oy, total, fw, msaa4)
+
+
+def _assemble_reference(f: _SlotFields, ox, oy, total, fw: int, msaa4: bool):
+    """The record arithmetic of both plain assemblies."""
+    dev = ox.device
+    i64 = torch.int64
+    n = ox.shape[0]
     invalid = (torch.arange(n, dtype=i64, device=dev) >= total)[:, None]
-    a_s = tmpl.a[t_slot].to(i64)
-    b_s = tmpl.b[t_slot].to(i64)
-    eb = tmpl.e[t_slot] + a_s * (ox * fp.SUBPIXEL_SCALE)[:, None] + b_s * (oy * fp.SUBPIXEL_SCALE)[:, None]
+    eb = f.e + f.a * (ox * fp.SUBPIXEL_SCALE)[:, None] + f.b * (oy * fp.SUBPIXEL_SCALE)[:, None]
     eb = eb.clamp(-fp.ANCHOR_CLAMP, fp.ANCHOR_CLAMP)
 
-    dzx = tmpl.dzdx[t_slot].to(i64)
-    dzy = tmpl.dzdy[t_slot].to(i64)
-    zshift = tmpl.zshift[t_slot]
+    dzx = f.dzdx.to(i64)
+    dzy = f.dzdy.to(i64)
     can_x = torch.div(ox, fp.DEPTH_TILE, rounding_mode="floor") * fp.DEPTH_TILE
     can_y = torch.div(oy, fp.DEPTH_TILE, rounding_mode="floor") * fp.DEPTH_TILE
-    z_can = depth_tile_anchor(
-        tmpl.zq[t_slot, 0],
-        tmpl.xf[t_slot, 0].to(i64),
-        tmpl.yf[t_slot, 0].to(i64),
-        tmpl.gx[t_slot],
-        tmpl.gy[t_slot],
-        zshift,
-        can_x,
-        can_y,
-    )
+    z_can = depth_tile_anchor(f.zq0, f.x0f.to(i64), f.y0f.to(i64), f.gx, f.gy, f.zshift, can_x, can_y)
     zo = z_can + dzx * (ox - can_x) + dzy * (oy - can_y)
-    tid = t_slot + int(tmpl.id_offset)
 
     scale = fp.SUBPIXEL_SCALE
     rec = torch.cat(
         [
             torch.where(invalid, INVALID_EDGE, eb),
-            torch.where(invalid, 0, a_s * scale),
-            torch.where(invalid, 0, b_s * scale),
-            torch.stack([zo, dzx, dzy, zshift.to(i64), tid], dim=1),
+            torch.where(invalid, 0, f.a * scale),
+            torch.where(invalid, 0, f.b * scale),
+            torch.stack([zo, dzx, dzy, f.zshift.to(i64), f.tid], dim=1),
         ],
         dim=1,
     )
     records = torch.zeros((record_width(msaa4), n), dtype=torch.int32, device=dev)
     records[:14] = rec.T.to(torch.int32)
     if msaa4:
-        raw = torch.cat([a_s, b_s], dim=1)  # (P, 6) A0..A2, B0..B2
+        raw = torch.cat([f.a, f.b], dim=1)  # (P, 6) A0..A2, B0..B2
         records[16:22] = torch.where(invalid, 0, raw).T.to(torch.int32)
 
-    pl = tmpl.planes[t_slot]  # (P, 3 * (3 + K))
+    pl = f.planes  # (P, 3 * (3 + K))
     oxf = ox.to(torch.float32)
     oyf = oy.to(torch.float32)
     frecords = torch.zeros((fw, n), dtype=torch.float32, device=dev)
@@ -134,12 +182,12 @@ def assemble_records_reference(tmpl: Templates, t_slot, ox, oy, total, fw: int, 
         frecords[r] = p00 + pdx * oxf + pdy * oyf
         frecords[r + 1] = pdx
         frecords[r + 2] = pdy
-    frecords[num_planes] = tid.to(torch.float32)  # binning.ftid_col(K)
+    frecords[num_planes] = f.tid.to(torch.float32)  # binning.ftid_col(K)
     return records, frecords
 
 
 def _assemble_kernel(tmpl: Templates, t_slot, ox, oy, total, fw: int, msaa4: bool = False):
-    """Launch csrc/assemble_records.cu."""
+    """Launch csrc/assemble_records.cu, per-field entry."""
     global LAUNCHES
     dev = t_slot.device
     n = t_slot.shape[0]
@@ -184,4 +232,143 @@ def _assemble_kernel(tmpl: Templates, t_slot, ox, oy, total, fw: int, msaa4: boo
     if rc != 0:
         raise RuntimeError(f"assemble_records kernel launch failed: cudaError {rc}")
     LAUNCHES += 1
+    return records, frecords
+
+
+# ---------------------------------------------------------------------------
+# tmpl="pallas": the template transpose and the assembly from template rows
+# ---------------------------------------------------------------------------
+
+
+def _check_transpose_shape(w8: int, out_width: int):
+    if w8 <= 0 or w8 % 8 or out_width % 64 or w8 > out_width:
+        raise ValueError(
+            f"templates of {w8} rows need a multiple of 8 rows, at most out_width {out_width}, "
+            "which must be a multiple of 64"
+        )
+
+
+def transpose_templates(fused_t: torch.Tensor, out_width: int) -> torch.Tensor:
+    """Field-major templates (W8, T) int32 -> row-major (T, out_width) int32.
+
+    Lanes W8..out_width of every row are zero.  W8 must be a multiple of 8
+    and at most ``out_width``, a multiple of 64.  T is not padded: only
+    rows below T are ever read, since every ``t_slot`` is below T.  CUDA
+    tensors launch csrc/transpose_templates.cu, CPU tensors take the plain
+    version.
+    """
+    dev = fused_t.device
+    if dev.type == "cuda":
+        return _transpose_kernel(fused_t, out_width)
+    if dev.type == "cpu":
+        return transpose_templates_reference(fused_t, out_width)
+    raise ValueError(f"no template transpose for device {dev}")
+
+
+def transpose_templates_reference(fused_t: torch.Tensor, out_width: int) -> torch.Tensor:
+    """The plain PyTorch version of transpose_templates, on any device."""
+    w8 = fused_t.shape[0]
+    _check_transpose_shape(w8, out_width)
+    return torch.nn.functional.pad(fused_t.T, (0, out_width - w8))
+
+
+def _transpose_kernel(fused_t: torch.Tensor, out_width: int) -> torch.Tensor:
+    """Launch csrc/transpose_templates.cu."""
+    global TRANSPOSE_LAUNCHES
+    dev = fused_t.device
+    w8, t = fused_t.shape
+    _check_transpose_shape(w8, out_width)
+    _build.check_operand("fused_t", fused_t, torch.int32, (w8, t), dev)
+    out = torch.empty((t, out_width), dtype=torch.int32, device=dev)
+    rc = _build.load().brt_transpose_templates(
+        _build.ptr(fused_t), _build.ptr(out), w8, t, out_width, _build.stream(dev)
+    )
+    if rc != 0:
+        raise RuntimeError(f"transpose_templates kernel launch failed: cudaError {rc}")
+    TRANSPOSE_LAUNCHES += 1
+    return out
+
+
+def assemble_records_rows(fused, t_slot, ox, oy, total, fw: int, num_channels: int, msaa4: bool = False):
+    """assemble_records reading each slot's template from row ``t_slot`` of
+    ``fused`` (T, out_width) int32 (transpose_templates' output).
+
+    ``num_channels`` is K: the row holds 3 * (3 + K) plane floats.  Every
+    ``t_slot`` must be below T.  CUDA tensors launch the kernel's row
+    entry, CPU tensors take the plain version.
+    """
+    dev = t_slot.device
+    if dev.type == "cuda":
+        return _assemble_rows_kernel(fused, t_slot, ox, oy, total, fw, num_channels, msaa4)
+    if dev.type == "cpu":
+        return assemble_records_rows_reference(fused, t_slot, ox, oy, total, fw, num_channels, msaa4)
+    raise ValueError(f"no record assembly for device {dev}")
+
+
+def _num_planes(fused, fw: int, num_channels: int) -> int:
+    num_planes = 3 * (3 + num_channels)
+    if TEMPLATE_COLUMNS + num_planes > fused.shape[1] or fw < num_planes + 1:
+        raise ValueError(
+            f"{num_channels} channels do not fit template rows of width {fused.shape[1]} "
+            f"or frecords of width {fw}"
+        )
+    return num_planes
+
+
+def assemble_records_rows_reference(fused, t_slot, ox, oy, total, fw: int, num_channels: int,
+                                    msaa4: bool = False):
+    """The plain PyTorch version of assemble_records_rows, on any device:
+    one row gather, the columns decoded, then the plain assembly."""
+    num_planes = _num_planes(fused, fw, num_channels)
+    i64 = torch.int64
+    g = fused[t_slot]  # (P, out_width)
+    hi = g[:, 6:12:2].to(i64)
+    lo = g[:, 7:12:2].to(i64) & 0xFFFFFFFF
+    floats = g[:, N_TI : TEMPLATE_COLUMNS + num_planes].contiguous().view(torch.float32)
+    fields = _SlotFields(
+        a=g[:, 0:3].to(i64),
+        b=g[:, 3:6].to(i64),
+        e=(hi << 32) | lo,
+        dzdx=g[:, 12],
+        dzdy=g[:, 13],
+        zshift=g[:, 14],
+        tid=g[:, 15].to(i64),
+        zq0=g[:, 16],
+        x0f=g[:, 17],
+        y0f=g[:, 18],
+        gx=floats[:, 0],
+        gy=floats[:, 1],
+        planes=floats[:, 2:],
+    )
+    return _assemble_reference(fields, ox, oy, total, fw, msaa4)
+
+
+def _assemble_rows_kernel(fused, t_slot, ox, oy, total, fw: int, num_channels: int, msaa4: bool):
+    """Launch csrc/assemble_records.cu, template-row entry."""
+    global ROWS_LAUNCHES
+    dev = t_slot.device
+    n = t_slot.shape[0]
+    num_planes = _num_planes(fused, fw, num_channels)
+    i64 = torch.int64
+    for name, x, dtype, shape in (
+        ("fused", fused, torch.int32, (None, fused.shape[1])),
+        ("t_slot", t_slot, i64, (n,)),
+        ("ox", ox, i64, (n,)),
+        ("oy", oy, i64, (n,)),
+        ("total", total, i64, ()),
+    ):
+        _build.check_operand(name, x, dtype, shape, dev)
+    rw = record_width(msaa4)
+    records = torch.empty((rw, n), dtype=torch.int32, device=dev)
+    frecords = torch.empty((fw, n), dtype=torch.float32, device=dev)
+    p = _build.ptr
+    rc = _build.load().brt_assemble_records_rows(
+        p(fused), fused.shape[1], num_planes,
+        p(t_slot), p(ox), p(oy), p(total),
+        p(records), p(frecords), n, rw, fw,
+        _build.stream(dev),
+    )
+    if rc != 0:
+        raise RuntimeError(f"assemble_records rows kernel launch failed: cudaError {rc}")
+    ROWS_LAUNCHES += 1
     return records, frecords

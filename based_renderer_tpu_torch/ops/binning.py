@@ -35,7 +35,6 @@ from typing import NamedTuple
 
 import torch
 
-from ..utils.errors import FeatureNotPresentError
 from . import binassem
 from . import fixedpoint as fp
 from .binassem import RECORD_WIDTH, Templates, record_width  # noqa: F401 (RECORD_WIDTH re-exported)
@@ -94,10 +93,6 @@ def _check_modes(assemble: str, tmpl: str):
     for knob, value in (("assemble", assemble), ("tmpl", tmpl)):
         if value not in ("xla", "pallas"):
             raise ValueError(f"{knob} must be 'xla' or 'pallas', got {value!r}")
-    if tmpl == "pallas":
-        raise FeatureNotPresentError(
-            "tmpl='pallas' is a TPU kernel not ported yet (ROADMAP queue B, B8)"
-        )
 
 
 def _templates(ts, id_offset, channels, perspective) -> Templates:
@@ -143,6 +138,32 @@ def _templates(ts, id_offset, channels, perspective) -> Templates:
         planes=torch.stack(planes, dim=1),
         id_offset=int(id_offset),
     )
+
+
+def templates_field_major(tmpl: Templates) -> tuple[torch.Tensor, int]:
+    """The field-major template matrix of ``tmpl="pallas"`` and its row width.
+
+    The counterpart of the JAX package's ``_triangle_templates(...,
+    transposed=True)`` and the concatenation and padding after it
+    (binning.py:427-448): (W8, T) int32, one row per template column in
+    the layout of binassem.TEMPLATE_COLUMNS (float rows bitcast), zero rows
+    up to W8 = ceil8(n_all); the gathered row width is ceil64(n_all).
+    """
+    i32 = torch.int32
+    num_tris = tmpl.a.shape[0]
+    hi = tmpl.e >> 32
+    lo = tmpl.e - (hi << 32)  # the low word in [0, 2^32)
+    lo = torch.where(lo >= 1 << 31, lo - (1 << 32), lo)  # ... as int32
+    tri_ids = torch.arange(num_tris, dtype=i32, device=tmpl.a.device) + tmpl.id_offset
+    ints = [tmpl.a[:, i] for i in range(3)] + [tmpl.b[:, i] for i in range(3)]
+    for i in range(3):
+        ints += [hi[:, i].to(i32), lo[:, i].to(i32)]
+    ints += [tmpl.dzdx, tmpl.dzdy, tmpl.zshift, tri_ids, tmpl.zq[:, 0], tmpl.xf[:, 0], tmpl.yf[:, 0]]
+    floats = torch.cat([tmpl.gx[None], tmpl.gy[None], tmpl.planes.T], dim=0).view(i32)
+    n_all = len(ints) + floats.shape[0]
+    w8 = -(-n_all // 8) * 8
+    fused_t = torch.cat([torch.stack(ints), floats, floats.new_zeros((w8 - n_all, num_tris))])
+    return fused_t, -(-n_all // 64) * 64
 
 
 def pair_stream(
@@ -304,6 +325,9 @@ def bin_triangles(
     column-major tile ids, and records anchored at the enclosing output
     tile of ``anchor_rows`` pixel rows.  ``msaa4`` gives the 24-row
     records of coverage MSAA-4x (raw edge coefficients in rows 16-21).
+    ``tmpl="pallas"`` builds the templates field-major, transposes them to
+    one row per triangle (binassem.transpose_templates) and assembles from
+    those rows; the records are the same bit for bit.
     """
     _check_modes(assemble, tmpl)
     for d in (tile_w, tile_h):
@@ -332,12 +356,25 @@ def bin_triangles(
         ts, width, height, tile_w, tile_h, max_pairs, id_offset, channels, perspective,
         slots, col_major_ids, anchor_rows,
     )
-    if assemble == "pallas" and pallas_assembly_fits(nch):
+    kernel_assembly = assemble == "pallas" and pallas_assembly_fits(nch)
+    if tmpl == "pallas":
+        fused_t, row_width = templates_field_major(ps.tmpl)
+        fused = binassem.transpose_templates(fused_t, row_width)
+        if kernel_assembly:
+            records, frecords = binassem.assemble_records_rows(
+                fused, *padded_slots(ps), ps.total, fw, nch, msaa4
+            )
+        else:
+            records, frecords = binassem.assemble_records_rows_reference(
+                fused, ps.t_slot, ps.ox, ps.oy, ps.total, fw, nch, msaa4
+            )
+    elif kernel_assembly:
         records, frecords = binassem.assemble_records(ps.tmpl, *padded_slots(ps), ps.total, fw, msaa4)
     else:
         records, frecords = binassem.assemble_records_reference(
             ps.tmpl, ps.t_slot, ps.ox, ps.oy, ps.total, fw, msaa4
         )
+    if not kernel_assembly:
         tail = (0, SEGMENT_ALIGN)
         records = torch.nn.functional.pad(records, tail)
         frecords = torch.nn.functional.pad(frecords, tail)

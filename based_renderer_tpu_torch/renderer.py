@@ -9,21 +9,30 @@ draw's stencil state and the previous draw's visibility as init (the
 Hopper kernels on CUDA: the sequential raster, also for
 ``raster_two_pass``; the record assembly for ``raster_assemble="pallas"``;
 the sublane raster for eligible ``raster_sublane`` and ``raster_batch``
-draws; the MSAA-4x forms under coverage MSAA), then per draw the
-gather-free shading from the interpolated planes and the blend composite
-against that draw's own visibility snapshot, and the MSAA resolve.
-PyTorch runs eagerly, so there is no program cache.
+draws; the MSAA-4x forms under coverage MSAA; the template transpose and
+the row-reading assembly under ``raster_tmpl="pallas"``), then per draw
+the gather-free shading from the interpolated planes (per covered tile
+under ``shade_compact``) and the blend composite against that draw's own
+visibility snapshot, and the MSAA resolve.  PyTorch runs eagerly, so
+there is no program cache.
 
 ``RendererConfig.msaa=4`` is coverage-sample MSAA-4x: per-sample
 visibility at the four standard sample positions, attributes and shading
-once per sample layer at the pixel center of each sample's winner, then a
+once per sample layer (each layer one image, a batch axis of the
+fragment shader) at the pixel center of each sample's winner, then a
 box resolve.  With ``msaa_supersample`` it is 2x2 supersampling instead:
 the frame rasterizes without MSAA at twice the extent and a 2x2 box
 resolve follows.  With ``msaa=1`` ``msaa_supersample`` changes nothing.
 
-Render state the port does not have yet (``shade_compact``,
-``instance_cull``, ``raster_tmpl="pallas"``, textures) raises
-FeatureNotPresentError naming the ROADMAP step that will port it.
+``Pipeline.shade_compact`` shades a draw per covered (8, 128) tile
+(ops/compact.py) when the raster extent tiles by (8, 128) and the
+backend is "pallas", or "auto" on a device other than the CPU: the JAX
+package's rule, so CPU frames under "auto" equal its "auto" frames.  A
+ladder of budgets picks the smallest that holds the draw's covered-tile
+count, read on the host (one synchronisation per compacted draw); past
+the largest the draw shades full-screen.  Render state the port does not
+have yet (``instance_cull``) raises FeatureNotPresentError naming the
+ROADMAP step that will port it.
 """
 
 from __future__ import annotations
@@ -37,13 +46,14 @@ import numpy as np
 import torch
 
 from . import shader as shader_lib
+from .ops import compact
 from .ops import fixedpoint as fp
 from .ops.clip import clip_near
 from .ops.raster import rasterize_vis
 from .ops.setup import setup_triangles
 from .ops.vertex import expand_instances, gather_triangles
 from .pipeline import Pipeline
-from .scene import Mesh, upload_mesh
+from .scene import Mesh, Texture, upload_mesh, upload_texture
 from .utils.errors import AllocationError, DeviceError, DrawError, FeatureNotPresentError, FrameError
 
 
@@ -204,14 +214,84 @@ def _blend(src, dst, state):
 
 def _check_draw_state(pipe: Pipeline):
     """Raise FeatureNotPresentError for render state outside the port."""
-    checks = (
-        (pipe.shade_compact is not None, "shade_compact", "A.11"),
-        (pipe.instance_cull is not None, "instance_cull", "A.12"),
-        (pipe.raster_tmpl == "pallas", "raster_tmpl='pallas'", "queue B8"),
-    )
-    for on, what, step in checks:
-        if on:
-            raise FeatureNotPresentError(f"{what} is not ported yet (ROADMAP {step})")
+    if pipe.instance_cull is not None:
+        raise FeatureNotPresentError("instance_cull is not ported yet (ROADMAP A.12)")
+
+
+def _fragment_inputs(var_tri, interp, invw, depth, bary, tri_id) -> dict:
+    """The fragment shader's inputs from ([B,] H, W) planes: the raw
+    interpolated varyings ``interp`` (K, ...), divided by the 1/w plane
+    ``invw`` when it is given (elementwise, so dividing gathered tiles
+    equals gathering divided planes bit for bit), depth, ``bary`` (3, ...)
+    and the draw-local ``tri_id``."""
+    frag = {}
+    if interp is not None:
+        if invw is not None:
+            interp = interp / torch.where(invw == 0, torch.ones((), dtype=invw.dtype, device=invw.device), invw)[None]
+        c0 = 0
+        for k in sorted(var_tri):
+            c = var_tri[k].shape[-1]
+            frag[k] = interp[c0 : c0 + c].movedim(0, -1)
+            c0 += c
+    frag["tri_id"] = tri_id
+    frag["depth"] = depth
+    frag["bary"] = bary.movedim(0, -1)
+    return frag
+
+
+#: Draws shaded per covered tile in this process (proof that compaction ran).
+COMPACTED_DRAWS = 0
+
+
+def _compact_tiles(fractions, mask, h: int, w: int):
+    """(tile order, budget) for a draw's covered (8, 128) tiles, or None
+    when they outnumber every budget of the ladder.  ``mask`` is (S, H, W):
+    a tile covered in any sample layer is shaded.  Reading the count is the
+    one host synchronisation of a compacted draw.  Every budget that holds
+    the count gives the same pixels; the JAX package picks the smallest."""
+    nt = compact.num_tiles(h, w)
+    fracs = fractions if isinstance(fractions, tuple) else (fractions,)
+    budgets = sorted({min(nt, max(8, -(-int(nt * f) // 8) * 8)) for f in fracs})
+    order, count = compact.covered_tile_order(mask.any(dim=0), h, w)
+    count = int(count)
+    fits = [b for b in budgets if count <= b]
+    return (order, fits[0]) if fits else None
+
+
+def _shade_tiles(var_tri, interp, invw, vis, tri_id, fragment, uniforms, blend_state, color, tiles):
+    """Shade the draw on its covered tiles only (ops/compact.py).
+
+    ``interp`` (K, [S,] H, W) raw varyings or None, ``invw`` the 1/w plane
+    when perspective-correct, ``vis`` the draw's VisBuffer, ``tri_id``
+    ([S,] H, W) draw-local (-1 where the draw lost), ``color`` ([S,] 4, H,
+    W).  Sample
+    layers fold into the tile-row channel axis, so compaction is one row
+    gather and one scatter per plane set; the fragment shader sees
+    (budget * S, 8, 128) images, each one tile of one sample layer."""
+    global COMPACTED_DRAWS
+    order, budget = tiles
+    parts = [] if interp is None else [interp]
+    if invw is not None:
+        parts.append(invw[None])
+    planes = torch.cat(parts + [vis.depth[None], vis.b0[None], vis.b1[None], vis.b2[None]])
+    th, tw = compact.TILE_H, compact.TILE_W
+    h, w = tri_id.shape[-2:]
+    s = tri_id.numel() // (h * w)
+    cin = planes.shape[0]
+    sel = order[:budget]
+    g = compact.gather_tiles(compact.tile_rows(planes.reshape(cin * s, h, w), h, w), sel, cin * s)
+    g = g.reshape(budget, cin, s, th, tw).movedim(1, 0).reshape(cin, budget * s, th, tw)
+    g_id = compact.gather_tiles(compact.tile_rows(tri_id.reshape(s, h, w), h, w), sel, s).reshape(budget * s, th, tw)
+    nvar = 0 if interp is None else interp.shape[0]
+    frag = _fragment_inputs(var_tri, g[:nvar] if nvar else None, g[nvar] if invw is not None else None,
+                            g[cin - 4], g[cin - 3 :], g_id)
+    rgba = fragment(frag, uniforms).movedim(-1, -3)  # (budget * S, 4, 8, 128)
+    rows = compact.tile_rows(color.reshape(s * 4, h, w), h, w)
+    cur = compact.gather_tiles(rows, sel, s * 4).reshape(budget * s, 4, th, tw)
+    out = torch.where((g_id >= 0)[:, None], _blend(rgba, cur, blend_state), cur)
+    rows = compact.scatter_tiles(rows, sel, out.reshape(budget, s * 4, th, tw))
+    COMPACTED_DRAWS += 1
+    return compact.untile_rows(rows, s * 4, h, w).reshape(color.shape)
 
 
 def _reduction_ineligible_reason(pipe: Pipeline, coverage_msaa: bool, need_tile128: bool):
@@ -258,8 +338,9 @@ class Renderer:
     def upload_mesh(self, positions, indices=None, **attrs) -> Mesh:
         return upload_mesh(positions, indices=indices, device=self.device, **attrs)
 
-    def upload_texture(self, image, **sampler):
-        raise FeatureNotPresentError("textures are not ported yet (ROADMAP A.11)")
+    def upload_texture(self, image, wrap: str = "repeat", mipmaps: bool = False,
+                       mip_filter: str = "linear") -> Texture:
+        return upload_texture(image, device=self.device, wrap=wrap, mipmaps=mipmaps, mip_filter=mip_filter)
 
     def resize(self, width: int, height: int):
         if self._in_frame:
@@ -375,6 +456,8 @@ class Renderer:
         return t.to(torch.float32) if t.is_floating_point() else t
 
     def _uniforms(self, tree):
+        if isinstance(tree, Texture):
+            return tree.to(self.device)
         if isinstance(tree, dict):
             return {k: self._uniforms(v) for k, v in tree.items()}
         if isinstance(tree, (list, tuple)):
@@ -397,7 +480,6 @@ class Renderer:
         nsamp = 4 if coverage_msaa else 1
         rw, rh = w * scale, h * scale
         dev = self.device
-        rows = (lambda x: x.flatten(0, 1)) if coverage_msaa else (lambda x: x)
         vis = None
         per_draw = []
         offset = 0
@@ -495,33 +577,31 @@ class Renderer:
         # Pass 2: gather-free shading and the blend composite, per draw,
         # against each draw's own visibility snapshot (Vulkan's sequential
         # semantics for multi-draw frames).  Under coverage MSAA every
-        # plane has a leading sample axis; the sample layers fold into
-        # rows, (4, H, W, C) -> (4H, W, C), which is exact for per-pixel
-        # fragment shaders, and the colour is (4, 4, H, W) until the resolve.
+        # plane has a leading sample axis, which the fragment shader takes
+        # as a batch axis (one image per sample layer, as the JAX package's
+        # vmap over samples), and the colour is (4, 4, H, W) until the resolve.
         clear = torch.as_tensor(clear_color, dtype=torch.float32, device=dev).reshape(4, 1, 1)
         fbs = (nsamp, rh, rw) if coverage_msaa else (rh, rw)
         color = clear.expand(*fbs[:-2], 4, rh, rw)
+        backend = cfg.raster_backend
+        compact_on = compact.eligible(rh, rw) and (backend == "pallas" or (backend == "auto" and dev.type != "cpu"))
         for d, (var_tri, off, ntri, interp, invw, vis_i, uniforms) in zip(draws, per_draw):
             pipe = d.pipeline
+            fragment = shader_lib.get(pipe.shader).fragment
             mask = (vis_i.tri_id >= off) & (vis_i.tri_id < off + ntri)
-            frag = {}
-            if interp is not None:
-                if pipe.perspective_correct:
-                    one = torch.ones((), dtype=torch.float32, device=dev)
-                    interp = interp / torch.where(invw == 0, one, invw)[None]
-                c0 = 0
-                for k in sorted(var_tri):
-                    c = var_tri[k].shape[-1]
-                    frag[k] = rows(interp[c0 : c0 + c].movedim(0, -1))
-                    c0 += c
-            frag["tri_id"] = rows(torch.where(mask, vis_i.tri_id - off, -1))
-            frag["depth"] = rows(vis_i.depth)
-            frag["bary"] = rows(torch.stack([vis_i.b0, vis_i.b1, vis_i.b2], dim=-1))
-            rgba = shader_lib.get(pipe.shader).fragment(frag, uniforms)  # (nsamp * rh, rw, 4)
-            rgba = rgba.reshape(*fbs, 4).movedim(-1, -3)  # ([4,] 4, rh, rw)
-            if coverage_msaa:
-                mask = mask[:, None]
-            color = torch.where(mask, _blend(rgba, color, pipe.blend), color)
+            local = torch.where(mask, vis_i.tri_id - off, -1)
+            invw = invw if interp is not None and pipe.perspective_correct else None
+            tiles = None
+            if compact_on and pipe.shade_compact is not None:
+                tiles = _compact_tiles(pipe.shade_compact, mask if coverage_msaa else mask[None], rh, rw)
+            if tiles is not None:
+                color = _shade_tiles(var_tri, interp, invw, vis_i, local, fragment, uniforms, pipe.blend, color,
+                                     tiles)
+                continue
+            bary = torch.stack([vis_i.b0, vis_i.b1, vis_i.b2])
+            frag = _fragment_inputs(var_tri, interp, invw, vis_i.depth, bary, local)
+            rgba = fragment(frag, uniforms).movedim(-1, -3)  # ([4,] 4, rh, rw)
+            color = torch.where(mask[:, None] if coverage_msaa else mask, _blend(rgba, color, pipe.blend), color)
         if coverage_msaa:
             color = color.mean(dim=0)  # coverage resolve: box-average the samples
         if scale == 2:  # supersample resolve: 2x2 box

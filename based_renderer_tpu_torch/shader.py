@@ -3,12 +3,16 @@
 The counterpart of ``based_renderer_tpu/shader.py`` for the main path's
 shaders.  ABI:
   vertex(attrs, uniforms) -> (clip_pos (N, 4), varyings dict[str, (N, C)])
-  fragment(frag, uniforms) -> rgba (H, W, 4) float32
-      frag: interpolated (H, W, C) varyings plus "tri_id" (H, W) int32,
-            "depth" (H, W) f32 and "bary" (H, W, 3) f32.
-The dense-mesh demos' ``blinn_phong`` and ``instanced_color`` are here;
-shader modules loaded from files and the textured shaders arrive with
-later slices (ROADMAP A.11, A.14).
+  fragment(frag, uniforms) -> rgba (..., H, W, 4) float32
+      frag: interpolated (..., H, W, C) varyings plus "tri_id" (..., H, W)
+            int32, "depth" (..., H, W) f32 and "bary" (..., H, W, 3) f32.
+A fragment shader takes leading batch axes where the JAX package vmaps
+it: the four sample layers of coverage MSAA, (4, H, W, C), and the tiles
+of compacted shading, (B, 8, 128, C).  Each batch entry is one image, so
+screen-space differences (texture LOD) stay within it.  The dense-mesh
+demos' ``blinn_phong`` and ``instanced_color`` and the textured shaders
+(BASELINE config 3) are here; shader modules loaded from files arrive
+with a later slice (ROADMAP A.14).
 """
 
 from __future__ import annotations
@@ -19,7 +23,9 @@ from typing import Callable
 import torch
 
 from . import math3d
+from .ops import texture as tex_ops
 from .ops.vertex import apply_instance_transform
+from .scene import Texture
 from .utils.errors import ShaderError
 
 
@@ -96,8 +102,7 @@ def _color_vs(attrs, uniforms):
 
 
 def _vertex_color_fs(frag, uniforms):
-    rgb = frag["color"]
-    return torch.cat([rgb, torch.ones((*rgb.shape[:2], 1), dtype=rgb.dtype, device=rgb.device)], -1)
+    return _opaque(frag["color"])
 
 
 register(Shader("vertex_color", _color_vs, _vertex_color_fs, attributes=("color",)))
@@ -112,8 +117,99 @@ def _ndc_color_vs(attrs, uniforms):
 register(Shader("ndc_color", _ndc_color_vs, _vertex_color_fs, attributes=("color",)))
 
 
+def _opaque(rgb: torch.Tensor) -> torch.Tensor:
+    """rgb (..., 3) with alpha 1 appended."""
+    return torch.cat([rgb, torch.ones((*rgb.shape[:-1], 1), dtype=rgb.dtype, device=rgb.device)], -1)
+
+
 def _norm(x: torch.Tensor) -> torch.Tensor:
     return torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+
+
+def _textured_fullscreen_vs(attrs, uniforms):
+    clip, _ = _passthrough_vs(attrs, uniforms)
+    # A per-frame UV scroll keeps benchmark frames distinct.
+    uv = attrs["uv"]
+    if "uv_offset" in uniforms:
+        uv = uv + uniforms["uv_offset"]
+    return clip, {"uv": uv}
+
+
+def _textured_fullscreen_fs(frag, uniforms, separable: bool = True):
+    """Full-screen texture fetch: one (bilinear or trilinear) tap per pixel
+    times a scalar tint, the sampler-floor workload.
+
+    The companion geometry (geometry.fullscreen_quad_data) maps UV
+    axis-aligned to the screen, so on a whole image (each axis at least
+    64 pixels: not an (8, 128) tile of compacted shading) it samples with
+    the separable resampler at the constant LOD of that mapping.  The
+    "textured_fullscreen_gather" variant keeps the per-pixel path.
+    """
+    tex = uniforms["texture"]
+    uv = frag["uv"]
+    mipped = isinstance(tex, Texture) and tex.num_levels > 1
+    sep_ok = separable and isinstance(tex, Texture) and uv.shape[-3] >= 64 and uv.shape[-2] >= 64
+    if sep_ok:
+        u_row = uv[..., 0, :, 0]  # (..., W)
+        v_col = uv[..., :, 0, 1]  # (..., H)
+        lod = None
+        if mipped:
+            th, tw = tex.meta[2][0]
+            rho = torch.maximum(
+                (u_row[..., 1] - u_row[..., 0]).abs() * float(tw),
+                (v_col[..., 1] - v_col[..., 0]).abs() * float(th),
+            )
+            lod = torch.log2(torch.clamp_min(rho, 1e-12))
+        albedo = tex_ops.sample_separable(tex, u_row, v_col, lod)
+    elif mipped:
+        th, tw = tex.meta[2][0]
+        albedo = tex_ops.sample_texture(tex, uv, tex_ops.lod_from_uv(uv, th, tw))
+    else:
+        albedo = tex_ops.sample_texture(tex, uv)
+    return _opaque(albedo[..., :3] * _uniform(uniforms, "tint", 1.0, uv))
+
+
+register(Shader("textured_fullscreen", _textured_fullscreen_vs, _textured_fullscreen_fs, attributes=("uv",)))
+"""Full-screen textured quad (the sampler floor of BASELINE config 3's tier)."""
+
+
+def _textured_fullscreen_gather_fs(frag, uniforms):
+    return _textured_fullscreen_fs(frag, uniforms, separable=False)
+
+
+register(Shader("textured_fullscreen_gather", _textured_fullscreen_vs, _textured_fullscreen_gather_fs,
+                attributes=("uv",)))
+
+
+def _textured_lit_vs(attrs, uniforms):
+    clip = mvp_transform(attrs, uniforms)
+    normal_ws = attrs["normal"] @ math3d.normal_matrix(uniforms["model"]).T
+    return clip, {"uv": attrs["uv"], "normal": normal_ws}
+
+
+def _textured_lit_fs(frag, uniforms):
+    """Sampled albedo * Lambert diffuse (BASELINE config 3).
+
+    Mipmapped textures sample with the LOD from screen-space UV
+    differences; otherwise a single bilinear tap."""
+    tex = uniforms["texture"]
+    uv = frag["uv"]
+    if isinstance(tex, Texture) and tex.num_levels > 1:
+        th, tw = tex.meta[2][0]
+        albedo = tex_ops.sample_texture(tex, uv, tex_ops.lod_from_uv(uv, th, tw))
+    else:
+        albedo = tex_ops.sample_texture(tex, uv)
+    n = frag["normal"]
+    n = n / torch.clamp_min(_norm(n), 1e-8)
+    light_dir = _uniform(uniforms, "light_dir", [0.0, 0.0, -1.0], n)
+    light_dir = light_dir / torch.linalg.vector_norm(light_dir)
+    ndotl = torch.clamp_min((n * -light_dir).sum(-1, keepdim=True), 0.0)
+    ambient = _uniform(uniforms, "ambient", 0.15, n)
+    return _opaque(albedo[..., :3] * (ambient + (1.0 - ambient) * ndotl))
+
+
+register(Shader("textured_lit", _textured_lit_vs, _textured_lit_fs, attributes=("uv", "normal")))
+"""Textured + Lambert-lit mesh (BASELINE config 3, the textured cube)."""
 
 
 def _blinn_phong_vs(attrs, uniforms):
@@ -141,7 +237,7 @@ def _blinn_phong_fs(frag, uniforms):
     eye_pos = _uniform(uniforms, "eye_pos", [0.0, 0.0, -3.0], n)
     base = frag.get("color")
     if base is None:
-        base = _uniform(uniforms, "base_color", [0.7, 0.7, 0.75], n).expand(*n.shape[:2], 3)
+        base = _uniform(uniforms, "base_color", [0.7, 0.7, 0.75], n).expand(*n.shape[:-1], 3)
     l = light_pos - pos  # noqa: E741
     l = l / torch.clamp_min(_norm(l), 1e-8)  # noqa: E741
     v = eye_pos - pos
@@ -154,8 +250,7 @@ def _blinn_phong_fs(frag, uniforms):
     ambient = _uniform(uniforms, "ambient", 0.1, n)
     spec = ndoth**shininess
     rgb = base * (ambient + ndotl) + 0.3 * spec
-    a = torch.ones((*rgb.shape[:2], 1), dtype=torch.float32, device=rgb.device)
-    return torch.cat([rgb.clamp(0.0, 1.0), a], -1)
+    return _opaque(rgb.clamp(0.0, 1.0))
 
 
 register(Shader("blinn_phong", _blinn_phong_vs, _blinn_phong_fs, attributes=("normal",)))

@@ -19,6 +19,13 @@ result lines):
   4. assemble_records (B3) vs its plain version on the 1M-triangle
      big_mesh stream at 1920x1080 (16-row records) and on the 4K MSAA-4x
      stream (24-row records): int records exact, float records bitwise;
+     then transpose_templates (B8) on big_mesh's field-major templates
+     (K = 6: W8 48, out_width 64) and on the same triangles with 33
+     channels (W8 136, out_width 192), bitwise against its plain version and
+     against its library call (one copy_ into a zeroed buffer), and the
+     rows entry of assemble_records.cu reading the transposed rows, on the
+     1080p and the 4K MSAA streams, bitwise against its plain version and
+     against the per-field entry;
   5. raster_sublane (B2) vs its plain version and vs raster_tile on the
      B3-assembled 1M-triangle stream (group 64), the 10k-instance stream
      (group 32, depth_clip False), the stress tie stream under the four
@@ -55,14 +62,22 @@ result lines):
      draws: the cube stamping the stencil, the 10k instances drawn
      two-pass where the stencil is not the stamp, the cube again with depth
      bias and constant-alpha blending), and big_mesh with raster_batch 16;
-     no frame overflows; one kernel-path frame of each new run equals the
-     plain-path frame (tri_id, depth_q and stencil exact, colour within
-     1e-5); median ms/frame on the kernel path and on the plain path.
+     big_mesh 1920x1080 with raster_tmpl="pallas" (B8, the rows entry and
+     B2 once a frame; its frame equals the default big_mesh frame), the
+     textured cube at 1920x1080 (BASELINE config 3: B1 once and one
+     compacted draw a frame), the textured full-screen quad at 1920x1080
+     (B1 once a frame, the separable sampler on every frame) and the
+     textured cube with msaa=4 (B4 once and one compacted draw a frame);
+     no frame overflows; one kernel-path frame of each run added since
+     PR 4 equals the plain-path frame (tri_id, depth_q and stencil exact,
+     colour within 1e-5); median ms/frame on the kernel path and on the
+     plain path.
 Every kernel time is the median of 7 CUDA-event windows in this run, with
 the spread and the SM clock nvidia-smi read right after.  Then one JSON
 line of per-kernel numbers (with each kernel's bound: the larger of its
 bytes over 3.35 TB/s and its integer operations over the card's int32
-rate), the nvidia-smi name/power line, and last the device line.  Imports
+rate; B8's library call), the nvidia-smi name/power line, and last the
+device line.  Imports
 nothing of JAX and nothing of the JAX package.
 """
 
@@ -92,7 +107,20 @@ KERNELS = (
     "raster_msaa4_sublane",
     "raster_two_pass",
     "raster_batched",
+    "transpose_templates",
+    "assemble_records_rows",
 )
+# Per-frame counts: every kernel of KERNELS, then the draws shaded per
+# covered tile (renderer.COMPACTED_DRAWS: no kernel, the compaction proof).
+COUNTS = (*KERNELS, "compacted_draws")
+
+
+def per_frame(**n) -> tuple:
+    """A per-frame count tuple in COUNTS order from names (0 elsewhere)."""
+    unknown = set(n) - set(COUNTS)
+    if unknown:
+        raise ValueError(f"unknown counters {sorted(unknown)}")
+    return tuple(n.get(k, 0) for k in COUNTS)
 COLOR_TOL = 1e-5
 # The least time for a kernel's work: bytes over the H100 SXM's HBM3 rate
 # (3.35 TB/s), or its integer instructions over the int32 issue rate of 132
@@ -206,7 +234,9 @@ def main() -> int:
 
     sys.path.insert(0, str(ROOT))
     import based_renderer_tpu_torch as brt
+    from based_renderer_tpu_torch import renderer as renderer_mod
     from based_renderer_tpu_torch.ops import _build, binassem, binning, raster
+    from based_renderer_tpu_torch.ops import texture as tex_ops
     from based_renderer_tpu_torch.ops import fixedpoint as fp
     from based_renderer_tpu_torch.ops.binning import bin_triangles
     from based_renderer_tpu_torch.ops.clip import clip_near
@@ -218,7 +248,7 @@ def main() -> int:
     check = Checker()
     times = {}
     bounds = {}
-    # Each kernel's launch counter, in the order of the per-frame tuples.
+    # Each kernel's launch counter, in COUNTS order, then the compaction count.
     counters = (
         (raster, "KERNEL_LAUNCHES"),
         (raster, "SUBLANE_LAUNCHES"),
@@ -227,6 +257,9 @@ def main() -> int:
         (raster, "MSAA_SUBLANE_LAUNCHES"),
         (raster, "TWO_PASS_LAUNCHES"),
         (raster, "BATCH_LAUNCHES"),
+        (binassem, "TRANSPOSE_LAUNCHES"),
+        (binassem, "ROWS_LAUNCHES"),
+        (renderer_mod, "COMPACTED_DRAWS"),
     )
 
     def counts():
@@ -412,6 +445,85 @@ def main() -> int:
         f"plain {fmt(times['assemble_records_plain'])} | 3840x2160 MSAA-4x, "
         f"24-row records: {rec4m.shape[1]} slots ({int(ps4m.total)} live), exact and bitwise | kernel {fmt(t_b3m)} "
         f"(bound {b_b3m[0]:.4f} ms), plain {fmt(t_b3m_plain)} | {card}",
+        flush=True,
+    )
+
+    # ---- 4b. transpose_templates (B8) and the rows entry of B3 -----------
+    def b8_vs_plain(label, tmpl):
+        """B8 bitwise against its plain version and against its library
+        call, one strided copy into a zeroed buffer; its bound is the bytes
+        it must move: W8 * T ints read, T * out_width ints written."""
+        fused_t, row_width = binning.templates_field_major(tmpl)
+        w8, t = fused_t.shape
+        got = binassem.transpose_templates(fused_t, row_width)
+        want = binassem.transpose_templates_reference(fused_t, row_width)
+        lib = torch.zeros((t, row_width), dtype=torch.int32, device=dev)
+        lib[:, :w8].copy_(fused_t.T)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want) or not torch.equal(lib, want):
+            raise AssertionError(f"transpose_templates {label}: differs from the plain version or the library call")
+        t_k = timed(lambda: binassem.transpose_templates(fused_t, row_width), 10)
+        t_p = timed(lambda: binassem.transpose_templates_reference(fused_t, row_width), 10)
+        t_l = timed(lambda: lib[:, :w8].copy_(fused_t.T), 10)
+        return got, (w8, t, row_width), t_k, t_p, t_l, bound(4 * (w8 * t + t * row_width), 0)
+
+    def rows_vs_plain(label, ps, fused, num_channels, msaa4, per_field):
+        """The rows entry of B3 against its plain version and against the
+        per-field entry's records on the same padded slots, bitwise."""
+        fw = binning.frecord_width(num_channels)
+        args = (fused, *binning.padded_slots(ps), ps.total, fw, num_channels, msaa4)
+        rec_k, frec_k = binassem.assemble_records_rows(*args)
+        rec_p, frec_p = binassem.assemble_records_rows_reference(*args)
+        torch.cuda.synchronize()
+        for name, (rec, frec) in (("plain version", (rec_p, frec_p)), ("per-field entry", per_field)):
+            if not torch.equal(rec_k, rec) or not torch.equal(frec_k.view(torch.int32), frec.view(torch.int32)):
+                raise AssertionError(f"assemble_records_rows {label}: records differ from the {name}")
+        check.worst["assemble_records_rows"] = max(check.worst.get("assemble_records_rows", 0.0),
+                                                   float((frec_k - frec_p).abs().max()))
+        t_k = timed(lambda: binassem.assemble_records_rows(*args), 10)
+        t_p = timed(lambda: binassem.assemble_records_rows_reference(*args))
+        # Bytes: the slot inputs, the used columns (21 + the planes) of each
+        # template row some slot names, read once, both record arrays
+        # written once; ~60 integer instructions per slot, as B3.
+        n_slots = rec_k.shape[1]
+        read_t = int(torch.unique(args[1]).numel())
+        used = 4 * (binassem.TEMPLATE_COLUMNS + 3 * (3 + num_channels))
+        return t_k, t_p, bound(n_slots * (24 + 4 * (rec_k.shape[0] + fw)) + read_t * used, 60 * n_slots)
+
+    fused, b8_shape, times["transpose_templates"], times["transpose_templates_plain"], t_b8_lib, \
+        bounds["transpose_templates"] = b8_vs_plain("big_mesh 1080p", ps.tmpl)
+    k33 = torch.randn((big_ts.valid.shape[0], 3, 33), generator=torch.Generator(device=dev).manual_seed(33),
+                      device=dev)
+    _, b8_shape33, t_b8_33, t_b8_33_plain, t_b8_33_lib, b_b8_33 = b8_vs_plain(
+        "big_mesh 1080p K=33", binning._templates(big_ts, 0, k33, True))
+    if b8_shape33[0] != 136 or b8_shape33[2] != 192:
+        raise AssertionError(f"K=33 templates are {b8_shape33}")
+    del k33
+    k_rows = big_kw["channels"].shape[-1]
+    per_field = binassem.assemble_records(ps.tmpl, *binning.padded_slots(ps), ps.total, binning.frecord_width(k_rows))
+    times["assemble_records_rows"], times["assemble_records_rows_plain"], bounds["assemble_records_rows"] = \
+        rows_vs_plain("big_mesh 1080p", ps, fused, k_rows, False, per_field)
+    fused4m = binassem.transpose_templates(*binning.templates_field_major(ps4m.tmpl))
+    per_field4m = binassem.assemble_records(ps4m.tmpl, *binning.padded_slots(ps4m), ps4m.total,
+                                            binning.frecord_width(k_rows), True)
+    t_rows4m, t_rows4m_plain, _ = rows_vs_plain("big_mesh 4K MSAA", ps4m, fused4m, k_rows, True, per_field4m)
+    del fused, fused4m, per_field, per_field4m
+    check.worst["transpose_templates"] = 0.0  # held bitwise above
+    print(
+        f"[transpose_templates vs plain, vs library] big_mesh 1M tris 1920x1080, (W8, T, out_width) {b8_shape}: "
+        f"bitwise | kernel {fmt(times['transpose_templates'])} (bound {bounds['transpose_templates'][0]:.4f} ms), "
+        f"plain {fmt(times['transpose_templates_plain'])}, library copy_ {fmt(t_b8_lib)} | K=33 {b8_shape33}: "
+        f"bitwise | kernel {fmt(t_b8_33)} (bound {b_b8_33[0]:.4f} ms), plain {fmt(t_b8_33_plain)}, library "
+        f"{fmt(t_b8_33_lib)} | {card}",
+        flush=True,
+    )
+    print(
+        f"[assemble_records_rows vs plain, vs per-field] big_mesh 1080p (16 rows) and 4K MSAA-4x (24 rows) "
+        f"from the transposed template rows: records bitwise equal to the plain version and to the per-field "
+        f"entry | 1080p kernel {fmt(times['assemble_records_rows'])} (bound "
+        f"{bounds['assemble_records_rows'][0]:.4f} ms), plain {fmt(times['assemble_records_rows_plain'])}, "
+        f"per-field entry {fmt(times['assemble_records'])} | 4K MSAA kernel {fmt(t_rows4m)}, plain "
+        f"{fmt(t_rows4m_plain)} | {card}",
         flush=True,
     )
 
@@ -637,9 +749,9 @@ def main() -> int:
         clip, _ = brt.shader.get(pipe.shader).vertex(mesh.attributes, {k: v.to(dev) for k, v in u.items()})
         return frame, clip.reshape(-1, 3, 4).cpu().numpy()
 
-    frame, clip = toy_big_mesh(brt.RendererConfig(W, H), (0, 1, 1, 0, 0, 0, 0))
+    frame, clip = toy_big_mesh(brt.RendererConfig(W, H), per_frame(raster_sublane=1, assemble_records=1))
     oracle_equal("big_mesh 2000", frame, oracle.rasterize(clip, W, H, cull_mode="back"))
-    frame, clip = toy_big_mesh(brt.RendererConfig(W, H, msaa=4), (0, 0, 1, 0, 1, 0, 0))
+    frame, clip = toy_big_mesh(brt.RendererConfig(W, H, msaa=4), per_frame(assemble_records=1, raster_msaa4_sublane=1))
     oracle_equal("MSAA big_mesh 2000", frame, oracle.rasterize_msaa4(clip, W, H, cull_mode="back"))
     # Stencil through B1 and the two-pass route, per sample through B4, and
     # a depth-biased stream through the port's setup and B1.
@@ -679,7 +791,7 @@ def main() -> int:
 
     def run_frames(label, r, draws, frames, per_frame):
         """Median ms/frame over ``frames`` frames; each frame must add
-        ``per_frame`` to the launch counts (see KERNELS)."""
+        ``per_frame`` to the counts (see COUNTS)."""
         times_, overflow, finite, covered = [], None, None, None
         for i in range(frames):
             us = [d[2](0.05 * i) for d in draws]
@@ -708,13 +820,21 @@ def main() -> int:
     class plain_path:
         """Within it, the renderer runs every kernel's plain version."""
 
+        swaps = (
+            (raster, "rasterize_binned", raster.rasterize_binned_reference),
+            (binassem, "assemble_records", binassem.assemble_records_reference),
+            (binassem, "transpose_templates", binassem.transpose_templates_reference),
+            (binassem, "assemble_records_rows", binassem.assemble_records_rows_reference),
+        )
+
         def __enter__(self):
-            self.kernels = (raster.rasterize_binned, binassem.assemble_records)
-            raster.rasterize_binned = raster.rasterize_binned_reference
-            binassem.assemble_records = binassem.assemble_records_reference
+            self.kernels = [getattr(m, a) for m, a, _ in self.swaps]
+            for m, a, plain in self.swaps:
+                setattr(m, a, plain)
 
         def __exit__(self, *exc):
-            raster.rasterize_binned, binassem.assemble_records = self.kernels
+            for (m, a, _), kernel in zip(self.swaps, self.kernels):
+                setattr(m, a, kernel)
 
     def render_state_draws(r):
         """Three draws: the cube stamps stencil 1; the 10k instances draw
@@ -737,6 +857,14 @@ def main() -> int:
             (decal, cube_mesh, cube_u, None),
         ]
 
+    def frames_equal(label, got, want):
+        """tri_id, depth_q and stencil exact; returns the max colour diff."""
+        for k in ("tri_id", "depth_q", "stencil"):
+            a, b = getattr(got, k), getattr(want, k)
+            if (a is None) != (b is None) or (a is not None and not torch.equal(a, b)):
+                raise AssertionError(f"{label}: {k} differs")
+        return float((got.color_planar - want.color_planar).abs().max())
+
     def kernel_vs_plain(label, r, draws, decal_from=None):
         """One frame on the kernel path against the plain path: tri_id,
         depth_q and stencil exact, colour within COLOR_TOL.  ``decal_from``:
@@ -746,11 +874,7 @@ def main() -> int:
         with plain_path():
             want = render(r, draws, us)
         torch.cuda.synchronize()
-        for k in ("tri_id", "depth_q", "stencil"):
-            a, b = getattr(got, k), getattr(want, k)
-            if (a is None) != (b is None) or (a is not None and not torch.equal(a, b)):
-                raise AssertionError(f"{label} kernel vs plain frame: {k} differs")
-        diff = float((got.color_planar - want.color_planar).abs().max())
+        diff = frames_equal(f"{label} kernel vs plain frame", got, want)
         if not diff <= COLOR_TOL:
             raise AssertionError(f"{label} kernel vs plain frame: colour differs by {diff}")
         if decal_from is not None:
@@ -772,33 +896,67 @@ def main() -> int:
     ss_demo = (dataclasses.replace(ss_pipe, raster_pairs_factor=128.0), *ss_rest)
     batch_pipe, *batch_rest = brt.demos.big_mesh_demo(big_r)
     batch_demo = (dataclasses.replace(batch_pipe, raster_sublane=False, raster_batch=16), *batch_rest)
-    # label, renderer, draws, kernel frames, plain frames, launches per frame (KERNELS order)
+    tmpl_demo = (dataclasses.replace(batch_pipe, raster_tmpl="pallas"), *batch_rest)
+    tex_r = brt.Renderer(brt.RendererConfig(W, H))
+    tex_m_r = brt.Renderer(brt.RendererConfig(W, H, msaa=4))
+    full_r = brt.Renderer(brt.RendererConfig(W, H))
+    # label, renderer, draws, kernel frames, plain frames, counts per frame (COUNTS order)
+    dense = per_frame(raster_sublane=1, assemble_records=1)
     runs = [
-        ("big_mesh 1920x1080", big_r, [big_demo], 10, 2, (0, 1, 1, 0, 0, 0, 0)),
-        ("big_mesh 3840x2160", big4k_r, [brt.demos.big_mesh_demo(big4k_r)], 5, 1, (0, 1, 1, 0, 0, 0, 0)),
-        ("instanced 1920x1080", inst_r, [inst_demo], 10, 2, (0, 1, 1, 0, 0, 0, 0)),
-        ("cube 1920x1080", cube_r, [brt.demos.cube_demo(cube_r)], 20, 5, (1, 0, 0, 0, 0, 0, 0)),
-        ("triangle 800x600", tri_r, [brt.demos.triangle_demo(tri_r)], 20, 5, (1, 0, 0, 0, 0, 0, 0)),
-        ("big_mesh 3840x2160 MSAA-4x", big4m_r, [big4m_demo], 5, 1, (0, 0, 1, 0, 1, 0, 0)),
-        ("cube 1920x1080 MSAA-4x", cube_m_r, [brt.demos.cube_demo(cube_m_r)], 20, 5, (0, 0, 0, 1, 0, 0, 0)),
-        ("cube 1920x1080 supersampled", cube_ss_r, [ss_demo], 10, 3, (1, 0, 0, 0, 0, 0, 0)),
-        ("render-state 1920x1080", rs_r, render_state_draws(rs_r), 10, 2, (2, 0, 1, 0, 0, 1, 0)),
-        ("render-state 1920x1080 MSAA-4x", rs_m_r, render_state_draws(rs_m_r), 5, 1, (0, 0, 1, 3, 0, 0, 0)),
-        ("big_mesh 1920x1080 batched", big_r, [batch_demo], 10, 1, (0, 0, 1, 0, 0, 0, 1)),
+        ("big_mesh 1920x1080", big_r, [big_demo], 10, 2, dense),
+        ("big_mesh 3840x2160", big4k_r, [brt.demos.big_mesh_demo(big4k_r)], 5, 1, dense),
+        ("instanced 1920x1080", inst_r, [inst_demo], 10, 2, dense),
+        ("cube 1920x1080", cube_r, [brt.demos.cube_demo(cube_r)], 20, 5, per_frame(raster_tile=1)),
+        ("triangle 800x600", tri_r, [brt.demos.triangle_demo(tri_r)], 20, 5, per_frame(raster_tile=1)),
+        ("big_mesh 3840x2160 MSAA-4x", big4m_r, [big4m_demo], 5, 1,
+         per_frame(assemble_records=1, raster_msaa4_sublane=1)),
+        ("cube 1920x1080 MSAA-4x", cube_m_r, [brt.demos.cube_demo(cube_m_r)], 20, 5, per_frame(raster_msaa4=1)),
+        ("cube 1920x1080 supersampled", cube_ss_r, [ss_demo], 10, 3, per_frame(raster_tile=1)),
+        ("render-state 1920x1080", rs_r, render_state_draws(rs_r), 10, 2,
+         per_frame(raster_tile=2, assemble_records=1, raster_two_pass=1)),
+        ("render-state 1920x1080 MSAA-4x", rs_m_r, render_state_draws(rs_m_r), 5, 1,
+         per_frame(assemble_records=1, raster_msaa4=3)),
+        ("big_mesh 1920x1080 batched", big_r, [batch_demo], 10, 1, per_frame(assemble_records=1, raster_batched=1)),
+        ("big_mesh 1920x1080 tmpl", big_r, [tmpl_demo], 10, 1,
+         per_frame(transpose_templates=1, assemble_records_rows=1, raster_sublane=1)),
+        ("textured_cube 1920x1080", tex_r, [brt.demos.textured_cube_demo(tex_r)], 20, 3,
+         per_frame(raster_tile=1, compacted_draws=1)),
+        ("textured_fullscreen 1920x1080", full_r, [brt.demos.textured_fullscreen_demo(full_r)], 20, 3,
+         per_frame(raster_tile=1)),
+        ("textured_cube 1920x1080 MSAA-4x", tex_m_r, [brt.demos.textured_cube_demo(tex_m_r)], 10, 2,
+         per_frame(raster_msaa4=1, compacted_draws=1)),
     ]
+    separable = [0]
+    sample_separable = tex_ops.sample_separable
+
+    def counted_separable(*a, **kw):
+        separable[0] += 1
+        return sample_separable(*a, **kw)
+
+    tex_ops.sample_separable = counted_separable
     reset_counts()
     results = {label: run_frames(label, r, draws, n, per) for label, r, draws, n, _, per in runs}
-    main_launches = dict(zip(KERNELS, counts()))
-    expected = [sum(n * per[i] for _, _, _, n, _, per in runs) for i in range(len(KERNELS))]
-    if list(main_launches.values()) != expected:
+    main_launches = dict(zip(COUNTS, counts()))
+    expected = {k: sum(n * per[i] for _, _, _, n, _, per in runs) for i, k in enumerate(COUNTS)}
+    if main_launches != expected:
         raise AssertionError(f"main path launches {main_launches}, expected {expected}")
+    if separable[0] != 20:  # the textured_fullscreen frames, one separable tap each
+        raise AssertionError(f"the separable sampler ran {separable[0]} times, expected 20")
+    tex_ops.sample_separable = sample_separable
 
+    # The tmpl route's frame equals the default big_mesh frame.
+    u_big = big_demo[2](0.0)
+    tmpl_diff = frames_equal("big_mesh tmpl vs default", render(big_r, [tmpl_demo], [u_big]),
+                             render(big_r, [big_demo], [u_big]))
+    if not tmpl_diff <= COLOR_TOL:
+        raise AssertionError(f"big_mesh tmpl vs default frame: colour differs by {tmpl_diff}")
     # The cube's 12 triangles are 24 after the near clipper: the decal's
     # ids start after the cube's and the 120,000 instance triangles.
     frame_diffs = {label: kernel_vs_plain(label, r, draws, decal_from=24 + 120_000 if "render-state" in label else None)
-                   for label, r, draws, *_ in runs[-3:]}
+                   for label, r, draws, *_ in runs[-7:]}
     with plain_path():
-        plain = {label: run_frames(label, r, draws, n, (0,) * len(KERNELS))[0] for label, r, draws, _, n, _ in runs}
+        plain = {label: run_frames(label, r, draws, n, (0,) * len(KERNELS) + per[len(KERNELS):])[0]
+                 for label, r, draws, _, n, per in runs}
     print(
         "[end-to-end] median ms/frame kernel/plain (frames): "
         + "; ".join(
@@ -807,6 +965,7 @@ def main() -> int:
         )
         + f" | kernel vs plain frame, max colour diff (tol {COLOR_TOL}): "
         + ", ".join(f"{label} {d:.3g}" for label, d in frame_diffs.items())
+        + f" | big_mesh tmpl vs default frame: tri_id, depth_q exact, colour diff {tmpl_diff:.3g}"
         + f" | launches {main_launches} | {card}",
         flush=True,
     )
@@ -819,7 +978,12 @@ def main() -> int:
         "raster_msaa4_sublane": ("raster_msaa4_sublane.cu", "based_renderer_tpu/ops/raster_pallas.py:1160"),
         "raster_two_pass": ("raster_tile.cu", "based_renderer_tpu/ops/raster_pallas.py:282"),
         "raster_batched": ("raster_sublane.cu", "based_renderer_tpu/ops/raster_pallas.py:504"),
+        "transpose_templates": ("transpose_templates.cu", "based_renderer_tpu/ops/binassem.py:49"),
+        "assemble_records_rows": ("assemble_records.cu", "based_renderer_tpu/ops/binassem.py:97"),
     }
+    # B8's function is one PyTorch copy into a zeroed buffer; no single
+    # PyTorch call computes a per-tile raster or the record assembly.
+    library = {"transpose_templates": t_b8_lib["ms"]}
     print(json.dumps({"kernels": [
         {
             "name": k,
@@ -832,8 +996,7 @@ def main() -> int:
             "plain_ms": times[f"{k}_plain"]["ms"],
             "bound_ms": bounds[k][0],
             "bound_by": bounds[k][1],
-            # No single PyTorch call computes a per-tile raster or the record assembly.
-            "library_ms": None,
+            "library_ms": library.get(k),
         }
         for k, (src, replaces) in sources.items()
     ]}))

@@ -3,15 +3,19 @@
 Run from the root of a checkout, e.g.:
     python3 profile_torch.py big_mesh 3840 2160 --msaa 4
     python3 profile_torch.py cube 1920 1080 --msaa 4 --supersample --pairs 128
+    python3 profile_torch.py textured_cube 1920 1080
 
 For ``--frames`` frames of ``Renderer.render_frame`` it prints:
   * ms/frame on the host clock with a synchronise around each frame (median);
   * per-stage medians: each stage function of the frame (instancing, the
     vertex and fragment shaders, triangle gather, near clip, setup,
-    binning with the record assembly inside it, the record assembly alone,
-    the raster kernel) is wrapped with a synchronise before and after, so
-    a stage's time includes its launch cost; "rest" is the frame less the
-    outermost stages (uniform upload, composite, MSAA resolve);
+    binning with the record assembly inside it, the record assembly alone
+    (either entry) and the template transpose, the raster kernel, the
+    texture taps inside the fragment shader, the covered-tile count and
+    the compacted shading pass around the fragment shader) is wrapped with
+    a synchronise before and after, so a stage's time includes its launch
+    cost; "rest" is the frame less the outermost stages (uniform upload,
+    composite, MSAA resolve);
   * under torch.profiler, over the same number of frames: device-kernel
     time per frame, the busy share (that device time over the sync'd
     ms/frame above: the profiled window's own wall time includes the
@@ -38,6 +42,7 @@ import based_renderer_tpu_torch as brt
 from based_renderer_tpu_torch import renderer as renderer_mod
 from based_renderer_tpu_torch import shader as shader_lib
 from based_renderer_tpu_torch.ops import binassem, raster
+from based_renderer_tpu_torch.ops import texture as tex_ops
 
 
 
@@ -79,9 +84,11 @@ class StageTimer:
 def install(timer: StageTimer, shader_name: str):
     """Wrap the frame's stage functions where the frame looks them up."""
     for mod, names in (
-        (renderer_mod, ("expand_instances", "gather_triangles", "clip_near", "setup_triangles")),
+        (renderer_mod, ("expand_instances", "gather_triangles", "clip_near", "setup_triangles", "_compact_tiles",
+                        "_shade_tiles")),
         (raster, ("bin_triangles", "rasterize_binned")),
-        (binassem, ("assemble_records",)),
+        (binassem, ("assemble_records", "assemble_records_rows", "transpose_templates")),
+        (tex_ops, ("sample_texture", "sample_separable")),
     ):
         for n in names:
             setattr(mod, n, timer.wrap(n, getattr(mod, n)))

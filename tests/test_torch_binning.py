@@ -19,7 +19,6 @@ from based_renderer_tpu.ops import binning as jbin
 from based_renderer_tpu.ops import setup as jsetup
 from based_renderer_tpu_torch.ops import binning as tbin
 from based_renderer_tpu_torch.ops import setup as tsetup
-from based_renderer_tpu_torch.utils.errors import FeatureNotPresentError
 
 W, H = 128, 96
 _jax_setup = jax.jit(jsetup.setup_triangles, static_argnums=(1, 2))
@@ -115,8 +114,10 @@ def test_layout_widths():
 
 def test_modes_rejected():
     ts = tsetup.setup_triangles(torch.from_numpy(random_clip(6, 4)), W, H)
-    with pytest.raises(FeatureNotPresentError, match="ROADMAP"):
-        tbin.bin_triangles(ts, W, H, tmpl="pallas")
+    # The template transpose (B8) is in the slice: its stream equals the default.
+    t = tbin.bin_triangles(ts, W, H, tmpl="pallas")
+    d = tbin.bin_triangles(ts, W, H)
+    assert torch.equal(t.records, d.records) and torch.equal(t.frecords, d.frecords)
     # The kernel assembly is in the slice: on live slots it equals "xla".
     x = tbin.bin_triangles(ts, W, H, assemble="xla")
     p = tbin.bin_triangles(ts, W, H, assemble="pallas")

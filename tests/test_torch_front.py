@@ -68,8 +68,11 @@ def test_mvp_transform_matches():
 
 def test_registry_holds_the_main_path_shaders():
     assert set(tshader.names()) == {
-        "flat_ndc", "flat_mvp", "vertex_color", "ndc_color", "blinn_phong", "instanced_color"
+        "flat_ndc", "flat_mvp", "vertex_color", "ndc_color", "blinn_phong", "instanced_color",
+        "textured_lit", "textured_fullscreen", "textured_fullscreen_gather",
     }
+    for name in ("textured_lit", "textured_fullscreen", "textured_fullscreen_gather"):
+        assert tshader.get(name).attributes == jshader.get(name).attributes
     with pytest.raises(KeyError):
         tshader.get("unlit")  # the Pipeline default is not registered in either package
     with pytest.raises(KeyError):

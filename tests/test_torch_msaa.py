@@ -24,7 +24,6 @@ from based_renderer_tpu_torch.ops import fixedpoint as fp
 from based_renderer_tpu_torch.ops import raster as traster
 from based_renderer_tpu_torch.ops import setup as tsetup
 from based_renderer_tpu_torch.reference import oracle
-from based_renderer_tpu_torch.utils.errors import FeatureNotPresentError
 
 W, H = 96, 64
 ATOL = 2e-4
@@ -207,25 +206,24 @@ def test_cpu_tensors_take_the_plain_version():
     ],
 )
 def test_msaa_out_of_slice_raises(kw):
-    """Per-sample stencil under MSAA was outside the port's slice; it now
-    equals the JAX kernel (stencil exact).  tmpl='pallas' (B8) still raises."""
+    """Per-sample stencil and tmpl='pallas' (B8) under MSAA were outside the
+    port's slice; they now equal the JAX kernels (stencil exact)."""
+    jkw = dict(kw)
     if "stencil" in kw:
-        jst = jbrt.StencilState(**dataclasses.asdict(kw["stencil"]))
-        t = traster.rasterize_vis(
-            tsetup.setup_triangles(torch.from_numpy(random_clip(13)), W, H, bbox_pad_fp=PAD), W, H,
-            tile_w=32, tile_h=16, msaa4=True, **kw,
-        )
-        j = rasterize_vis_pallas(
-            _jax_setup(jnp.asarray(random_clip(13)), W, H, bbox_pad_fp=PAD), W, H, tile_w=32, tile_h=16,
-            msaa4=True, interpret=True, **dict(kw, stencil=jst),
-        )
-        _assert_match(t, j)
+        jkw["stencil"] = jbrt.StencilState(**dataclasses.asdict(kw["stencil"]))
+    tile = {} if "tile_w" in kw else dict(tile_w=32, tile_h=16)
+    t = traster.rasterize_vis(
+        tsetup.setup_triangles(torch.from_numpy(random_clip(13)), W, H, bbox_pad_fp=PAD), W, H,
+        msaa4=True, **tile, **kw,
+    )
+    j = rasterize_vis_pallas(
+        _jax_setup(jnp.asarray(random_clip(13)), W, H, bbox_pad_fp=PAD), W, H,
+        msaa4=True, interpret=True, **tile, **jkw,
+    )
+    _assert_match(t, j)
+    if "stencil" in kw:
         np.testing.assert_array_equal(t.stencil.numpy(), np.asarray(j.stencil))
         assert int(t.stencil.max()) >= 1
-        return
-    ts = tsetup.setup_triangles(torch.from_numpy(random_clip(13, 4)), W, H, bbox_pad_fp=PAD)
-    with pytest.raises(FeatureNotPresentError, match="ROADMAP"):
-        traster.rasterize_vis(ts, W, H, msaa4=True, **kw)
 
 
 def test_msaa_with_batch_raises_value_error():

@@ -23,7 +23,8 @@ PORT = pathlib.Path(tbrt.__file__).resolve().parent
 def test_import_pulls_in_no_jax():
     code = (
         "import sys, based_renderer_tpu_torch, based_renderer_tpu_torch.ops.raster, "
-        "based_renderer_tpu_torch.ops._build, based_renderer_tpu_torch.convert; "
+        "based_renderer_tpu_torch.ops._build, based_renderer_tpu_torch.convert, "
+        "based_renderer_tpu_torch.ops.texture, based_renderer_tpu_torch.ops.compact; "
         "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'based_renderer_tpu')))"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, check=True)
@@ -78,7 +79,7 @@ _OUT_OF_SLICE = [
     dict(raster_sublane=True, raster_two_pass=True),
     dict(raster_tmpl="pallas"),
 ]
-_STILL_OUT = ("shade_compact", "instance_cull", "raster_tmpl")
+_STILL_OUT = ("instance_cull",)
 
 
 def _as_jax(value):
@@ -97,13 +98,14 @@ def _frame(r, pipe, mesh, u):
 
 @pytest.mark.parametrize("kw", _OUT_OF_SLICE)
 def test_out_of_slice_state_raises(kw):
-    """shade_compact, instance_cull and raster_tmpl='pallas' still raise,
-    naming their ROADMAP step.  Stencil, blending, depth bias, raster_batch
-    and raster_two_pass were outside the port's slice: they now draw, warn
+    """instance_cull still raises, naming its ROADMAP step.  Stencil,
+    blending, depth bias, raster_batch, raster_two_pass, shade_compact and
+    raster_tmpl='pallas' were outside the port's slice: they now draw, warn
     about an ineligible kernel variant as the JAX package does, and the
     cube frame equals the JAX package's (each package runs its own vertex
     matmul: tri_id and stencil on >= 99.9% of pixels, colour within 1e-4
-    where tri_id agrees)."""
+    where tri_id agrees).  At 64x32 neither package compacts (64 is not a
+    multiple of 128), so shade_compact shades full-screen in both."""
     r = tbrt.Renderer(tbrt.RendererConfig(64, 32), device="cpu")
     pipe, mesh, u, _ = tbrt.demos.cube_demo(r)
     if set(kw) & set(_STILL_OUT):
@@ -126,7 +128,8 @@ def test_out_of_slice_state_raises(kw):
 
 def test_out_of_slice_renderer_state_raises():
     # Under MSAA and supersampling stencil draws now, one layer per sample
-    # (or at twice the extent); shade_compact (A.11) still raises.
+    # (or at twice the extent); so does shade_compact, which at 64x32 (not
+    # a multiple of 128 wide) shades full-screen, as in the JAX package.
     for kw, shape in ((dict(msaa=4), (4, 32, 64)), (dict(msaa=4, msaa_supersample=True), (64, 128))):
         r = tbrt.Renderer(tbrt.RendererConfig(64, 32, **kw), device="cpu")
         pipe, mesh, u, _ = tbrt.demos.cube_demo(r)
@@ -135,12 +138,12 @@ def test_out_of_slice_renderer_state_raises():
         assert tuple(f.stencil.shape) == shape
         assert torch.equal(f.stencil == 5, f.tri_id >= 0)
         r.begin_frame()
-        with pytest.raises(FeatureNotPresentError, match="ROADMAP"):
-            r.draw(dataclasses.replace(pipe, shade_compact=0.5), mesh, u(0.0))
-        r.end_frame()
+        r.draw(dataclasses.replace(pipe, shade_compact=0.5), mesh, u(0.0))
+        compacted = r.end_frame()
+        assert torch.equal(compacted.color_planar, r.render_frame(pipe, mesh, u(0.0)).color_planar)
     r = tbrt.Renderer(tbrt.RendererConfig(64, 32), device="cpu")
-    with pytest.raises(FeatureNotPresentError, match="ROADMAP"):
-        r.upload_texture(np.zeros((4, 4, 3), np.float32))
+    tex = r.upload_texture(np.zeros((4, 4, 3), np.float32))
+    assert isinstance(tex, tbrt.Texture) and tex.meta == jbrt.upload_texture(np.zeros((4, 4, 3), np.float32)).meta
     pipe, mesh, u, _ = tbrt.demos.cube_demo(r)
     # Instance tables are in the slice: one identity instance under a
     # shader that ignores the transform renders the plain draw.

@@ -20,7 +20,6 @@ from based_renderer_tpu_torch import StencilState
 from based_renderer_tpu_torch.ops import fixedpoint as fp
 from based_renderer_tpu_torch.ops import raster as traster
 from based_renderer_tpu_torch.ops import setup as tsetup
-from based_renderer_tpu_torch.utils.errors import FeatureNotPresentError
 
 ATOL = 2e-4
 _jax_setup = jax.jit(jsetup.setup_triangles, static_argnums=(1, 2), static_argnames=("scissor",))
@@ -158,15 +157,10 @@ def test_plain_version_is_the_cpu_path():
     ],
 )
 def test_out_of_slice_raises(kw):
-    """Two-pass, MSAA stencil and batched rasterization were outside the
-    port's slice; they now render and equal the JAX kernels (ints and
-    stencil exact, planes atol 2e-4).  tmpl='pallas' (B8) still raises."""
+    """Two-pass, MSAA stencil, batched rasterization and tmpl='pallas' (B8)
+    were outside the port's slice; they now render and equal the JAX
+    kernels (ints and stencil exact, planes atol 2e-4)."""
     clip = random_clip(12, 16)
-    if kw.get("tmpl") == "pallas":
-        ts = tsetup.setup_triangles(torch.from_numpy(clip), 128, 64)
-        with pytest.raises(FeatureNotPresentError, match="ROADMAP"):
-            traster.rasterize_vis(ts, 128, 64, **kw)
-        return
     pad = fp.MSAA4_BBOX_PAD_FP if kw.get("msaa4") else 0
     ts = tsetup.setup_triangles(torch.from_numpy(clip), 128, 64, bbox_pad_fp=pad)
     js = jsetup.setup_triangles(jnp.asarray(clip), 128, 64, bbox_pad_fp=pad)
