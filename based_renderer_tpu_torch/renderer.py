@@ -69,7 +69,7 @@ class RendererConfig:
     clear_color: tuple = (0.0, 0.0, 0.0, 1.0)
     clear_depth: float = 1.0
     debug: bool = False  # overflow raises AllocationError; NaN check
-    raster_backend: str = "auto"  # one tile rasterizer serves every value
+    raster_backend: str = "auto"  # "pallas": the kernel variants and compaction; "xla": neither
     clear_stencil: int = 0
     framebuffer_srgb: bool = False  # color_u8 encodes with the sRGB curve
 
@@ -403,6 +403,17 @@ class Renderer:
             if len(set(counts.values())) > 1:
                 raise DrawError(f"instance attribute counts differ: {counts}")
 
+    def _use_pallas(self) -> bool:
+        """The JAX package's backend rule (its Renderer._use_pallas): the
+        kernel variants (raster_sublane, raster_batch) and compaction are
+        on for "pallas", off for "xla", and on off the CPU for "auto"."""
+        backend = self.config.raster_backend
+        if backend == "pallas":
+            return True
+        if backend == "xla":
+            return False
+        return self.device.type != "cpu"
+
     def _signal_fallback(self, pipe: Pipeline, knob: str, why: str):
         """A requested fast kernel variant is ineligible for this draw:
         warn (raise DrawError in debug mode) and run the sequential raster
@@ -484,18 +495,22 @@ class Renderer:
         per_draw = []
         offset = 0
         overflowed = torch.zeros((), dtype=torch.bool, device=dev)
-        # Pass 1: visibility, every draw into the shared buffer.
+        use_pallas = self._use_pallas()
+        # Pass 1: visibility, every draw into the shared buffer.  Off the
+        # Pallas backend a draw asking for a kernel variant takes the
+        # sequential raster without a signal, as in the JAX package; the
+        # variants equal it bit for bit.
         for d in draws:
             pipe = d.pipeline
             shd = shader_lib.get(pipe.shader)
             uniforms = self._uniforms(d.uniforms)
             sublane = batch = False
-            if pipe.raster_sublane:
+            if use_pallas and pipe.raster_sublane:
                 why = _reduction_ineligible_reason(pipe, coverage_msaa, True)
                 sublane = why is None
                 if not sublane:
                     self._signal_fallback(pipe, "raster_sublane", why)
-            if pipe.raster_batch and not pipe.raster_sublane:
+            if use_pallas and pipe.raster_batch and not pipe.raster_sublane:
                 why = _reduction_ineligible_reason(pipe, coverage_msaa, False)
                 batch = why is None
                 if not batch:
@@ -583,8 +598,7 @@ class Renderer:
         clear = torch.as_tensor(clear_color, dtype=torch.float32, device=dev).reshape(4, 1, 1)
         fbs = (nsamp, rh, rw) if coverage_msaa else (rh, rw)
         color = clear.expand(*fbs[:-2], 4, rh, rw)
-        backend = cfg.raster_backend
-        compact_on = compact.eligible(rh, rw) and (backend == "pallas" or (backend == "auto" and dev.type != "cpu"))
+        compact_on = use_pallas and compact.eligible(rh, rw)
         for d, (var_tri, off, ntri, interp, invw, vis_i, uniforms) in zip(draws, per_draw):
             pipe = d.pipeline
             fragment = shader_lib.get(pipe.shader).fragment

@@ -33,7 +33,10 @@ result lines):
      route (B7, mapped onto raster_sublane.cu) vs B2's plain version and vs
      raster_tile on the 1M-triangle stream (batch 16) and on the stress tie
      stream under the four ordered compares at tiles 32x16, 64x64, 128x32
-     and 128x128, an init chain, and clamp with scissor;
+     and 128x128, an init chain, and clamp with scissor; B2 and B7 at
+     1366x768 (a width the kernel's 16-byte stores cannot serve, so its
+     scalar stores) on the stress tie stream and an init chain, every
+     plane bitwise equal to the plain version and to raster_tile;
   6. raster_msaa4 (B4) vs its plain version on the MSAA cube stream at
      1920x1080 and on the padded stress stream (an init chain,
      greater_equal + depth clamp + scissor, depth test off);
@@ -72,13 +75,16 @@ result lines):
      PR 4 equals the plain-path frame (tri_id, depth_q and stencil exact,
      colour within 1e-5); median ms/frame on the kernel path and on the
      plain path.
-Every kernel time is the median of 7 CUDA-event windows in this run, with
-the spread and the SM clock nvidia-smi read right after.  Then one JSON
-line of per-kernel numbers (with each kernel's bound: the larger of its
-bytes over 3.35 TB/s and its integer operations over the card's int32
-rate; B8's library call), the nvidia-smi name/power line, and last the
-device line.  Imports
-nothing of JAX and nothing of the JAX package.
+Every kernel time is the median of 7 CUDA-event windows around the
+wrapper in this run, with the spread and the SM clock nvidia-smi read right
+after, and beside it the kernel's own device time (kernel-only: the same
+launches under torch.profiler, the kernel symbol's self device time over
+its count), which leaves out the wrapper's host work.  Then one JSON line
+of per-kernel numbers (ms, kernel_ms, and each kernel's bound: the larger
+of its bytes over 3.35 TB/s, the winning records' float rows included for
+the rasters, and its integer operations over the card's int32 rate; B8's
+library call), the nvidia-smi name/power line, and last the device line.
+Imports nothing of JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -97,6 +103,7 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent
 FLOAT_TOL = 1e-6
 WINDOWS = 7
+KERNEL_ITERS = 10  # launches under the profiler for a kernel's device-only time
 W, H = 1920, 1080
 W4K, H4K = 3840, 2160
 KERNELS = (
@@ -113,6 +120,8 @@ KERNELS = (
 # Per-frame counts: every kernel of KERNELS, then the draws shaded per
 # covered tile (renderer.COMPACTED_DRAWS: no kernel, the compaction proof).
 COUNTS = (*KERNELS, "compacted_draws")
+# The CUDA kernels' symbols, for their device-only times under the profiler.
+B1, B2, B4, B5 = "raster_tile_kernel", "raster_sublane_kernel", "raster_msaa4_kernel", "raster_msaa4_sublane_kernel"
 
 
 def per_frame(**n) -> tuple:
@@ -136,21 +145,43 @@ def bound(bytes_: float, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def raster_bound(binned, width, height, tile, num_channels, samples, int_rows, ops_per_item, per_pixel,
-                 stencil=False, init=False):
-    """Bound of a raster kernel: every output plane written once ((2 + 4 +
-    K) planes, and the stencil plane when ``stencil``, per sample), the init
-    planes read once when ``init`` (tri_id, depth_q, b0, b1, b2, and the
+def winning_records(tri_id, init_tri_id, tile) -> int:
+    """Records that won at least one pixel (or sample) in one raster call:
+    distinct (bin, tri_id) pairs among the pixels whose tri_id is set and
+    is not the one they kept from ``init_tri_id``.  ``tri_id`` is ([S,]
+    H, W); a bin is a (tile_w x tile_h) tile of the call's grid, so a
+    record (one triangle in one bin) counts once however many pixels it
+    wins."""
+    h, w = tri_id.shape[-2:]
+    won = tri_id >= 0
+    if init_tri_id is not None:
+        won &= tri_id != init_tri_id
+    dev = tri_id.device
+    ty = torch.arange(h, device=dev) // tile[1]
+    tx = torch.arange(w, device=dev) // tile[0]
+    bins = (ty[:, None] * -(-w // tile[0]) + tx[None, :]).expand(tri_id.shape)
+    keys = (bins.to(torch.int64) << 32) | tri_id.to(torch.int64)
+    return int(torch.unique(keys[won]).numel())
+
+
+def raster_bound(binned, vis, tile, num_channels, int_rows, ops_per_item, per_pixel, stencil=False, init=None):
+    """Bound of a raster kernel whose output is ``vis`` ([S,] H, W planes):
+    every output plane written once ((2 + 4 + K) planes, and the stencil
+    plane when ``stencil``, per sample), the init planes read once when
+    ``init`` (the init VisBuffer: tri_id, depth_q, b0, b1, b2, and the
     stencil), the int record rows it stages (int_rows rows of the live
-    slots: B1 14, B2 13, B4 20, B5 19) and tile_start/tile_count read once;
-    the winners' float records and B2/B5's tri_id row, read per winner
-    only, are not counted.  Integer work: ``ops_per_item`` per (record,
-    pixel) test when ``per_pixel`` (the sequential kernels), per (record,
-    tile row) span solve otherwise."""
+    slots: B1 14, B2 13, B4 20, B5 19), tile_start/tile_count read once,
+    and for every record that won in this call (winning_records) its float
+    plane rows (9 + 3K), plus, for the sublane kernels (not
+    ``per_pixel``), which do not stage it, its tri_id row.  Integer work:
+    ``ops_per_item`` per (record, pixel) test when ``per_pixel`` (the
+    sequential kernels), per (record, tile row) span solve otherwise."""
+    samples = vis.tri_id.numel()
     live = int(binned.tile_count.sum())
-    planes = 6 + num_channels + int(stencil) + (5 + int(stencil) if init else 0)
-    bytes_ = planes * samples * width * height * 4 + int_rows * live * 4
-    bytes_ += 2 * binned.tile_count.numel() * 4
+    planes = 6 + num_channels + int(stencil) + (5 + int(stencil) if init is not None else 0)
+    winners = winning_records(vis.tri_id, None if init is None else init.tri_id, tile)
+    bytes_ = planes * samples * 4 + int_rows * live * 4 + 2 * binned.tile_count.numel() * 4
+    bytes_ += winners * 4 * (9 + 3 * num_channels + int(not per_pixel))
     items = live * tile[1] * (tile[0] if per_pixel else 1)
     return bound(bytes_, items * ops_per_item)
 
@@ -163,9 +194,29 @@ def nvidia_smi(query: str) -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def timed(fn, iters: int = 1) -> dict:
+def kernel_ms(fn, symbol: str, iters: int = KERNEL_ITERS) -> float:
+    """Device-only ms of one launch of the CUDA kernel named ``symbol``:
+    ``iters`` calls of fn under torch.profiler, the kernel's self device
+    time over its count.  The window around the wrapper (``timed``) also
+    holds the host's operand checks and allocations; this does not."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    cuda = torch.autograd.DeviceType.CUDA
+    for _ in range(3):  # the profiler may drop launches' records (never add one): try again
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        found = [e for e in prof.key_averages() if e.device_type == cuda and symbol in e.key]
+        count = sum(e.count for e in found)
+        if 0 < count <= iters:
+            return sum(e.self_device_time_total for e in found) / 1e3 / count
+    raise AssertionError(f"the profiler saw {count} launches of {symbol}, expected {iters}")
+
+
+def timed(fn, iters: int = 1, kernel: str | None = None) -> dict:
     """Median, min and max ms of fn() over WINDOWS CUDA-event windows of
-    ``iters`` launches each (after one warm-up), and the SM clock after."""
+    ``iters`` launches each (after one warm-up), the SM clock after, and,
+    for a kernel wrapper, the kernel's device-only ms (kernel_ms)."""
     fn()
     torch.cuda.synchronize()
     per = []
@@ -177,11 +228,15 @@ def timed(fn, iters: int = 1) -> dict:
         end.record()
         end.synchronize()
         per.append(start.elapsed_time(end) / iters)
-    return {"ms": statistics.median(per), "min": min(per), "max": max(per), "sm": nvidia_smi("clocks.sm")}
+    t = {"ms": statistics.median(per), "min": min(per), "max": max(per), "sm": nvidia_smi("clocks.sm")}
+    if kernel is not None:
+        t["kernel_ms"] = kernel_ms(fn, kernel)
+    return t
 
 
 def fmt(t: dict) -> str:
-    return f"{t['ms']:.4f} ms [{t['min']:.4f}..{t['max']:.4f}, SM {t['sm']}]"
+    own = f", kernel-only {t['kernel_ms']:.4f} ms" if "kernel_ms" in t else ""
+    return f"{t['ms']:.4f} ms [{t['min']:.4f}..{t['max']:.4f}, SM {t['sm']}]{own}"
 
 
 def stress_clip(seed: int = 0, n: int = 16384) -> tuple[np.ndarray, np.ndarray]:
@@ -307,7 +362,7 @@ def main() -> int:
 
     cube_clip, cube_col = cube_tris(W, H, 0.5)
     cube_b = binned_for(cube_clip, cube_col, W, H)
-    b1_vs_plain("cube", cube_b, W, H)
+    cube_vis = b1_vs_plain("cube", cube_b, W, H)[0][0]
     s_clip_np, s_col_np = stress_clip()
     s_clip = torch.tensor(s_clip_np, device=dev)
     s_col = torch.tensor(s_col_np, device=dev)
@@ -328,10 +383,10 @@ def main() -> int:
     sc_b = binned_for(s_clip, s_col, W, H, tile=(64, 64), scissor=sc, max_pairs=16 * n_stress)
     b1_vs_plain("ge-clamp-scissor", sc_b, W, H, tile_w=64, tile_h=64,
                 depth_compare="greater_equal", depth_clip="clamp", depth_clear=0.0, scissor=sc)
-    times["raster_tile"] = timed(lambda: raster.rasterize_binned(cube_b, W, H, num_channels=3), 20)
+    times["raster_tile"] = timed(lambda: raster.rasterize_binned(cube_b, W, H, num_channels=3), 20, B1)
     times["raster_tile_plain"] = timed(lambda: raster.rasterize_binned_reference(cube_b, W, H, num_channels=3))
-    bounds["raster_tile"] = raster_bound(cube_b, W, H, (128, 32), 3, 1, 14, 12, True)
-    t_stress = timed(lambda: raster.rasterize_binned(stress_b, W, H, num_channels=3), 5)
+    bounds["raster_tile"] = raster_bound(cube_b, cube_vis, (128, 32), 3, 14, 12, True)
+    t_stress = timed(lambda: raster.rasterize_binned(stress_b, W, H, num_channels=3), 5, B1)
     print(
         f"[raster_tile vs plain] cube, stress ({n_stress} tris, fullest tile {max_count} records), "
         f"init chain, greater_equal+clamp+scissor: ints exact, max float diff "
@@ -370,9 +425,10 @@ def main() -> int:
     b1_b6_vs_plain("equal after stamp", second_b, W, H, init=(st_a[0][0], st_a[1][0]), stencil=masked)
     st_init = st_a[0][0]
     st_kw = dict(num_channels=3, init=st_init, stencil=zoo, stencil_clear=0x40)
-    t_b1_st = timed(lambda: raster.rasterize_binned(stress_b, W, H, **st_kw), 5)
+    t_b1_st = timed(lambda: raster.rasterize_binned(stress_b, W, H, **st_kw), 5, B1)
     t_b1_st_plain = timed(lambda: raster.rasterize_binned_reference(stress_b, W, H, **st_kw))
-    b_b1_st = raster_bound(stress_b, W, H, (128, 32), 3, 1, 14, 20, True, stencil=True, init=True)
+    b_b1_st = raster_bound(stress_b, raster.rasterize_binned(stress_b, W, H, **st_kw)[0], (128, 32), 3, 14, 20, True,
+                           stencil=True, init=st_init)
     print(
         f"[raster_tile with stencil, two-pass route] stress at {W}x{H}: increment, ops zoo (clear 0x40), "
         f"never, each with depth test on and off, stamp -> equal init chain with init.stencil: tri_id, "
@@ -416,7 +472,7 @@ def main() -> int:
         if not torch.equal(frec_k.view(torch.int32), frec_p.view(torch.int32)):
             raise AssertionError(f"assemble_records {label}: float records differ by {float((frec_k - frec_p).abs().max())}")
         check.worst["assemble_records"] = max(check.worst.get("assemble_records", 0.0), float((frec_k - frec_p).abs().max()))
-        t_k = timed(lambda: binassem.assemble_records(*args), 10)
+        t_k = timed(lambda: binassem.assemble_records(*args), 10, "assemble_records_kernel")
         t_p = timed(lambda: binassem.assemble_records_reference(*args))
         # Bytes: the slot inputs (t_slot, ox, oy), the per-triangle fields of
         # each triangle some slot names read once (culled and empty
@@ -462,7 +518,7 @@ def main() -> int:
         torch.cuda.synchronize()
         if not torch.equal(got, want) or not torch.equal(lib, want):
             raise AssertionError(f"transpose_templates {label}: differs from the plain version or the library call")
-        t_k = timed(lambda: binassem.transpose_templates(fused_t, row_width), 10)
+        t_k = timed(lambda: binassem.transpose_templates(fused_t, row_width), 10, "transpose_templates_kernel")
         t_p = timed(lambda: binassem.transpose_templates_reference(fused_t, row_width), 10)
         t_l = timed(lambda: lib[:, :w8].copy_(fused_t.T), 10)
         return got, (w8, t, row_width), t_k, t_p, t_l, bound(4 * (w8 * t + t * row_width), 0)
@@ -480,7 +536,7 @@ def main() -> int:
                 raise AssertionError(f"assemble_records_rows {label}: records differ from the {name}")
         check.worst["assemble_records_rows"] = max(check.worst.get("assemble_records_rows", 0.0),
                                                    float((frec_k - frec_p).abs().max()))
-        t_k = timed(lambda: binassem.assemble_records_rows(*args), 10)
+        t_k = timed(lambda: binassem.assemble_records_rows(*args), 10, "assemble_records_rows_kernel")
         t_p = timed(lambda: binassem.assemble_records_rows_reference(*args))
         # Bytes: the slot inputs, the used columns (21 + the planes) of each
         # template row some slot names, read once, both record arrays
@@ -539,19 +595,20 @@ def main() -> int:
     big_b = bin_triangles(big_ts, W, H, 128, 8, assemble="pallas", **big_kw)
     k_big = big_kw["channels"].shape[-1]
     dense_kw = dict(tile_w=128, tile_h=8, num_channels=k_big)
-    b2_checks("big_mesh 1080p", big_b, W, H, sublane_group=64, **dense_kw)
-    times["raster_sublane"] = timed(lambda: raster.rasterize_binned(big_b, W, H, sublane=True, sublane_group=64, **dense_kw), 10)
+    big_vis = b2_checks("big_mesh 1080p", big_b, W, H, sublane_group=64, **dense_kw)[0]
+    times["raster_sublane"] = timed(lambda: raster.rasterize_binned(big_b, W, H, sublane=True, sublane_group=64, **dense_kw), 10, B2)
     times["raster_sublane_plain"] = timed(lambda: raster.rasterize_binned_sublane_reference(big_b, W, H, **dense_kw))
-    times["raster_tile_dense"] = timed(lambda: raster.rasterize_binned(big_b, W, H, **dense_kw), 10)
-    bounds["raster_sublane"] = raster_bound(big_b, W, H, (128, 8), k_big, 1, 13, 40, False)
+    times["raster_tile_dense"] = timed(lambda: raster.rasterize_binned(big_b, W, H, **dense_kw), 10, B1)
+    bounds["raster_sublane"] = raster_bound(big_b, big_vis, (128, 8), k_big, 13, 40, False)
 
     inst_r = brt.Renderer(brt.RendererConfig(W, H))
     inst_demo, inst_ts, inst_kw = dense_setup(inst_r, "instanced_demo", 0.3)
     inst_b = bin_triangles(inst_ts, W, H, 128, 8, assemble="pallas", **inst_kw)
     inst_rkw = dict(tile_w=128, tile_h=8, num_channels=inst_kw["channels"].shape[-1], depth_clip=False)
-    b2_checks("instanced 1080p", inst_b, W, H, sublane_group=32, **inst_rkw)
-    t_inst_b2 = timed(lambda: raster.rasterize_binned(inst_b, W, H, sublane=True, sublane_group=32, **inst_rkw), 10)
-    t_inst_b1 = timed(lambda: raster.rasterize_binned(inst_b, W, H, **inst_rkw), 10)
+    inst_vis = b2_checks("instanced 1080p", inst_b, W, H, sublane_group=32, **inst_rkw)[0]
+    t_inst_b2 = timed(lambda: raster.rasterize_binned(inst_b, W, H, sublane=True, sublane_group=32, **inst_rkw), 10, B2)
+    t_inst_b1 = timed(lambda: raster.rasterize_binned(inst_b, W, H, **inst_rkw), 10, B1)
+    b_inst = raster_bound(inst_b, inst_vis, (128, 8), inst_rkw["num_channels"], 13, 40, False)
 
     # The two-pass route (B6) on the instanced stream: not_equal 1 over the
     # cube's stamp, as the render-state frame draws it.
@@ -560,12 +617,12 @@ def main() -> int:
     tp = raster.rasterize_binned(inst_b, W, H, two_pass=True, **inst_st_kw)
     check("raster_two_pass", "instanced vs raster_tile", tp, raster.rasterize_binned(inst_b, W, H, **inst_st_kw))
     check("raster_two_pass", "instanced vs plain", tp, raster.rasterize_binned_reference(inst_b, W, H, **inst_st_kw))
-    times["raster_two_pass"] = timed(lambda: raster.rasterize_binned(inst_b, W, H, two_pass=True, **inst_st_kw), 10)
+    times["raster_two_pass"] = timed(lambda: raster.rasterize_binned(inst_b, W, H, two_pass=True, **inst_st_kw), 10, B1)
     times["raster_two_pass_plain"] = timed(
         lambda: raster.rasterize_binned_reference(inst_b, W, H, two_pass=True, **inst_st_kw)
     )
-    bounds["raster_two_pass"] = raster_bound(inst_b, W, H, (128, 8), inst_rkw["num_channels"], 1, 14, 20, True,
-                                             stencil=True, init=True)
+    bounds["raster_two_pass"] = raster_bound(inst_b, tp[0], (128, 8), inst_rkw["num_channels"], 14, 20, True,
+                                             stencil=True, init=cube_stamp)
 
     for compare in ("less", "less_equal", "greater", "greater_equal"):
         clear = 0.0 if compare.startswith("greater") else 1.0
@@ -583,8 +640,11 @@ def main() -> int:
         f"[raster_sublane vs plain, vs raster_tile] big_mesh 1080p ({big_b.records.shape[1]} slots), "
         f"instanced 1080p, stress under less/less_equal/greater/greater_equal, stress bin_rows=4: "
         f"ints exact, max float diff {check.worst['raster_sublane']:.3g} (tol {FLOAT_TOL}) | big_mesh "
-        f"sublane {fmt(times['raster_sublane'])}, plain {fmt(times['raster_sublane_plain'])}, raster_tile "
-        f"{fmt(times['raster_tile_dense'])} | instanced sublane {fmt(t_inst_b2)}, raster_tile {fmt(t_inst_b1)} | {card}",
+        f"sublane {fmt(times['raster_sublane'])} (bound {bounds['raster_sublane'][0]:.4f} ms, "
+        f"{winning_records(big_vis.tri_id, None, (128, 8))} winning records), plain "
+        f"{fmt(times['raster_sublane_plain'])}, raster_tile {fmt(times['raster_tile_dense'])} | instanced sublane "
+        f"{fmt(t_inst_b2)} (bound {b_inst[0]:.4f} ms, {winning_records(inst_vis.tri_id, None, (128, 8))} winning "
+        f"records), raster_tile {fmt(t_inst_b1)} | {card}",
         flush=True,
     )
     print(
@@ -602,10 +662,10 @@ def main() -> int:
         check("raster_batched", f"{label} vs raster_tile", got, raster.rasterize_binned(binned, width, height, **kw))
         return got
 
-    b7_checks("big_mesh 1080p", big_b, W, H, **dense_kw)
-    times["raster_batched"] = timed(lambda: raster.rasterize_binned(big_b, W, H, batch=16, **dense_kw), 10)
+    big_b7_vis = b7_checks("big_mesh 1080p", big_b, W, H, **dense_kw)[0]
+    times["raster_batched"] = timed(lambda: raster.rasterize_binned(big_b, W, H, batch=16, **dense_kw), 10, B2)
     times["raster_batched_plain"] = timed(lambda: raster.rasterize_binned_reference(big_b, W, H, batch=16, **dense_kw))
-    bounds["raster_batched"] = raster_bound(big_b, W, H, (128, 8), k_big, 1, 13, 40, False)
+    bounds["raster_batched"] = raster_bound(big_b, big_b7_vis, (128, 8), k_big, 13, 40, False)
     for tile in ((32, 16), (64, 64), (128, 32), (128, 128)):
         tile_b = binned_for(s_clip, s_col, W, H, tile=tile, max_pairs=32 * n_stress)
         for compare in ("less", "less_equal", "greater", "greater_equal"):
@@ -615,6 +675,45 @@ def main() -> int:
     b7_checks("init-b", second_b, W, H, num_channels=3, init=b7_a[0])
     b7_checks("ge-clamp-scissor", sc_b, W, H, tile_w=64, tile_h=64, num_channels=3, depth_compare="greater_equal",
               depth_clip="clamp", depth_clear=0.0, scissor=sc)
+    def bitwise(label, got, *wants):
+        """Every plane of got equals every plane of each of wants, bit for bit."""
+        torch.cuda.synchronize()
+
+        def planes(out):
+            vis, floats = (out, []) if len(out) == 6 else (out[0], list(out[1:]))
+            return [vis.tri_id, vis.depth_q, vis.b0, vis.b1, vis.b2, *floats]
+
+        for want in wants:
+            for i, (a, b) in enumerate(zip(planes(got), planes(want), strict=True)):
+                if not torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32)):
+                    raise AssertionError(f"{label}: plane {i} differs bitwise")
+
+    # A width that is not a multiple of 4 takes the kernel's scalar stores.
+    WO, HO = 1366, 768
+    odd_b = binned_for(s_clip, s_col, WO, HO, max_pairs=16 * n_stress)
+    odd_first = binned_for(s_clip[:half], s_col[:half], WO, HO)
+    odd_second = bin_triangles(setup_triangles(s_clip[half:], WO, HO), WO, HO, 128, 32, channels=s_col[half:],
+                               id_offset=half)
+    for compare in ("less", "greater_equal"):
+        okw = dict(num_channels=3, depth_compare=compare, depth_clear=0.0 if compare == "greater_equal" else 1.0)
+        plain = raster.rasterize_binned_sublane_reference(odd_b, WO, HO, **okw)
+        tile = raster.rasterize_binned(odd_b, WO, HO, **okw)
+        bitwise(f"B2 {WO}x{HO} {compare}", raster.rasterize_binned(odd_b, WO, HO, sublane=True, **okw), plain, tile)
+        bitwise(f"B7 {WO}x{HO} {compare}", raster.rasterize_binned(odd_b, WO, HO, batch=16, **okw), plain, tile)
+    odd_a = raster.rasterize_binned(odd_first, WO, HO, sublane=True, num_channels=3)
+    bitwise(f"B2 {WO}x{HO} init-a", odd_a, raster.rasterize_binned_sublane_reference(odd_first, WO, HO, num_channels=3))
+    odd_init_kw = dict(num_channels=3, init=odd_a[0])
+    odd_plain = raster.rasterize_binned_sublane_reference(odd_second, WO, HO, **odd_init_kw)
+    odd_tile = raster.rasterize_binned(odd_second, WO, HO, **odd_init_kw)
+    bitwise(f"B2 {WO}x{HO} init-b", raster.rasterize_binned(odd_second, WO, HO, sublane=True, **odd_init_kw),
+            odd_plain, odd_tile)
+    bitwise(f"B7 {WO}x{HO} init-b", raster.rasterize_binned(odd_second, WO, HO, batch=16, **odd_init_kw),
+            odd_plain, odd_tile)
+    print(
+        f"[raster_sublane, raster_batched at {WO}x{HO}] stress ties under less and greater_equal, init chain: "
+        f"every plane bitwise equal to the plain version and to raster_tile | {card}",
+        flush=True,
+    )
     print(
         f"[raster_batched vs plain, vs raster_tile] big_mesh 1080p batch 16, stress ties under "
         f"less/less_equal/greater/greater_equal at tiles 32x16, 64x64, 128x32, 128x128, init chain, "
@@ -626,7 +725,7 @@ def main() -> int:
 
     # ---- 6. raster_msaa4 (B4) and raster_msaa4_sublane (B5) --------------
     cube_mb = binned_for(cube_clip, cube_col, W, H, msaa4=True)
-    b1_vs_plain("cube", cube_mb, W, H, msaa4=True)
+    cube_m_vis = b1_vs_plain("cube", cube_mb, W, H, msaa4=True)[0][0]
     stress_mb = binned_for(s_clip, s_col, W, H, max_pairs=16 * n_stress, msaa4=True)
     b1_vs_plain("stress", stress_mb, W, H, msaa4=True)
     first_mb = binned_for(s_clip[:half], s_col[:half], W, H, msaa4=True)
@@ -637,12 +736,12 @@ def main() -> int:
     b1_vs_plain("ge-clamp-scissor", sc_mb, W, H, tile_w=64, tile_h=64, msaa4=True,
                 depth_compare="greater_equal", depth_clip="clamp", depth_clear=0.0, scissor=sc)
     b1_vs_plain("depth test off", stress_mb, W, H, depth_test=False, depth_write=False, msaa4=True)
-    times["raster_msaa4"] = timed(lambda: raster.rasterize_binned(cube_mb, W, H, num_channels=3, msaa4=True), 20)
+    times["raster_msaa4"] = timed(lambda: raster.rasterize_binned(cube_mb, W, H, num_channels=3, msaa4=True), 20, B4)
     times["raster_msaa4_plain"] = timed(
         lambda: raster.rasterize_binned_msaa4_reference(cube_mb, W, H, num_channels=3)
     )
-    bounds["raster_msaa4"] = raster_bound(cube_mb, W, H, (128, 32), 3, 4, 20, 44, True)
-    t_b4_stress = timed(lambda: raster.rasterize_binned(stress_mb, W, H, num_channels=3, msaa4=True), 5)
+    bounds["raster_msaa4"] = raster_bound(cube_mb, cube_m_vis, (128, 32), 3, 20, 44, True)
+    t_b4_stress = timed(lambda: raster.rasterize_binned(stress_mb, W, H, num_channels=3, msaa4=True), 5, B4)
     # B4 with per-sample stencil.
     for name, st, clear in stencil_cases:
         got, _ = b1_vs_plain(f"stencil {name}", stress_mb, W, H, msaa4=True, stencil=st, stencil_clear=clear)
@@ -657,9 +756,10 @@ def main() -> int:
     m_a = b1_vs_plain("stamp", first_mb, W, H, msaa4=True, stencil=stamp)
     b1_vs_plain("equal after stamp", second_mb, W, H, init=(m_a[0][0], m_a[1][0]), msaa4=True, stencil=masked)
     m_kw = dict(num_channels=3, msaa4=True, init=m_a[0][0], stencil=zoo, stencil_clear=0x40)
-    t_b4_st = timed(lambda: raster.rasterize_binned(stress_mb, W, H, **m_kw), 5)
+    t_b4_st = timed(lambda: raster.rasterize_binned(stress_mb, W, H, **m_kw), 5, B4)
     t_b4_st_plain = timed(lambda: raster.rasterize_binned_reference(stress_mb, W, H, **m_kw))
-    b_b4_st = raster_bound(stress_mb, W, H, (128, 32), 3, 4, 20, 52, True, stencil=True, init=True)
+    b_b4_st = raster_bound(stress_mb, raster.rasterize_binned(stress_mb, W, H, **m_kw)[0], (128, 32), 3, 20, 52, True,
+                           stencil=True, init=m_a[0][0])
 
     def b5_checks(label, binned, width, height, **kw):
         got = raster.rasterize_binned(binned, width, height, sublane=True, msaa4=True, **kw)
@@ -668,25 +768,26 @@ def main() -> int:
         b4_kw = {k: v for k, v in kw.items() if k != "sublane_group"}
         check("raster_msaa4_sublane", f"{label} vs raster_msaa4", got,
               raster.rasterize_binned(binned, width, height, msaa4=True, **b4_kw))
+        return got
 
     big4m_b = bin_triangles(big4m_ts, W4K, H4K, 128, 8, assemble="pallas", msaa4=True, **big4m_kw)
     if bool(big4m_b.overflowed):
         raise AssertionError("big_mesh 4K MSAA stream overflowed")
     dense4m_kw = dict(tile_w=128, tile_h=8, num_channels=k_big)
-    b5_checks("big_mesh 4K MSAA", big4m_b, W4K, H4K, sublane_group=64, **dense4m_kw)
+    big4m_vis = b5_checks("big_mesh 4K MSAA", big4m_b, W4K, H4K, sublane_group=64, **dense4m_kw)[0]
     stress8_mb = binned_for(s_clip, s_col, W, H, tile=(128, 8), max_pairs=16 * n_stress, msaa4=True)
     for compare in ("less", "less_equal", "greater", "greater_equal"):
         clear = 0.0 if compare.startswith("greater") else 1.0
         b5_checks(f"stress {compare}", stress8_mb, W, H, tile_w=128, tile_h=8, num_channels=3,
                   depth_compare=compare, depth_clear=clear)
     times["raster_msaa4_sublane"] = timed(
-        lambda: raster.rasterize_binned(big4m_b, W4K, H4K, sublane=True, msaa4=True, sublane_group=64, **dense4m_kw), 5
+        lambda: raster.rasterize_binned(big4m_b, W4K, H4K, sublane=True, msaa4=True, sublane_group=64, **dense4m_kw), 5, B5
     )
     times["raster_msaa4_sublane_plain"] = timed(
         lambda: raster.rasterize_binned_msaa4_sublane_reference(big4m_b, W4K, H4K, **dense4m_kw)
     )
-    t_b4_big4m = timed(lambda: raster.rasterize_binned(big4m_b, W4K, H4K, msaa4=True, **dense4m_kw), 5)
-    bounds["raster_msaa4_sublane"] = raster_bound(big4m_b, W4K, H4K, (128, 8), k_big, 4, 19, 160, False)
+    t_b4_big4m = timed(lambda: raster.rasterize_binned(big4m_b, W4K, H4K, msaa4=True, **dense4m_kw), 5, B4)
+    bounds["raster_msaa4_sublane"] = raster_bound(big4m_b, big4m_vis, (128, 8), k_big, 19, 160, False)
     print(
         f"[raster_msaa4 vs plain] cube, stress ({n_stress} tris), init chain, greater_equal+clamp+scissor, "
         f"depth test off, at {W}x{H}: per-sample ints exact, max float diff {check.worst['raster_msaa4']:.3g} "
@@ -993,6 +1094,7 @@ def main() -> int:
             "launches": main_launches[k],
             "max_abs_err": check.worst[k],
             "ms": times[k]["ms"],
+            "kernel_ms": times[k]["kernel_ms"],
             "plain_ms": times[f"{k}_plain"]["ms"],
             "bound_ms": bounds[k][0],
             "bound_by": bounds[k][1],

@@ -162,10 +162,11 @@ def test_ineligible_modes_raise_value_error(kw):
 
 
 def test_kernel_fallback_signals():
-    """A requested-but-ineligible raster_batch or raster_sublane warns and
-    runs the sequential raster (DrawError in debug mode); eligible draws
-    stay quiet, and a batched draw renders the sequential frame."""
-    cfg = tbrt.RendererConfig(width=256, height=128)
+    """On the Pallas backend, a requested-but-ineligible raster_batch or
+    raster_sublane warns and runs the sequential raster (DrawError in debug
+    mode); eligible draws stay quiet, and a batched draw renders the
+    sequential frame."""
+    cfg = tbrt.RendererConfig(width=256, height=128, raster_backend="pallas")
     r = tbrt.Renderer(cfg, device="cpu")
     pipe, mesh, u, _ = tbrt.demos.cube_demo(r)
     bad = dataclasses.replace(pipe, raster_sublane=True, depth=tbrt.DepthState(test=False, write=False))

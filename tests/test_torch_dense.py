@@ -23,6 +23,7 @@ from based_renderer_tpu.models import demos as jdemos
 from based_renderer_tpu.ops import vertex as jvertex
 from based_renderer_tpu.scene import Mesh as JMesh
 from based_renderer_tpu.utils import errors as jerrors
+from based_renderer_tpu_torch import renderer as trenderer
 from based_renderer_tpu_torch import shader as tshader
 from based_renderer_tpu_torch.models import demos as tdemos
 from based_renderer_tpu_torch.scene import Mesh as TMesh
@@ -34,8 +35,22 @@ DEMO_KW = {"big_mesh": dict(triangles=2000), "instanced": dict(count=32)}
 
 def _renderers(**cfg):
     j = jbrt.Renderer(jbrt.RendererConfig(width=W, height=H, raster_backend="pallas", **cfg))
-    t = tbrt.Renderer(tbrt.RendererConfig(width=W, height=H, **cfg), device="cpu")
+    t = tbrt.Renderer(tbrt.RendererConfig(width=W, height=H, raster_backend="pallas", **cfg), device="cpu")
     return j, t
+
+
+def _sublane_flags(monkeypatch):
+    """The ``sublane`` argument of every rasterize_vis call the port's
+    renderer makes from now on (the route each draw takes)."""
+    flags = []
+    orig = trenderer.rasterize_vis
+
+    def spy(*args, **kwargs):
+        flags.append(kwargs.get("sublane", False))
+        return orig(*args, **kwargs)
+
+    monkeypatch.setattr(trenderer, "rasterize_vis", spy)
+    return flags
 
 
 def _demos(name, jr, tr):
@@ -65,6 +80,7 @@ def test_shared_clip_space(name, monkeypatch):
     varyings through the demo pipeline (sublane raster, kernel assembly)."""
     jr, tr = _renderers()
     (jpipe, jmesh, ju, jinst), (tpipe, _, _, _) = _demos(name, jr, tr)
+    flags = _sublane_flags(monkeypatch)
     shd = jshader.get(jpipe.shader)
     attrs, _ = jvertex.expand_instances(jmesh, jinst)
     clip, var = shd.vertex(attrs, ju(0.2))
@@ -82,6 +98,7 @@ def test_shared_clip_space(name, monkeypatch):
         pipe = jpipe if mod is jbrt else tpipe
         frames.append(r.render_frame(pipe, mesh, ju(0.2) if mod is jbrt else _uniforms_np(ju(0.2))))
     jf, tf = frames
+    assert flags == [True]
     assert int((tf.tri_id >= 0).sum()) > 500 and not bool(tf.overflowed) and not bool(jf.overflowed)
     np.testing.assert_array_equal(tf.tri_id.numpy(), np.asarray(jf.tri_id))
     np.testing.assert_array_equal(tf.depth_q.numpy(), np.asarray(jf.depth_q))
@@ -93,9 +110,10 @@ def _uniforms_np(u):
 
 
 @pytest.mark.parametrize("name", ["big_mesh", "instanced"])
-def test_real_demos(name):
+def test_real_demos(name, monkeypatch):
     jr, tr = _renderers()
     (jpipe, jmesh, ju, jinst), (tpipe, tmesh, tu, tinst) = _demos(name, jr, tr)
+    flags = _sublane_flags(monkeypatch)
     for t in (0.2, 1.1):
         jf = jr.render_frame(jpipe, jmesh, ju(t), instances=jinst)
         tf = tr.render_frame(tpipe, tmesh, tu(t), instances=tinst)
@@ -104,6 +122,7 @@ def test_real_demos(name):
         assert (tf.tri_id >= 0).sum() > 500
         np.testing.assert_allclose(tf.color_np()[same], jf.color_np()[same], rtol=0, atol=1e-4)
         assert bool(tf.overflowed) == bool(jf.overflowed) is False
+    assert flags == [True, True]
 
 
 def test_tight_budget_overflows_in_both():
@@ -121,9 +140,10 @@ def test_tight_budget_overflows_in_both():
 
 
 def test_sublane_fallback_signals():
-    """An ineligible raster_sublane draw warns and runs on the sequential
-    raster (raises DrawError in debug mode); an eligible one stays quiet."""
-    r = tbrt.Renderer(tbrt.RendererConfig(256, 128), device="cpu")
+    """On the Pallas backend, an ineligible raster_sublane draw warns and
+    runs on the sequential raster (raises DrawError in debug mode); an
+    eligible one stays quiet."""
+    r = tbrt.Renderer(tbrt.RendererConfig(256, 128, raster_backend="pallas"), device="cpu")
     pipe, mesh, u, _ = tdemos.cube_demo(r)
     bad = dataclasses.replace(pipe, raster_sublane=True, depth=tbrt.DepthState(test=False, write=False))
     with pytest.warns(RuntimeWarning, match="raster_sublane"):
@@ -139,9 +159,32 @@ def test_sublane_fallback_signals():
     for why in (dict(raster_tile=(64, 8)), dict(depth=tbrt.DepthState(compare="not_equal"))):
         with pytest.warns(RuntimeWarning, match="ineligible"):
             r.render_frame(dataclasses.replace(ok, **why), mesh, u(0.0))
-    rd = tbrt.Renderer(tbrt.RendererConfig(256, 128, debug=True), device="cpu")
+    rd = tbrt.Renderer(tbrt.RendererConfig(256, 128, debug=True, raster_backend="pallas"), device="cpu")
     with pytest.raises(terrors.DrawError, match="ineligible"):
         rd.render_frame(bad, mesh, u(0.0))
+
+
+@pytest.mark.parametrize("knob", [dict(raster_sublane=True), dict(raster_batch=8)])
+def test_xla_backend_takes_no_variant_silently(knob):
+    """Off the Pallas backend neither package checks a kernel variant's
+    eligibility (the JAX renderer's _use_pallas gate): a debug-mode
+    raster_backend="xla" frame with an ineligible draw renders with no
+    warning and no DrawError, and the two frames agree (each package runs
+    its own vertex matmul: tri_id on >= 99.9% of pixels, colour within 1e-4
+    where tri_id agrees)."""
+    frames = []
+    for mod, demos in ((jbrt, jdemos), (tbrt, tdemos)):
+        cfg = mod.RendererConfig(128, 64, debug=True, raster_backend="xla")
+        r = mod.Renderer(cfg, **({"device": "cpu"} if mod is tbrt else {}))
+        pipe, mesh, u, _ = demos.cube_demo(r)
+        bad = dataclasses.replace(pipe, depth=mod.DepthState(test=False, write=False), **knob)
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            frames.append(r.render_frame(bad, mesh, u(0.3)))
+    jf, tf = frames
+    same = tf.tri_id.numpy() == np.asarray(jf.tri_id)
+    assert same.mean() >= 0.999 and (tf.tri_id >= 0).any()
+    np.testing.assert_allclose(tf.color_np()[same], jf.color_np()[same], rtol=0, atol=1e-4)
 
 
 def _malformed(mod, mesh_cls):

@@ -20,6 +20,7 @@ import based_renderer_tpu as jbrt
 import based_renderer_tpu_torch as tbrt
 from based_renderer_tpu import shader as jshader
 from based_renderer_tpu.models import demos as jdemos
+from based_renderer_tpu_torch import renderer as trenderer
 from based_renderer_tpu_torch import shader as tshader
 from based_renderer_tpu_torch.models import demos as tdemos
 from based_renderer_tpu_torch.ops import binassem, raster
@@ -30,7 +31,7 @@ W, H = 128, 96
 
 def _renderers(width=W, height=H, backend="pallas", **cfg):
     j = jbrt.Renderer(jbrt.RendererConfig(width=width, height=height, raster_backend=backend, **cfg))
-    t = tbrt.Renderer(tbrt.RendererConfig(width=width, height=height, **cfg), device="cpu")
+    t = tbrt.Renderer(tbrt.RendererConfig(width=width, height=height, raster_backend=backend, **cfg), device="cpu")
     return j, t
 
 
@@ -91,6 +92,14 @@ def test_shared_clip_space_big_mesh_msaa4(monkeypatch):
     def passthrough(attrs, uniforms):
         return attrs["position"], {k: attrs[k] for k in keys}
 
+    routes = []
+    rasterize_vis = trenderer.rasterize_vis
+
+    def spy(*args, **kwargs):
+        routes.append((kwargs.get("msaa4", False), kwargs.get("sublane", False)))
+        return rasterize_vis(*args, **kwargs)
+
+    monkeypatch.setattr(trenderer, "rasterize_vis", spy)
     frames = []
     for r, mod, sh in ((jr, jbrt, jshader), (tr, tbrt, tshader)):
         orig = sh.get(jpipe.shader)
@@ -99,6 +108,7 @@ def test_shared_clip_space_big_mesh_msaa4(monkeypatch):
         u = ju(0.2) if mod is jbrt else tbrt.convert.uniforms_from_numpy({k: np.asarray(v) for k, v in ju(0.2).items()})
         frames.append(r.render_frame(jpipe if mod is jbrt else tpipe, mesh, u))
     jf, tf = frames
+    assert routes == [(True, True)]  # the MSAA sublane route
     assert int((tf.tri_id >= 0).sum()) > 2000 and not bool(tf.overflowed) and not bool(jf.overflowed)
     _assert_frames_equal(tf, jf, (4, H, W))
 
@@ -162,10 +172,10 @@ def test_two_draws_and_blend_mask_msaa4():
 
 
 def test_msaa_sublane_fallback_runs_the_msaa_raster():
-    """An ineligible raster_sublane draw under MSAA warns and runs the
-    sequential MSAA raster; an eligible one takes the MSAA sublane raster
-    and renders the same samples."""
-    r = tbrt.Renderer(tbrt.RendererConfig(256, 128, msaa=4), device="cpu")
+    """On the Pallas backend, an ineligible raster_sublane draw under MSAA
+    warns and runs the sequential MSAA raster; an eligible one takes the
+    MSAA sublane raster and renders the same samples."""
+    r = tbrt.Renderer(tbrt.RendererConfig(256, 128, msaa=4, raster_backend="pallas"), device="cpu")
     pipe, mesh, u, _ = tdemos.cube_demo(r)
     ok = dataclasses.replace(pipe, raster_sublane=True, raster_tile=(128, 8), raster_assemble="pallas")
     with warnings.catch_warnings():
@@ -179,7 +189,8 @@ def test_msaa_sublane_fallback_runs_the_msaa_raster():
         fb = r.render_frame(bad, mesh, u(0.4))
     assert torch.equal(fb.tri_id, r.render_frame(dataclasses.replace(bad, raster_sublane=False), mesh, u(0.4)).tri_id)
     with pytest.raises(terrors.DrawError, match="ineligible"):
-        tbrt.Renderer(tbrt.RendererConfig(256, 128, msaa=4, debug=True), device="cpu").render_frame(bad, mesh, u(0.4))
+        tbrt.Renderer(tbrt.RendererConfig(256, 128, msaa=4, debug=True, raster_backend="pallas"),
+                      device="cpu").render_frame(bad, mesh, u(0.4))
 
 
 def test_cleared_frame_shapes():
