@@ -5,9 +5,11 @@ path (the 1M-triangle ``big_mesh`` and 10k-instance ``instanced`` demos),
 coverage MSAA-4x (``RendererConfig(msaa=4)``, and 2x2 supersampling
 with ``msaa_supersample``) and the render state of multi-draw frames
 (stencil, blending, depth bias, ``raster_two_pass``, ``raster_batch``,
-``raster_tmpl="pallas"``), and textured draws (textures, samplers and
-``shade_compact`` covered-tile compaction) with hand-written Hopper
-kernels on CUDA tensors (``csrc/raster_tile.cu``,
+``raster_tmpl="pallas"``), textured draws (textures, samplers and
+``shade_compact`` covered-tile compaction), per-instance frustum culling
+(``instance_cull``), generated meshes, and frame sequences
+(``render_sequence``, captured as CUDA graphs and replayed per frame)
+with hand-written Hopper kernels on CUDA tensors (``csrc/raster_tile.cu``,
 ``csrc/raster_sublane.cu``, ``csrc/assemble_records.cu``,
 ``csrc/raster_msaa4.cu``, ``csrc/raster_msaa4_sublane.cu``,
 ``csrc/transpose_templates.cu``) and their plain PyTorch versions on CPU
@@ -21,6 +23,7 @@ Quick start::
     r = brt.Renderer(brt.RendererConfig(width=1920, height=1080))
     pipe, mesh, uniforms, instances = brt.demos.big_mesh_demo(r)
     frame = r.render_frame(pipe, mesh, uniforms(0.0), instances=instances)
+    sums = r.render_sequence(pipe, mesh, uniforms_fn=uniforms, num_frames=20)
 """
 
 from . import convert, math3d, models, shader

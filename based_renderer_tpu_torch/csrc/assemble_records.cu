@@ -10,15 +10,19 @@
 // anchored on the canonical 128-px grid and stepped to the tile origin,
 // its steps and exponent, the triangle id) and the float record (every
 // plane re-anchored as (p00 + pdx*ox) + pdy*oy, the steps copied, the id
-// as f32).  Slots at or past *total get impossible edges (-2^30, zero
-// steps); every other field is still assembled from the slot's triangle.
+// as f32).  The id is t + id_offset, or tri_ids[t] when the caller gives
+// per-triangle ids (a culled instanced draw keeps each surviving
+// triangle's original id; binning.py:_templates).  Slots at or past *total
+// get impossible edges (-2^30, zero steps); every other field is still
+// assembled from the slot's triangle.
 // With rw == 24 (coverage MSAA-4x, binassem.py:160-163) rows 16-21 carry
 // the raw per-subpixel edge coefficients A0..A2, B0..B2 (0 on invalid
 // slots) and rows 22-23 are zero.
 //
 // What bounds it on this card: memory traffic.  A slot reads ~100 bytes of
 // per-triangle fields at a data-dependent row (t_slot is sorted by tile, so
-// neighbouring slots read scattered triangles) plus 24 bytes of slot
+// neighbouring slots read scattered triangles; 4 more with per-triangle
+// ids) plus 24 bytes of slot
 // inputs, and writes 64 (MSAA: 96) bytes of int record and 4 * FW bytes of float
 // record (FW = 32 for the six varyings of the dense mesh): about 200 bytes
 // per slot read and written, with the arithmetic well under the memory
@@ -75,6 +79,7 @@ struct Params {
   const int64_t* ox;      // (P,)
   const int64_t* oy;      // (P,)
   const int64_t* total;   // ()
+  const int32_t* tri_ids; // (T,) per-triangle ids, or null: the id is t + id_offset
   int64_t id_offset;
 };
 
@@ -189,7 +194,7 @@ __global__ void __launch_bounds__(kThreads) assemble_records_kernel(const Params
   }
   f.dzdx = p.dzdx[t];
   f.dzdy = p.dzdy[t];
-  f.tid = t + p.id_offset;
+  f.tid = p.tri_ids != nullptr ? (int64_t)p.tri_ids[t] : t + p.id_offset;
   f.zshift = p.zshift[t];
   f.zq0 = p.zq[3 * t];
   f.x0f = p.xf[3 * t];
@@ -239,7 +244,8 @@ extern "C" cudaError_t brt_assemble_records(
     const void* zq, const void* xf, const void* yf,
     const void* gx, const void* gy,
     const void* planes, int num_planes,
-    const void* t_slot, const void* ox, const void* oy, const void* total, int64_t id_offset,
+    const void* t_slot, const void* ox, const void* oy, const void* total,
+    const void* tri_ids, int64_t id_offset,
     void* records, void* frecords, int64_t num_slots, int rw, int fw,
     void* stream) {
   if (num_planes % 3 || fw < num_planes + 1) return cudaErrorInvalidValue;
@@ -262,6 +268,7 @@ extern "C" cudaError_t brt_assemble_records(
   p.ox = static_cast<const int64_t*>(ox);
   p.oy = static_cast<const int64_t*>(oy);
   p.total = static_cast<const int64_t*>(total);
+  p.tri_ids = static_cast<const int32_t*>(tri_ids);
   p.id_offset = id_offset;
   const Out o{static_cast<int32_t*>(records), static_cast<float*>(frecords), num_slots, rw, fw, num_planes};
   const int64_t blocks = (num_slots + kThreads - 1) / kThreads;

@@ -86,8 +86,24 @@ def normal_matrix(model: torch.Tensor) -> torch.Tensor:
 
 
 def transform_points(m: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
-    """Batched ``M @ [p, 1]`` for ``pts`` of shape (N, 3) or (N, 4)."""
+    """Batched ``M @ [p, 1]`` for ``pts`` of shape (N, 3) or (N, 4).
+
+    Each output is the fixed-order sum ((p0 m_i0 + p1 m_i1) + p2 m_i2) +
+    p3 m_i3 of elementwise products, not a matrix product: a GEMM's
+    summation order may change with N on the GPU, and a vertex must get
+    the same bits whatever else is drawn with it (a culled draw equals
+    the unculled one).
+    """
     pts = pts.to(F32)
     if pts.shape[-1] == 3:
         pts = torch.cat([pts, torch.ones((*pts.shape[:-1], 1), dtype=F32, device=pts.device)], -1)
-    return pts @ m.to(pts.device).T
+    return combine_columns(m.to(device=pts.device, dtype=F32), pts)
+
+
+def combine_columns(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``m @ v`` per row as sum_j m[..., :, j] * v[..., j], in j order, with
+    elementwise ops only: (R, C) or per-row (N, R, C) ``m``, (N, C) ``v``."""
+    out = m[..., :, 0] * v[..., 0:1]
+    for j in range(1, v.shape[-1]):
+        out = out + m[..., :, j] * v[..., j : j + 1]
+    return out

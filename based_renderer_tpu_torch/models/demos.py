@@ -14,7 +14,6 @@ import torch
 from .. import math3d
 from ..pipeline import DepthState, Pipeline
 from ..renderer import Renderer
-from ..utils.errors import FeatureNotPresentError
 from . import geometry
 
 
@@ -147,11 +146,16 @@ def big_mesh_demo(r: Renderer, triangles: int = 1_000_000, generated: bool = Fal
     The budget tiers follow the JAX package: tight pair/slot factors for
     ~1M tiny triangles at up to 2560 px wide without MSAA, a wide tier at
     4K (or under MSAA), and the generous defaults at toy triangle counts.
+    ``generated=True`` makes the mesh on the device with
+    geometry.procedural_mesh_device (Renderer.generated_mesh): a sequence
+    then regenerates it once per call into buffers of its own instead of
+    capturing the uploaded tensors.
     """
     if generated:
-        raise FeatureNotPresentError("generated meshes are not ported yet (ROADMAP A.13)")
-    data = geometry.procedural_mesh_data(triangles)
-    mesh = r.upload_mesh(data["positions"], indices=data["indices"], normal=data["normal"])
+        mesh = r.generated_mesh(geometry.procedural_mesh_device(triangles, device=r.device))
+    else:
+        data = geometry.procedural_mesh_data(triangles)
+        mesh = r.upload_mesh(data["positions"], indices=data["indices"], normal=data["normal"])
     narrow = r.config.width <= 2560 and r.config.msaa == 1
     pipe = Pipeline(
         shader="blinn_phong",

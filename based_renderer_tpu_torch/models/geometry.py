@@ -5,13 +5,14 @@ NDC triangle (src/triangle.slang:4-13 of the reference) and a 36-vertex
 unit cube, 6 faces x 2 triangles (src/cube.slang:12-61).  Here the same
 shapes are mesh data, copied from based_renderer_tpu/models/geometry.py,
 with the instanced cube field and the procedural dense mesh of the
-dense-mesh demos, and the full-screen quad and checkerboard texture of
-the textured demos.
+dense-mesh demos (and its on-device generator for generated meshes), and
+the full-screen quad and checkerboard texture of the textured demos.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def triangle_mesh_data():
@@ -197,3 +198,75 @@ def procedural_mesh_data(target_triangles: int = 1_000_000, seed: int = 0):
         "normal": normals.astype(np.float32),
         "indices": tris,
     }
+
+
+def procedural_mesh_device(target_triangles: int = 1_000_000, seed: int = 0, device=None):
+    """The on-device twin of :func:`procedural_mesh_data`, for generated meshes.
+
+    Returns a zero-argument function that makes the de-indexed per-corner
+    attributes ``{"position": (3T, 3), "normal": (3T, 3)}`` with torch ops
+    in float32 on ``device``: the layout that
+    ``upload_mesh(**procedural_mesh_data(...))`` reaches after its
+    host-side de-index.  The JAX package's generator (geometry.py:204)
+    computes the same values in float32, so both agree with the float64
+    numpy twin to float rounding, not bit for bit.  Each vertex normal sums
+    its six face normals in the numpy twin's order, with rolls of the
+    face-normal grid in place of a scatter-add, so every call gives the
+    same bits.
+    """
+    rings = int(np.sqrt(target_triangles / 2 * 2))
+    segs = max(8, int(target_triangles / (2 * rings)))
+    p, q = 2, 3
+    rng = np.random.default_rng(seed)
+    amp = rng.uniform(0.02, 0.08, 4)
+    freq = rng.integers(3, 9, 4)
+
+    def gen():
+        f32 = torch.float32
+        t = torch.arange(rings, dtype=f32, device=device) * float(np.float32(2 * np.pi / rings))
+        r = 2.0 + torch.cos(q * t)
+        center = torch.stack([r * torch.cos(p * t), r * torch.sin(p * t), -torch.sin(q * t)], dim=-1)
+        d = torch.roll(center, -1, 0) - torch.roll(center, 1, 0)
+        tangent = d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)
+        up = torch.zeros_like(tangent)
+        up[:, 2] = 1.0
+        side = torch.linalg.cross(tangent, up)
+        side = side / torch.linalg.vector_norm(side, dim=-1, keepdim=True)
+        up2 = torch.linalg.cross(side, tangent)
+        phi = torch.arange(segs, dtype=f32, device=device) * float(np.float32(2 * np.pi / segs))
+        radius = 0.45 + sum(
+            float(np.float32(a)) * torch.cos(float(np.float32(f)) * phi)[None, :] * torch.cos((i + 2) * t)[:, None]
+            for i, (a, f) in enumerate(zip(amp, freq))
+        )
+        ring_pts = center[:, None, :] + radius[..., None] * (
+            torch.cos(phi)[None, :, None] * side[:, None, :] + torch.sin(phi)[None, :, None] * up2[:, None, :]
+        )
+        positions = ring_pts.reshape(-1, 3)
+
+        rr = torch.arange(rings, device=device)[:, None].expand(rings, segs)
+        ss = torch.arange(segs, device=device)[None, :].expand(rings, segs)
+        v00 = rr * segs + ss
+        v01 = rr * segs + (ss + 1) % segs
+        v10 = ((rr + 1) % rings) * segs + ss
+        v11 = ((rr + 1) % rings) * segs + (ss + 1) % segs
+        tris = torch.cat([torch.stack([v00, v10, v11], -1).reshape(-1, 3),
+                          torch.stack([v00, v11, v01], -1).reshape(-1, 3)])
+
+        e1 = positions[tris[:, 1]] - positions[tris[:, 0]]
+        e2 = positions[tris[:, 2]] - positions[tris[:, 0]]
+        fn = torch.linalg.cross(e1, e2)
+        fa = fn[: rings * segs].reshape(rings, segs, 3)  # the (v00, v10, v11) triangles
+        fb = fn[rings * segs :].reshape(rings, segs, 3)  # the (v00, v11, v01) triangles
+        # Vertex (r, s) is corner 0 of fa[r, s] and fb[r, s], corner 1 of
+        # fa[r-1, s] and fb[r-1, s-1], and corner 2 of fa[r-1, s-1] and
+        # fb[r, s-1]: summed in that order, as np.add.at sums the corners.
+        normals = fa + fb + torch.roll(fa, 1, 0) + torch.roll(fb, (1, 1), (0, 1))
+        normals = (normals + torch.roll(fa, (1, 1), (0, 1)) + torch.roll(fb, 1, 1)).reshape(-1, 3)
+        normals = normals / torch.clamp_min(torch.linalg.vector_norm(normals, dim=-1, keepdim=True), 1e-12)
+        positions = positions * (1.0 / positions.abs().max())
+
+        # De-index to the corner-sequential upload layout with one fused row gather.
+        flat = torch.cat([positions, normals], dim=-1)[tris.reshape(-1)]  # (3T, 6)
+        return {"position": flat[:, :3], "normal": flat[:, 3:]}
+
+    return gen

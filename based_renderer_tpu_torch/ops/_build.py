@@ -190,7 +190,8 @@ def _declare(lib: ctypes.CDLL):
         p, p, p,  # zq, xf, yf
         p, p,  # gx, gy
         p, i,  # planes, num_planes
-        p, p, p, p, i64,  # t_slot, ox, oy, total, id_offset
+        p, p, p, p,  # t_slot, ox, oy, total
+        p, i64,  # per-triangle int32 ids (or null), id_offset when null
         p, p, i64, i, i,  # records, frecords, num_slots, rw (16 or 24), fw
         p,  # cudaStream_t
     ]

@@ -79,7 +79,9 @@ class Templates(NamedTuple):
     gx: torch.Tensor  # f32 (T,) depth gradients
     gy: torch.Tensor  # f32 (T,)
     planes: torch.Tensor  # f32 (T, 3 * (3 + K)) (p00, pdx, pdy) at the pixel-(0, 0) centre
-    id_offset: int  # tri_id = triangle index + id_offset
+    # int: tri_id = triangle index + id_offset; or an int32 (T,) tensor
+    # giving each triangle its id (a culled draw's original ids).
+    id_offset: int | torch.Tensor
 
 
 class _SlotFields(NamedTuple):
@@ -129,7 +131,7 @@ def assemble_records_reference(tmpl: Templates, t_slot, ox, oy, total, fw: int, 
         dzdx=tmpl.dzdx[t_slot],
         dzdy=tmpl.dzdy[t_slot],
         zshift=tmpl.zshift[t_slot],
-        tid=t_slot + int(tmpl.id_offset),
+        tid=_slot_ids(tmpl.id_offset, t_slot),
         zq0=tmpl.zq[t_slot, 0],
         x0f=tmpl.xf[t_slot, 0],
         y0f=tmpl.yf[t_slot, 0],
@@ -138,6 +140,14 @@ def assemble_records_reference(tmpl: Templates, t_slot, ox, oy, total, fw: int, 
         planes=tmpl.planes[t_slot],
     )
     return _assemble_reference(fields, ox, oy, total, fw, msaa4)
+
+
+def _slot_ids(id_offset, t_slot):
+    """Each slot's triangle id: t_slot + id_offset, or id_offset[t_slot]
+    for per-triangle ids."""
+    if isinstance(id_offset, torch.Tensor):
+        return id_offset[t_slot].to(torch.int64)
+    return t_slot + int(id_offset)
 
 
 def _assemble_reference(f: _SlotFields, ox, oy, total, fw: int, msaa4: bool):
@@ -196,6 +206,7 @@ def _assemble_kernel(tmpl: Templates, t_slot, ox, oy, total, fw: int, msaa4: boo
     if num_planes % 3 or fw < num_planes + 1:
         raise ValueError(f"{num_planes} plane rows do not fit frecords of width {fw}")
     i32, i64, f32 = torch.int32, torch.int64, torch.float32
+    per_tri_ids = isinstance(tmpl.id_offset, torch.Tensor)
     for name, x, dtype, shape in (
         ("a", tmpl.a, i32, (t, 3)),
         ("b", tmpl.b, i32, (t, 3)),
@@ -209,6 +220,7 @@ def _assemble_kernel(tmpl: Templates, t_slot, ox, oy, total, fw: int, msaa4: boo
         ("gx", tmpl.gx, f32, (t,)),
         ("gy", tmpl.gy, f32, (t,)),
         ("planes", tmpl.planes, f32, (t, num_planes)),
+        *((("tri_ids", tmpl.id_offset, i32, (t,)),) if per_tri_ids else ()),
         ("t_slot", t_slot, i64, (n,)),
         ("ox", ox, i64, (n,)),
         ("oy", oy, i64, (n,)),
@@ -225,7 +237,8 @@ def _assemble_kernel(tmpl: Templates, t_slot, ox, oy, total, fw: int, msaa4: boo
         p(tmpl.zq), p(tmpl.xf), p(tmpl.yf),
         p(tmpl.gx), p(tmpl.gy),
         p(tmpl.planes), num_planes,
-        p(t_slot), p(ox), p(oy), p(total), int(tmpl.id_offset),
+        p(t_slot), p(ox), p(oy), p(total),
+        p(tmpl.id_offset) if per_tri_ids else None, 0 if per_tri_ids else int(tmpl.id_offset),
         p(records), p(frecords), n, rw, fw,
         _build.stream(dev),
     )

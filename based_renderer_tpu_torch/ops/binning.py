@@ -96,7 +96,13 @@ def _check_modes(assemble: str, tmpl: str):
 
 
 def _templates(ts, id_offset, channels, perspective) -> Templates:
-    """Per-triangle templates, anchored at the pixel-(0, 0) centre."""
+    """Per-triangle templates, anchored at the pixel-(0, 0) centre.
+
+    ``id_offset``: an int offsets the draw-order ids (triangle index +
+    id_offset); a (T,) int tensor gives each triangle its id (a culled
+    draw's original ids, JAX binning.py:143-153).  Either way the (tile,
+    triangle) sort key uses the local stream index, so keys stay unique.
+    """
     dev = ts.valid.device
     num_tris = ts.valid.shape[0]
     i64 = torch.int64
@@ -136,7 +142,7 @@ def _templates(ts, id_offset, channels, perspective) -> Templates:
         gx=ts.gx.contiguous(),
         gy=ts.gy.contiguous(),
         planes=torch.stack(planes, dim=1),
-        id_offset=int(id_offset),
+        id_offset=id_offset.to(torch.int32).contiguous() if isinstance(id_offset, torch.Tensor) else int(id_offset),
     )
 
 
@@ -154,7 +160,10 @@ def templates_field_major(tmpl: Templates) -> tuple[torch.Tensor, int]:
     hi = tmpl.e >> 32
     lo = tmpl.e - (hi << 32)  # the low word in [0, 2^32)
     lo = torch.where(lo >= 1 << 31, lo - (1 << 32), lo)  # ... as int32
-    tri_ids = torch.arange(num_tris, dtype=i32, device=tmpl.a.device) + tmpl.id_offset
+    if isinstance(tmpl.id_offset, torch.Tensor):
+        tri_ids = tmpl.id_offset
+    else:
+        tri_ids = torch.arange(num_tris, dtype=i32, device=tmpl.a.device) + tmpl.id_offset
     ints = [tmpl.a[:, i] for i in range(3)] + [tmpl.b[:, i] for i in range(3)]
     for i in range(3):
         ints += [hi[:, i].to(i32), lo[:, i].to(i32)]
@@ -173,7 +182,7 @@ def pair_stream(
     tile_w: int = 128,
     tile_h: int = 32,
     max_pairs: int | None = None,
-    id_offset: int = 0,
+    id_offset: int | torch.Tensor = 0,
     channels: torch.Tensor | None = None,
     perspective: bool = True,
     slots: int | None = None,
@@ -302,7 +311,7 @@ def bin_triangles(
     tile_w: int = 128,
     tile_h: int = 32,
     max_pairs: int | None = None,
-    id_offset: int = 0,
+    id_offset: int | torch.Tensor = 0,
     channels: torch.Tensor | None = None,
     perspective: bool = True,
     slots: int | None = None,
@@ -320,7 +329,10 @@ def bin_triangles(
     ``slots`` cuts the sorted stream to a static budget (rounded up to a
     multiple of 128); a cut that drops live pairs sets ``overflowed`` too.
     ``channels`` are (T, 3, K) per-vertex varyings interpolated as planes
-    (divided by w first when ``perspective``).  ``col_major_ids`` and
+    (divided by w first when ``perspective``).  ``id_offset`` is an int
+    added to each triangle's index, or a (T,) int32 tensor of per-triangle
+    ids, which the records carry in place of index + offset (both
+    assemblies, both template layouts).  ``col_major_ids`` and
     ``anchor_rows`` serve band binning (see the JAX package's binner):
     column-major tile ids, and records anchored at the enclosing output
     tile of ``anchor_rows`` pixel rows.  ``msaa4`` gives the 24-row

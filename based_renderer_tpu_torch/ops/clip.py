@@ -25,7 +25,7 @@ def clip_near(clip_pos: torch.Tensor, varyings: dict, eps: float = 1e-5):
       order, so draw-order depth semantics are preserved.
     """
     num_tris = clip_pos.shape[0]
-    eps_t = torch.tensor(eps, dtype=torch.float32, device=clip_pos.device)
+    eps_t = torch.full((), eps, dtype=torch.float32, device=clip_pos.device)
     w = clip_pos[..., 3]
     inside = w > eps_t  # (T, 3)
     n_in = inside.sum(dim=-1)  # 0..3

@@ -59,7 +59,18 @@ _F32_INT_LIM = float(1 << 30)
 
 def f32(value: float, like: torch.Tensor) -> torch.Tensor:
     """A float32 scalar tensor on ``like``'s device (keeps ops in f32)."""
-    return torch.tensor(value, dtype=torch.float32, device=like.device)
+    return torch.full((), value, dtype=torch.float32, device=like.device)
+
+
+def consts(values, device, dtype=torch.float32) -> torch.Tensor:
+    """A short constant vector made on ``device`` by fill kernels.
+
+    ``torch.tensor(values, device=cuda)`` copies from pageable host memory
+    and synchronises the stream, which a captured CUDA graph may not do;
+    this makes the same values (each rounded to ``dtype`` as torch.tensor
+    rounds it) without a host-to-device copy.
+    """
+    return torch.stack([torch.full((), v, dtype=dtype, device=device) for v in values])
 
 
 def rint_i32(x: torch.Tensor) -> torch.Tensor:

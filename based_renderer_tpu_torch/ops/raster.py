@@ -804,7 +804,7 @@ def rasterize_vis(
     max_pairs: int | None = None,
     slots: int | None = None,
     init: VisBuffer | None = None,
-    id_offset: int = 0,
+    id_offset: int | torch.Tensor = 0,
     channels: torch.Tensor | None = None,
     perspective: bool = True,
     scissor=None,
@@ -834,7 +834,10 @@ def rasterize_vis(
     every band of a tile reads only its own records.  ``msaa4`` bins
     24-row MSAA records and rasterizes coverage MSAA-4x (per-sample planes
     (4, H, W); set up with bbox_pad_fp=fp.MSAA4_BBOX_PAD_FP).  ``stencil``,
-    ``two_pass`` and ``batch`` as in rasterize_binned.
+    ``two_pass`` and ``batch`` as in rasterize_binned.  ``id_offset`` is
+    the draw's first triangle id, or a (T,) int32 tensor of per-triangle
+    ids (a culled instanced draw's original ids): the binner writes them
+    into the records, so every route's tri_id plane carries them.
     """
     _check_modes(sublane, sublane_group, bin_rows, tile_w, tile_h, depth_test, depth_write,
                  depth_compare, stencil, two_pass, batch, msaa4)

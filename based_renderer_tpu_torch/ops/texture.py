@@ -29,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from ..scene import Texture
+from . import fixedpoint as fp
 
 _I32 = torch.int32
 _F32 = torch.float32
@@ -185,7 +186,7 @@ def lod_from_uv(uv: torch.Tensor, tex_h: int, tex_w: int) -> torch.Tensor:
     artifact 2x2-quad derivatives have on a GPU.
     """
     du_dx, du_dy = _screen_diffs(uv)
-    scale = torch.tensor([tex_w, tex_h], dtype=_F32, device=uv.device)
+    scale = fp.consts([tex_w, tex_h], uv.device)
     rho = torch.maximum((du_dx.abs() * scale).amax(dim=-1), (du_dy.abs() * scale).amax(dim=-1))
     return torch.log2(torch.clamp_min(rho, 1e-12))
 
@@ -223,10 +224,9 @@ def _sep_level(tex: Texture, u_row: torch.Tensor, v_col: torch.Tensor, lvl: torc
     once per column and once per row, as the JAX package's one-hot
     matmuls do; the fetch is one gather of each pixel's patch row."""
     _wrap, c, sizes = tex.meta[:3]
-    dev = u_row.device
-    ws = torch.tensor([w for _h, w in sizes], dtype=_I32, device=dev)[lvl]  # (...)
-    hs = torch.tensor([h for h, _w in sizes], dtype=_I32, device=dev)[lvl]
-    off = torch.tensor(_level_offsets(sizes), dtype=_I32, device=dev)[lvl]
+    ws = _select_by_level(lvl, [w for _h, w in sizes])  # (...)
+    hs = _select_by_level(lvl, [h for h, _w in sizes])
+    off = _select_by_level(lvl, _level_offsets(sizes))
     fx = u_row * ws[..., None].to(_F32) - 0.5  # (..., W)
     fy = v_col * hs[..., None].to(_F32) - 0.5  # (..., H)
     x0 = _floor_i32(fx)
@@ -258,7 +258,9 @@ def sample_separable(tex: Texture, u_row: torch.Tensor, v_col: torch.Tensor, lod
     lead = u_row.shape[:-1]
     if tex.num_levels == 1 or lod is None:
         return _sep_level(tex, u_row, v_col, torch.zeros(lead, dtype=torch.long, device=u_row.device))
-    lod = torch.as_tensor(lod, dtype=_F32, device=u_row.device).expand(lead)
+    if not isinstance(lod, torch.Tensor):
+        lod = torch.full((), lod, dtype=_F32, device=u_row.device)
+    lod = lod.to(_F32).expand(lead)
     last = tex.num_levels - 1
     if tex.mip_filter == "nearest":
         return _sep_level(tex, u_row, v_col, torch.clamp(torch.round(lod).to(_I32), 0, last).long())
@@ -282,7 +284,7 @@ def sample_anisotropic(tex: Texture, uv: torch.Tensor, max_aniso: int = 4) -> to
     if max_aniso < 1:
         raise ValueError("max_aniso must be >= 1")
     th, tw = tex.meta[2][0]
-    scale = torch.tensor([tw, th], dtype=_F32, device=uv.device)
+    scale = fp.consts([tw, th], uv.device)
     du_dx, du_dy = _screen_diffs(uv)
     du_dx = du_dx * scale
     du_dy = du_dy * scale

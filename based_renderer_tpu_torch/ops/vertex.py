@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import math3d
 from ..scene import Mesh
 
 
@@ -39,12 +40,13 @@ def expand_instances(mesh: Mesh, instances: dict | None):
 def apply_instance_transform(attrs: dict) -> torch.Tensor:
     """Apply a per-vertex 'transform' attribute ((V, 16) row-major 4x4) to
     the positions, returning (V, 4) transformed positions.  Shaders call
-    this before their view/projection multiply for instanced draws."""
+    this before their view/projection multiply for instanced draws.  The
+    sums run in a fixed order (math3d.combine_columns), so a vertex's
+    bits do not depend on how many are transformed with it."""
     p = attrs["position"]
     if p.shape[-1] == 3:
         p = torch.cat([p, torch.ones((*p.shape[:-1], 1), dtype=torch.float32, device=p.device)], -1)
-    m = attrs["transform"].reshape(-1, 4, 4)
-    return torch.matmul(m, p[:, :, None])[:, :, 0]
+    return math3d.combine_columns(attrs["transform"].reshape(-1, 4, 4), p)
 
 
 def gather_triangles(clip: torch.Tensor, varyings: dict, tri_idx):

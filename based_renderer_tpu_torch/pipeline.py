@@ -6,8 +6,8 @@ the two equal).  The reference bakes render state into an immutable
 ``vk::Pipeline`` (reference src/main.cpp:1626-1874); this frozen dataclass
 is its analog.  The field comments below describe the JAX package's
 kernels, and the timings in them were taken on a TPU v5e: they say
-nothing about this port.  In the port, ``instance_cull`` raises
-FeatureNotPresentError at draw time (renderer.py); ``shade_compact``
+nothing about this port.  In the port, ``instance_cull`` culls and
+compacts instances before expansion (ops/cull.py), ``shade_compact``
 shades per covered tile and ``raster_tmpl="pallas"`` runs the template
 transpose kernel, as in the JAX package; ``raster_skip_losers``, ``raster_unroll`` and
 ``raster_group`` only scheduled TPU work, so they are accepted and change

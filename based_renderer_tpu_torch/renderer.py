@@ -1,20 +1,20 @@
-"""Renderer: record draws, then run the frame eagerly on one device.
+"""Renderer: record draws, run frames on one device, and frame sequences.
 
-The PyTorch counterpart of ``based_renderer_tpu/renderer.py`` for
-single- and multi-draw frames: ``begin_frame``/``draw``/``end_frame``
-record a draw list, and ``end_frame`` runs, per draw, expand_instances ->
-the vertex stage -> gather_triangles -> clip_near -> setup_triangles (with
-the draw's depth bias) -> rasterize_vis with the varyings as channels, the
-draw's stencil state and the previous draw's visibility as init (the
-Hopper kernels on CUDA: the sequential raster, also for
-``raster_two_pass``; the record assembly for ``raster_assemble="pallas"``;
-the sublane raster for eligible ``raster_sublane`` and ``raster_batch``
-draws; the MSAA-4x forms under coverage MSAA; the template transpose and
-the row-reading assembly under ``raster_tmpl="pallas"``), then per draw
-the gather-free shading from the interpolated planes (per covered tile
-under ``shade_compact``) and the blend composite against that draw's own
-visibility snapshot, and the MSAA resolve.  PyTorch runs eagerly, so
-there is no program cache.
+The PyTorch counterpart of ``based_renderer_tpu/renderer.py``:
+``begin_frame``/``draw``/``end_frame`` record a draw list, and
+``end_frame`` runs, per draw, the instance cull (``Pipeline.instance_cull``,
+ops/cull.py) -> expand_instances -> the vertex stage -> gather_triangles ->
+clip_near -> setup_triangles (with the draw's depth bias) -> rasterize_vis
+with the varyings as channels, the draw's stencil state and the previous
+draw's visibility as init (the Hopper kernels on CUDA: the sequential
+raster, also for ``raster_two_pass``; the record assembly for
+``raster_assemble="pallas"``; the sublane raster for eligible
+``raster_sublane`` and ``raster_batch`` draws; the MSAA-4x forms under
+coverage MSAA; the template transpose and the row-reading assembly under
+``raster_tmpl="pallas"``), then per draw the gather-free shading from the
+interpolated planes (per covered tile under ``shade_compact``) and the
+blend composite against that draw's own visibility snapshot, and the MSAA
+resolve.  ``render_frame`` runs eagerly.
 
 ``RendererConfig.msaa=4`` is coverage-sample MSAA-4x: per-sample
 visibility at the four standard sample positions, attributes and shading
@@ -30,17 +30,36 @@ backend is "pallas", or "auto" on a device other than the CPU: the JAX
 package's rule, so CPU frames under "auto" equal its "auto" frames.  A
 ladder of budgets picks the smallest that holds the draw's covered-tile
 count, read on the host (one synchronisation per compacted draw); past
-the largest the draw shades full-screen.  Render state the port does not
-have yet (``instance_cull``) raises FeatureNotPresentError naming the
-ROADMAP step that will port it.
+the largest the draw shades full-screen.
+
+``Pipeline.instance_cull`` (the same backend rule; not with ``near_clip``)
+compacts an instanced draw's visible instances into a budget before
+expansion and carries each surviving triangle's original id through the
+records, so the frame equals the unculled one.
+
+``render_sequence`` and ``render_sequence_multi`` render N frames of a
+draw list whose uniforms change per frame.  Where the JAX package scans
+one compiled program, the port captures the frame as CUDA graphs, one
+cached program per key (the draws' state and shapes, the ids of the
+tensors it captures, ``return_frames``, the clear values), and replays
+them once per frame.  The frame is captured in segments split at the
+compaction's host read: the first runs pass 1 and pass 2 up to the first
+compacted draw's covered-tile count; the host reads the count and
+replays the segment captured for the chosen budget (capturing it on
+first use), which runs to the next count or the end.  All segments of a
+program share one memory pool.  On the CPU a sequence is the eager frame
+loop over the same input buffers.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import gc
+import math
 import warnings
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -49,12 +68,13 @@ from . import shader as shader_lib
 from .ops import compact
 from .ops import fixedpoint as fp
 from .ops.clip import clip_near
+from .ops.cull import compact_instances, instance_visibility
 from .ops.raster import rasterize_vis
 from .ops.setup import setup_triangles
 from .ops.vertex import expand_instances, gather_triangles
 from .pipeline import Pipeline
-from .scene import Mesh, Texture, upload_mesh, upload_texture
-from .utils.errors import AllocationError, DeviceError, DrawError, FeatureNotPresentError, FrameError
+from .scene import Mesh, Texture, generated_mesh, upload_mesh, upload_texture
+from .utils.errors import AllocationError, DeviceError, DrawError, FrameError
 
 
 @dataclass(frozen=True)
@@ -134,7 +154,10 @@ def _blend(src, dst, state):
     src_alpha_saturate, min/max ignoring the factors, and a write mask
     that applies even with blending off.
     """
-    const = torch.tensor(state.constants, dtype=torch.float32, device=src.device).reshape(4, 1, 1)
+    factors = (state.src_factor, state.dst_factor, state.src_alpha_factor, state.dst_alpha_factor)
+    const = None
+    if any(f is not None and "constant" in f for f in factors):
+        const = fp.consts(state.constants, src.device).reshape(4, 1, 1)
 
     def rgb(x):
         return x[..., 0:3, :, :]
@@ -208,14 +231,8 @@ def _blend(src, dst, state):
         )
     if set(state.write_mask) == set("rgba"):
         return out
-    mask = torch.tensor([ch in state.write_mask for ch in "rgba"], device=src.device)
+    mask = fp.consts([ch in state.write_mask for ch in "rgba"], src.device, torch.bool)
     return torch.where(mask.reshape(4, 1, 1), out, dst)
-
-
-def _check_draw_state(pipe: Pipeline):
-    """Raise FeatureNotPresentError for render state outside the port."""
-    if pipe.instance_cull is not None:
-        raise FeatureNotPresentError("instance_cull is not ported yet (ROADMAP A.12)")
 
 
 def _fragment_inputs(var_tri, interp, invw, depth, bary, tri_id) -> dict:
@@ -239,37 +256,29 @@ def _fragment_inputs(var_tri, interp, invw, depth, bary, tri_id) -> dict:
     return frag
 
 
-#: Draws shaded per covered tile in this process (proof that compaction ran).
+#: Draws shaded per covered tile in this process (proof that compaction
+#: ran; a sequence counts only when it captures).
 COMPACTED_DRAWS = 0
 
 
-def _compact_tiles(fractions, mask, h: int, w: int):
-    """(tile order, budget) for a draw's covered (8, 128) tiles, or None
-    when they outnumber every budget of the ladder.  ``mask`` is (S, H, W):
-    a tile covered in any sample layer is shaded.  Reading the count is the
-    one host synchronisation of a compacted draw.  Every budget that holds
-    the count gives the same pixels; the JAX package picks the smallest."""
+def _tile_budgets(fractions, h: int, w: int) -> list[int]:
+    """The ladder of covered-tile budgets of ``Pipeline.shade_compact``."""
     nt = compact.num_tiles(h, w)
     fracs = fractions if isinstance(fractions, tuple) else (fractions,)
-    budgets = sorted({min(nt, max(8, -(-int(nt * f) // 8) * 8)) for f in fracs})
-    order, count = compact.covered_tile_order(mask.any(dim=0), h, w)
-    count = int(count)
-    fits = [b for b in budgets if count <= b]
-    return (order, fits[0]) if fits else None
+    return sorted({min(nt, max(8, -(-int(nt * f) // 8) * 8)) for f in fracs})
 
 
-def _shade_tiles(var_tri, interp, invw, vis, tri_id, fragment, uniforms, blend_state, color, tiles):
-    """Shade the draw on its covered tiles only (ops/compact.py).
+def _shade_tiles(var_tri, interp, invw, vis, tri_id, fragment, uniforms, blend_state, color, order, budget):
+    """Shade the draw on its first ``budget`` tiles of ``order`` only
+    (ops/compact.py).
 
     ``interp`` (K, [S,] H, W) raw varyings or None, ``invw`` the 1/w plane
     when perspective-correct, ``vis`` the draw's VisBuffer, ``tri_id``
     ([S,] H, W) draw-local (-1 where the draw lost), ``color`` ([S,] 4, H,
-    W).  Sample
-    layers fold into the tile-row channel axis, so compaction is one row
-    gather and one scatter per plane set; the fragment shader sees
-    (budget * S, 8, 128) images, each one tile of one sample layer."""
+    W).  Sample layers fold into the tile-row channel axis, so compaction
+    is one row gather and one scatter per plane set; the fragment shader
+    sees (budget * S, 8, 128) images, each one tile of one sample layer."""
     global COMPACTED_DRAWS
-    order, budget = tiles
     parts = [] if interp is None else [interp]
     if invw is not None:
         parts.append(invw[None])
@@ -314,6 +323,188 @@ def _reduction_ineligible_reason(pipe: Pipeline, coverage_msaa: bool, need_tile1
     return None
 
 
+def _flatten(tree):
+    """(leaves, treedef) of a uniforms tree: dicts (keys sorted, as JAX
+    flattens them), lists and tuples are nodes; everything else, a Texture
+    included, is a leaf.  The treedef is hashable (a cache-key part)."""
+    if isinstance(tree, dict):
+        keys = sorted(tree)
+        subs = [_flatten(tree[k]) for k in keys]
+        return [x for leaves, _ in subs for x in leaves], ("dict", tuple(keys), tuple(d for _, d in subs))
+    if isinstance(tree, (list, tuple)):
+        subs = [_flatten(v) for v in tree]
+        return [x for leaves, _ in subs for x in leaves], (type(tree).__name__, len(tree), tuple(d for _, d in subs))
+    return [tree], None
+
+
+def _unflatten(treedef, leaves):
+    """The inverse of _flatten."""
+    it = iter(leaves)
+
+    def build(d):
+        if d is None:
+            return next(it)
+        kind, names, subs = d
+        vals = [build(s) for s in subs]
+        if kind == "dict":
+            return dict(zip(names, vals))
+        return tuple(vals) if kind == "tuple" else list(vals)
+
+    return build(treedef)
+
+
+class _Visibility(NamedTuple):
+    """Pass 1's result: every draw's visibility snapshot and planes."""
+
+    draws: list
+    per_draw: list  # (var_tri, first id, logical triangle count, interp, invw, vis, uniforms) per draw
+    vis: Any  # the last draw's VisBuffer, None without draws
+    overflowed: torch.Tensor  # () bool
+    clear_depth: float
+
+
+class _Pending(NamedTuple):
+    """Pass 2 stopped before the compacted draw ``draw``: the host reads
+    ``count`` and picks the draw's tile budget (Renderer._tile_budget)."""
+
+    vis: _Visibility
+    draw: int
+    color: torch.Tensor
+    order: torch.Tensor
+    count: torch.Tensor
+
+
+class _Capture(NamedTuple):
+    """Where a sequence program captures: one memory pool for all of its
+    segments, and the side stream its warm-up and captures run on."""
+
+    pool: Any
+    stream: torch.cuda.Stream
+
+
+class _Segment:
+    """A run of the frame between two host decisions: pass 1 and pass 2 up
+    to the first compacted draw's covered-tile count, or one compacted draw
+    at one budget up to the next count or the end.  ``children`` holds the
+    segments that follow, by budget.  With a _Capture it is captured once
+    as a CUDA graph and replayed (a failed capture raises); without one it
+    runs eagerly."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.graph = None
+        self.out = None
+        self.children: dict = {}
+
+    def run(self, state, capture: Optional[_Capture]):
+        if capture is None:
+            return self.fn(state)
+        if self.graph is None:
+            graph = torch.cuda.CUDAGraph()
+            # Cyclic garbage that holds CUDA resources (a profiler's results,
+            # a dropped program) must not be freed mid-capture: a destructor's
+            # CUDA call there invalidates the capture.  Collect it first and
+            # keep the collector off until the capture ends.
+            gc.collect()
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(graph, pool=capture.pool, stream=capture.stream):
+                    out = self.fn(state)
+            finally:
+                if collecting:
+                    gc.enable()
+            self.graph, self.out = graph, out
+        self.graph.replay()
+        return self.out
+
+
+class _SequenceProgram:
+    """One cached sequence: the draw list over input buffers of its own,
+    and on CUDA the captured segments of its frame.
+
+    Per call, a generated mesh's generator() fills its attribute buffers
+    once; per frame, each per-frame uniform leaf is copied into its buffer
+    from the stacked (N, ...) tensor, the segments run (replayed on CUDA),
+    and the checksum, the overflow and, if asked, the colour are written
+    out.  Mesh attributes, instance tables, static uniforms and textures
+    are taken as they are: the key carries their ids, and the program
+    keeps the caller's objects alive so the ids stay unique."""
+
+    def __init__(self, r: "Renderer", draws, specs, keep):
+        self.r = r
+        self.keep = keep  # the caller's objects whose ids are in the key
+        self.inputs = []  # one buffer per per-frame uniform leaf, in flattening order
+        self.generated = []  # (attribute buffers, generator) per generated mesh
+        self.draws = []
+        for d, (leaves, treedef, static) in zip(draws, specs):
+            mesh = d.mesh
+            if mesh.generator is not None:
+                bufs = {k: torch.empty_like(v) for k, v in mesh.attributes.items()}
+                self.generated.append((bufs, mesh.generator))
+                mesh = Mesh(attributes=bufs, indices=None, generator=mesh.generator)
+            frame_leaves = []
+            for x in leaves:
+                if isinstance(x, Texture):
+                    frame_leaves.append(x.to(r.device))
+                else:
+                    self.inputs.append(torch.empty(x.shape[1:], dtype=x.dtype, device=r.device))
+                    frame_leaves.append(self.inputs[-1])
+            u = _unflatten(treedef, frame_leaves)
+            if isinstance(u, dict):
+                u = {**r._uniforms(static), **u}
+            inst = r._uniforms(d.instances) if d.instances else None
+            self.draws.append(_DrawCmd(d.pipeline, mesh, u, inst))
+        self.clear = r._frame_clear
+        self.capture = None
+        self.warm = False
+        if r.device.type == "cuda":
+            self.capture = _Capture(torch.cuda.graph_pool_handle(), torch.cuda.Stream(r.device))
+        self.root = _Segment(lambda _: r._frame_begin(self.draws, *self.clear))
+
+    def frame(self):
+        """One frame from the current input buffers: its result tuple."""
+        if self.capture is not None and not self.warm:
+            # Eager warm-up on the capture stream before the first capture:
+            # the kernel library, cuBLAS and the allocator are set up.
+            cur = torch.cuda.current_stream(self.r.device)
+            self.capture.stream.wait_stream(cur)
+            with torch.cuda.stream(self.capture.stream):
+                self.r._run_frame(self.draws, *self.clear)
+            cur.wait_stream(self.capture.stream)
+            self.warm = True
+        node = self.root
+        state = node.run(None, self.capture)
+        while isinstance(state, _Pending):
+            budget = self.r._tile_budget(state)
+            child = node.children.get(budget)
+            if child is None:
+                child = node.children[budget] = _Segment(functools.partial(self.r._frame_resume, budget=budget))
+            state = child.run(state, self.capture)
+            node = child
+        return state
+
+    def run(self, stacks, n: int, return_frames: bool):
+        """N frames: (checksums (N,), colours (N, 4, H, W) or None, overflowed ())."""
+        dev = self.r.device
+        for bufs, gen in self.generated:
+            for k, v in gen().items():
+                bufs[k].copy_(v)
+        cfg = self.r.config
+        sums = torch.empty((n,), dtype=torch.float32, device=dev)
+        frames = torch.empty((n, 4, cfg.height, cfg.width), dtype=torch.float32, device=dev) if return_frames else None
+        overflowed = torch.zeros((), dtype=torch.bool, device=dev)
+        for i in range(n):
+            for buf, stack in zip(self.inputs, stacks):
+                buf.copy_(stack[i])
+            color, _depth_q, _tri_id, _stencil, of = self.frame()
+            sums[i] = color.sum()
+            overflowed |= of
+            if frames is not None:
+                frames[i].copy_(color)
+        return sums, frames, overflowed
+
+
 class Renderer:
     """Single-device renderer.
 
@@ -331,12 +522,20 @@ class Renderer:
         self._draws: list[_DrawCmd] = []
         self._in_frame = False
         self._frame_clear = (config.clear_color, config.clear_depth)
+        self._sequences: dict = {}
+        self.last_sequence_overflowed = None
         self.frame_count = 0
 
     # -- resources ---------------------------------------------------------
 
     def upload_mesh(self, positions, indices=None, **attrs) -> Mesh:
         return upload_mesh(positions, indices=indices, device=self.device, **attrs)
+
+    def generated_mesh(self, generator) -> Mesh:
+        """Mesh defined by a generator of torch ops (scene.generated_mesh):
+        a sequence regenerates it once per call into buffers of its own,
+        so its captured program holds no attribute tensors."""
+        return generated_mesh(generator, device=self.device)
 
     def upload_texture(self, image, wrap: str = "repeat", mipmaps: bool = False,
                        mip_filter: str = "linear") -> Texture:
@@ -364,7 +563,6 @@ class Renderer:
         if not self._in_frame:
             raise FrameError("draw outside begin_frame/end_frame")
         shd = shader_lib.get(pipeline.shader)  # validates the shader name
-        _check_draw_state(pipeline)
         for need in shd.attributes:
             if need not in mesh.attributes and not (instances and need in instances) and not (
                 instances and f"instance_{need}" in instances
@@ -405,8 +603,9 @@ class Renderer:
 
     def _use_pallas(self) -> bool:
         """The JAX package's backend rule (its Renderer._use_pallas): the
-        kernel variants (raster_sublane, raster_batch) and compaction are
-        on for "pallas", off for "xla", and on off the CPU for "auto"."""
+        kernel variants (raster_sublane, raster_batch), compaction and the
+        instance cull are on for "pallas", off for "xla", and on off the
+        CPU for "auto"."""
         backend = self.config.raster_backend
         if backend == "pallas":
             return True
@@ -415,9 +614,9 @@ class Renderer:
         return self.device.type != "cpu"
 
     def _signal_fallback(self, pipe: Pipeline, knob: str, why: str):
-        """A requested fast kernel variant is ineligible for this draw:
-        warn (raise DrawError in debug mode) and run the sequential raster
-        (its MSAA form under coverage MSAA)."""
+        """A requested fast path is ineligible for this draw: warn (raise
+        DrawError in debug mode) and run the draw without it (the
+        sequential raster, its MSAA form under coverage MSAA; no cull)."""
         msg = (
             f"{knob} requested (shader {pipe.shader!r}) but the draw is "
             f"ineligible: {why}; falling back to the sequential raster kernel"
@@ -460,8 +659,13 @@ class Renderer:
     # -- the frame -----------------------------------------------------------
 
     def _uniform_leaf(self, x):
+        """A uniform on the device, floats as float32.  A Python scalar is
+        made there by a fill kernel; an array is uploaded (an eager frame's
+        host-to-device copy: a sequence makes it once per call)."""
         if isinstance(x, torch.Tensor):
             t = x.to(self.device)
+        elif isinstance(x, (bool, int, float)):
+            t = torch.full((), x, device=self.device)  # the dtype torch.tensor(x) would take
         else:
             t = torch.tensor(np.asarray(x), device=self.device)
         return t.to(torch.float32) if t.is_floating_point() else t
@@ -481,25 +685,59 @@ class Renderer:
             return None
         return tuple(int(v) * scale for v in pipe.scissor)
 
-    def _run_frame(self, draws, clear_color, clear_depth: float):
+    def _extent(self):
+        """(coverage_msaa, scale, rw, rh): the raster extent of a frame."""
         cfg = self.config
-        w, h = cfg.width, cfg.height
-        # Coverage MSAA-4x: per-sample visibility in (4, H, W) planes; or
-        # 2x2 supersampling: the frame at twice the extent, then a box resolve.
         coverage_msaa = cfg.msaa == 4 and not cfg.msaa_supersample
         scale = 2 if (cfg.msaa == 4 and cfg.msaa_supersample) else 1
-        nsamp = 4 if coverage_msaa else 1
-        rw, rh = w * scale, h * scale
+        return coverage_msaa, scale, cfg.width * scale, cfg.height * scale
+
+    def _run_frame(self, draws, clear_color, clear_depth: float):
+        """The whole frame eagerly: the result tuple (color, depth_q,
+        tri_id, stencil, overflowed)."""
+        state = self._frame_begin(draws, clear_color, clear_depth)
+        while isinstance(state, _Pending):
+            state = self._frame_resume(state, self._tile_budget(state))
+        return state
+
+    def _frame_begin(self, draws, clear_color, clear_depth: float):
+        """Pass 1, then pass 2 up to the first compacted draw's tile count
+        (a _Pending) or to the end (the result tuple)."""
+        fv = self._visibility(draws, clear_depth)
+        coverage_msaa, _, rw, rh = self._extent()
+        clear = fp.consts(clear_color, self.device).reshape(4, 1, 1)
+        color = clear.expand(*((4,) if coverage_msaa else ()), 4, rh, rw)
+        return self._shade_from(fv, 0, color)
+
+    def _frame_resume(self, pending: _Pending, budget: int):
+        """Pass 2 from a pending compacted draw, shaded on ``budget`` tiles
+        (0: full-screen), up to the next compacted draw's count or the end."""
+        return self._shade_from(pending.vis, pending.draw, pending.color, pending.order, budget)
+
+    def _tile_budget(self, pending: _Pending) -> int:
+        """The smallest budget of the draw's ladder that holds its covered
+        tiles, or 0 (full-screen) past the largest: every budget that holds
+        the count gives the same pixels, and the JAX package picks the
+        smallest.  Reading the count is a compacted draw's one host
+        synchronisation."""
+        _, _, rw, rh = self._extent()
+        count = int(pending.count)
+        fits = [b for b in _tile_budgets(pending.vis.draws[pending.draw].pipeline.shade_compact, rh, rw) if count <= b]
+        return fits[0] if fits else 0
+
+    def _visibility(self, draws, clear_depth: float) -> _Visibility:
+        """Pass 1: every draw rasterized into the shared visibility buffer."""
+        cfg = self.config
+        coverage_msaa, scale, rw, rh = self._extent()
         dev = self.device
         vis = None
         per_draw = []
         offset = 0
         overflowed = torch.zeros((), dtype=torch.bool, device=dev)
         use_pallas = self._use_pallas()
-        # Pass 1: visibility, every draw into the shared buffer.  Off the
-        # Pallas backend a draw asking for a kernel variant takes the
-        # sequential raster without a signal, as in the JAX package; the
-        # variants equal it bit for bit.
+        # Off the Pallas backend a draw asking for a kernel variant takes
+        # the sequential raster without a signal, as in the JAX package;
+        # the variants equal it bit for bit.
         for d in draws:
             pipe = d.pipeline
             shd = shader_lib.get(pipe.shader)
@@ -516,6 +754,31 @@ class Renderer:
                 if not batch:
                     self._signal_fallback(pipe, "raster_batch", why)
             instances = self._uniforms(d.instances) if d.instances else None
+            # The instance cull (JAX renderer.py:586-625): the visible
+            # instances, in order, in ceil(instance_cull * I) slots; each
+            # surviving triangle keeps its original id, and the draw's id
+            # range stays the logical I * tpi, so a later draw's ids never
+            # collide with this one's.
+            tri_ids = None
+            num_logical = None
+            if pipe.instance_cull is not None and instances:
+                why = None
+                if not use_pallas:
+                    why = "XLA raster backend (shading gathers by local id)"
+                elif pipe.near_clip:
+                    why = "near_clip enabled (the clipper re-orders the stream)"
+                if why is not None:
+                    self._signal_fallback(pipe, "instance_cull", why)
+                else:
+                    num_inst = next(iter(instances.values())).shape[0]
+                    budget = max(math.ceil(num_inst * pipe.instance_cull), 1)
+                    visible = instance_visibility(shd, d.mesh, instances, uniforms, rw, rh)
+                    instances, orig_idx, cull_of = compact_instances(instances, visible, budget)
+                    overflowed = overflowed | cull_of
+                    tpi = d.mesh.num_triangles
+                    num_logical = num_inst * tpi
+                    local = torch.arange(tpi, dtype=torch.int32, device=dev)
+                    tri_ids = (orig_idx[:, None] * tpi + local[None, :]).reshape(-1)
             attrs, tri_idx = expand_instances(d.mesh, instances)
             clip, varyings = shd.vertex(attrs, uniforms)
             clip_tri, var_tri = gather_triangles(clip, varyings, tri_idx)
@@ -559,7 +822,7 @@ class Renderer:
                     else max(int(num_t * pipe.raster_slots_factor), 1024)
                 ),
                 init=vis,
-                id_offset=offset,
+                id_offset=offset if tri_ids is None else tri_ids + offset,
                 channels=channels,
                 perspective=pipe.perspective_correct,
                 scissor=scissor,
@@ -586,32 +849,40 @@ class Renderer:
             overflowed = overflowed | of
             if vis.stencil is None and prev_stencil is not None:
                 vis = vis._replace(stencil=prev_stencil)  # a stencil-off draw leaves the attachment
-            per_draw.append((var_tri, offset, num_t, interp, invw, vis, uniforms))
-            offset += num_t
+            num_ids = num_t if num_logical is None else num_logical
+            per_draw.append((var_tri, offset, num_ids, interp, invw, vis, uniforms))
+            offset += num_ids
+        return _Visibility(draws, per_draw, vis, overflowed, clear_depth)
 
-        # Pass 2: gather-free shading and the blend composite, per draw,
-        # against each draw's own visibility snapshot (Vulkan's sequential
-        # semantics for multi-draw frames).  Under coverage MSAA every
-        # plane has a leading sample axis, which the fragment shader takes
-        # as a batch axis (one image per sample layer, as the JAX package's
-        # vmap over samples), and the colour is (4, 4, H, W) until the resolve.
-        clear = torch.as_tensor(clear_color, dtype=torch.float32, device=dev).reshape(4, 1, 1)
-        fbs = (nsamp, rh, rw) if coverage_msaa else (rh, rw)
-        color = clear.expand(*fbs[:-2], 4, rh, rw)
-        compact_on = use_pallas and compact.eligible(rh, rw)
-        for d, (var_tri, off, ntri, interp, invw, vis_i, uniforms) in zip(draws, per_draw):
-            pipe = d.pipeline
+    def _shade_from(self, fv: _Visibility, start: int, color, order=None, budget: int = 0):
+        """Pass 2 from draw ``start``: gather-free shading and the blend
+        composite, per draw, against each draw's own visibility snapshot
+        (Vulkan's sequential semantics for multi-draw frames), then the
+        resolve.  Under coverage MSAA every plane has a leading sample
+        axis, which the fragment shader takes as a batch axis (one image
+        per sample layer, as the JAX package's vmap over samples), and the
+        colour is (4, 4, H, W) until the resolve.  A compacted draw stops
+        the pass with a _Pending until the host picks its budget; resumed
+        with ``order`` and ``budget`` (0: full-screen), draw ``start``
+        shades with them."""
+        coverage_msaa, scale, rw, rh = self._extent()
+        compact_on = self._use_pallas() and compact.eligible(rh, rw)
+        for i in range(start, len(fv.draws)):
+            pipe = fv.draws[i].pipeline
+            var_tri, off, ntri, interp, invw, vis_i, uniforms = fv.per_draw[i]
             fragment = shader_lib.get(pipe.shader).fragment
             mask = (vis_i.tri_id >= off) & (vis_i.tri_id < off + ntri)
             local = torch.where(mask, vis_i.tri_id - off, -1)
             invw = invw if interp is not None and pipe.perspective_correct else None
-            tiles = None
             if compact_on and pipe.shade_compact is not None:
-                tiles = _compact_tiles(pipe.shade_compact, mask if coverage_msaa else mask[None], rh, rw)
-            if tiles is not None:
-                color = _shade_tiles(var_tri, interp, invw, vis_i, local, fragment, uniforms, pipe.blend, color,
-                                     tiles)
-                continue
+                if i != start or order is None:
+                    # Under MSAA a tile covered in any sample layer is shaded.
+                    tiles, count = compact.covered_tile_order(mask.any(dim=0) if coverage_msaa else mask, rh, rw)
+                    return _Pending(fv, i, color, tiles, count)
+                if budget:
+                    color = _shade_tiles(var_tri, interp, invw, vis_i, local, fragment, uniforms, pipe.blend, color,
+                                         order, budget)
+                    continue
             bary = torch.stack([vis_i.b0, vis_i.b1, vis_i.b2])
             frag = _fragment_inputs(var_tri, interp, invw, vis_i.depth, bary, local)
             rgba = fragment(frag, uniforms).movedim(-1, -3)  # ([4,] 4, rh, rw)
@@ -619,10 +890,202 @@ class Renderer:
         if coverage_msaa:
             color = color.mean(dim=0)  # coverage resolve: box-average the samples
         if scale == 2:  # supersample resolve: 2x2 box
+            h, w = self.config.height, self.config.width
             color = color.reshape(4, h, 2, w, 2).sum(dim=(2, 4)) * 0.25
-        if vis is None:  # a frame without draws is the cleared frame
-            clear_q = int(round(clear_depth * fp.DEPTH_ONE_Q))
-            depth_q = torch.full(fbs, clear_q, dtype=torch.int32, device=dev)
-            return color.contiguous(), depth_q, torch.full_like(depth_q, -1), None, overflowed
-        return color.contiguous(), vis.depth_q, vis.tri_id, vis.stencil, overflowed
+        if fv.vis is None:  # a frame without draws is the cleared frame
+            clear_q = int(round(fv.clear_depth * fp.DEPTH_ONE_Q))
+            fbs = (4, rh, rw) if coverage_msaa else (rh, rw)
+            depth_q = torch.full(fbs, clear_q, dtype=torch.int32, device=self.device)
+            return color.contiguous(), depth_q, torch.full_like(depth_q, -1), None, fv.overflowed
+        return color.contiguous(), fv.vis.depth_q, fv.vis.tri_id, fv.vis.stencil, fv.overflowed
 
+    # -- frame sequences -------------------------------------------------------
+
+    def render_sequence(
+        self,
+        pipeline: Pipeline,
+        mesh: Mesh,
+        uniforms_seq=None,
+        instances=None,
+        return_frames: bool = False,
+        num_frames: int | None = None,
+        static_uniforms=None,
+        uniforms_fn=None,
+        t0: float = 0.0,
+        dt: float = 1.0 / 60.0,
+    ):
+        """Render N frames of one draw (see render_sequence_multi).
+
+        Args:
+          uniforms_seq: a tree whose leaves are stacked per-frame arrays
+            with leading dimension N (e.g. {"model": (N, 4, 4), ...}).
+          uniforms_fn: instead of ``uniforms_seq``, ``fn(t) -> uniforms``
+            evaluated on the host at ``t = f32(t0) + f32(dt) * f32(i)`` for
+            frame i (the float32 arithmetic of the JAX package's in-scan
+            evaluation); all N frames are stacked and uploaded once.  Needs
+            ``num_frames``.  t0 and dt change no cache key.
+          static_uniforms: uniforms shared by every frame (textures).
+          return_frames: also return all colours (N, 4, H, W), planar.
+        Returns:
+          checksums (N,) f32, sum(color) per frame, or (checksums, colours).
+        """
+        return self.render_sequence_multi(
+            [
+                {
+                    "pipeline": pipeline,
+                    "mesh": mesh,
+                    "uniforms_seq": uniforms_seq,
+                    "uniforms_fn": uniforms_fn,
+                    "instances": instances,
+                    "static_uniforms": static_uniforms,
+                }
+            ],
+            num_frames=num_frames,
+            return_frames=return_frames,
+            t0=t0,
+            dt=dt,
+        )
+
+    def render_sequence_multi(
+        self,
+        seq_draws,
+        *,
+        num_frames: int | None = None,
+        return_frames: bool = False,
+        t0: float = 0.0,
+        dt: float = 1.0 / 60.0,
+    ):
+        """N frames of a recorded draw list: on CUDA a captured program
+        replayed once per frame, on the CPU the eager frame loop.
+
+        Args:
+          seq_draws: list of dicts with keys pipeline, mesh, uniforms_seq
+            (a tree of (N, ...) stacked per-frame arrays) or uniforms_fn
+            (see render_sequence), instances (optional), static_uniforms
+            (optional; shared across frames, e.g. textures).
+        Returns:
+          checksums (N,) f32, or (checksums, colours (N, 4, H, W)) if
+          return_frames.  ``last_sequence_overflowed`` holds the () bool
+          overflow of all N frames; in debug mode an overflow raises
+          AllocationError.
+        """
+        self.begin_frame()
+        specs = []  # (per-frame leaves, treedef, static uniforms) per draw
+        n = None
+        try:
+            for sd in seq_draws:
+                fn = sd.get("uniforms_fn")
+                static = sd.get("static_uniforms") or {}
+                if fn is not None:
+                    if sd.get("uniforms_seq"):
+                        raise FrameError("pass either uniforms_seq or uniforms_fn, not both")
+                    if num_frames is None:
+                        raise FrameError("render_sequence needs num_frames when uniforms are empty")
+                    times = [np.float32(t0) + np.float32(dt) * np.float32(i) for i in range(num_frames)]
+                    leaves, treedef = self._stack_frames([fn(t) for t in times])
+                else:
+                    if sd.get("uniforms_seq") is None:
+                        raise FrameError("each sequence draw needs uniforms_seq or uniforms_fn")
+                    leaves, treedef = _flatten(sd["uniforms_seq"])
+                    leaves = [x if isinstance(x, Texture) else self._uniform_leaf(x) for x in leaves]
+                for x in leaves:
+                    if not isinstance(x, Texture):
+                        if n is not None and x.shape[0] != n:
+                            raise FrameError(f"per-frame uniforms of {x.shape[0]} and {n} frames")
+                        n = x.shape[0]
+                u0 = _unflatten(treedef, [x if isinstance(x, Texture) else x[0] for x in leaves])
+                if isinstance(u0, dict):
+                    u0 = {**static, **u0}
+                self.draw(sd["pipeline"], sd["mesh"], u0, sd.get("instances"))
+                specs.append((leaves, treedef, static))
+        finally:
+            draws, self._draws, self._in_frame = self._draws, [], False
+        n = num_frames if n is None else n
+        if n is None:
+            raise FrameError("render_sequence needs num_frames when uniforms are empty")
+
+        # The caller's objects the program captures as they are: ids in the key.
+        keep = []
+        for d, (leaves, _, static) in zip(draws, specs):
+            if d.mesh.generator is None:
+                keep += [d.mesh.attributes[k] for k in sorted(d.mesh.attributes)]
+                keep += [] if d.mesh.indices is None else [d.mesh.indices]
+            keep += [d.instances[k] for k in sorted(d.instances or {})]
+            keep += _flatten(static)[0] + [x for x in leaves if isinstance(x, Texture)]
+        key = (
+            "seq",
+            self._cache_key(draws),
+            return_frames,
+            self._frame_clear,
+            tuple(id(x) for x in keep),
+            tuple(None if d.mesh.generator is None else id(d.mesh.generator) for d in draws),
+        )
+        program = self._sequences.get(key)
+        if program is None:
+            program = _SequenceProgram(self, draws, specs, keep + [d.mesh.generator for d in draws])
+        stacks = [x for leaves, _, _ in specs for x in leaves if not isinstance(x, Texture)]
+        sums, frames, overflowed = program.run(stacks, n, return_frames)
+        self._sequences[key] = program
+        self.last_sequence_overflowed = overflowed
+        if self.config.debug and bool(overflowed):
+            raise AllocationError(
+                "raster pair buffer overflow during render_sequence; raise Pipeline.raster_pairs_factor"
+            )
+        return (sums, frames) if return_frames else sums
+
+    def _stack_frames(self, trees):
+        """uniforms_fn's N per-frame trees -> (leaves, treedef): each leaf
+        stacked (N, ...) on the host and uploaded once; a Texture leaf must
+        be one object in every frame, and stays as it is."""
+        flat = [_flatten(t) for t in trees]
+        treedef = flat[0][1]
+        if any(d != treedef for _, d in flat):
+            raise FrameError("uniforms_fn returned trees of different structure")
+        leaves = []
+        for col in zip(*(f[0] for f in flat)):
+            if any(isinstance(x, Texture) for x in col):
+                if any(x is not col[0] for x in col):
+                    raise FrameError("a texture from uniforms_fn must be the same object in every frame")
+                leaves.append(col[0])
+                continue
+            host = [x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x)) for x in col]
+            leaves.append(self._uniform_leaf(torch.stack(host)))
+        return leaves, treedef
+
+    def _cache_key(self, draws):
+        """The JAX package's program key (renderer.py:381-404): the
+        configuration, and per draw its pipeline, the shapes and dtypes of
+        its attributes, indices and instance tables, its uniform tree and
+        the shapes of the uniform leaves (values for Python scalars)."""
+
+        def sig(x):
+            if isinstance(x, Texture):
+                x = x.data
+            if hasattr(x, "shape") and hasattr(x, "dtype"):
+                return (tuple(x.shape), str(x.dtype))
+            return repr(x)
+
+        parts = [self.config]
+        for d in draws:
+            u_leaves, u_tree = _flatten(d.uniforms)
+            parts.append(
+                (
+                    d.pipeline,
+                    tuple(sorted((k, sig(v)) for k, v in d.mesh.attributes.items())),
+                    None if d.mesh.indices is None else sig(d.mesh.indices),
+                    None if not d.instances else tuple(sorted((k, sig(v)) for k, v in d.instances.items())),
+                    u_tree,
+                    tuple(sig(x) for x in u_leaves),
+                )
+            )
+        return tuple(parts)
+
+    # -- introspection -----------------------------------------------------
+
+    @property
+    def num_cached_programs(self) -> int:
+        """The captured sequence programs this renderer holds (CPU: the
+        programs of its eager sequences).  The JAX package counts its
+        compiled frame programs here too; the port's frames run eagerly
+        and cache nothing."""
+        return len(self._sequences)

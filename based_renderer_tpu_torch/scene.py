@@ -22,10 +22,14 @@ class Mesh:
       "position" (N, 2|3|4).
     indices: (T, 3) int triangle list, or None for non-indexed
       (sequential triples).
+    generator: for a generated mesh (generated_mesh), the zero-argument
+      function that makes the same attributes with torch ops on the
+      device; None for an uploaded mesh.
     """
 
     attributes: dict
     indices: Optional[torch.Tensor]
+    generator: object = None
 
     @property
     def num_vertices(self) -> int:
@@ -75,6 +79,44 @@ def upload_mesh(positions, indices=None, device=None, **attrs) -> Mesh:
     if a["position"].shape[0] % 3 != 0:
         raise ValueError("non-indexed mesh needs a multiple-of-3 vertex count")
     return Mesh(attributes=a, indices=None)
+
+
+def _normalize_attributes(a: dict, device) -> dict:
+    """Generated attributes as (N, C) contiguous float32 tensors on ``device``."""
+    out = {}
+    for k, v in dict(a).items():
+        v = torch.as_tensor(v).to(device=device, dtype=torch.float32)
+        out[k] = (v[:, None] if v.ndim == 1 else v).contiguous()
+    return out
+
+
+def generated_mesh(generator, device=None) -> Mesh:
+    """Mesh whose vertex data is defined by code.
+
+    ``generator()`` returns a dict of (N, C) float32 corner-sequential
+    attributes, "position" among them, made with torch ops.  It runs once
+    here, to validate it and to give single frames their attributes, as in
+    the JAX package (scene.py:151-205).  A sequence
+    (Renderer.render_sequence_multi) runs it again once per call, before
+    its frames, into buffers that the sequence's captured program owns, so
+    the program's identity carries no attribute tensors.  Validation is
+    the JAX package's: "position" is required, every attribute has its row
+    count, and the vertex count is a multiple of 3.
+    """
+
+    def normalized_generator():
+        return _normalize_attributes(generator(), device)
+
+    a = normalized_generator()
+    if "position" not in a:
+        raise ValueError(f"generated mesh must contain 'position'; generator returned {sorted(a)}")
+    n = a["position"].shape[0]
+    for k, v in a.items():
+        if v.shape[0] != n:
+            raise ValueError(f"generated attribute {k!r} has {v.shape[0]} rows, expected {n}")
+    if n % 3 != 0:
+        raise ValueError("generated mesh needs a multiple-of-3 vertex count")
+    return Mesh(attributes=a, indices=None, generator=normalized_generator)
 
 
 @dataclass(frozen=True)

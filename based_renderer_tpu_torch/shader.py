@@ -23,6 +23,7 @@ from typing import Callable
 import torch
 
 from . import math3d
+from .ops import fixedpoint as fp
 from .ops import texture as tex_ops
 from .ops.vertex import apply_instance_transform
 from .scene import Texture
@@ -73,16 +74,14 @@ def _passthrough_vs(attrs, uniforms):
     if p.shape[-1] == 3:
         p = torch.cat([p, torch.ones((*lead, 1), dtype=p.dtype, device=p.device)], -1)
     elif p.shape[-1] == 2:
-        zw = torch.tensor([0.0, 1.0], dtype=p.dtype, device=p.device).expand(*lead, 2)
-        p = torch.cat([p, zw], -1)
+        p = torch.cat([p, p.new_zeros((*lead, 1)), p.new_ones((*lead, 1))], -1)
     return p, {}
 
 
 def _const_color_fs(frag, uniforms):
     color = uniforms.get("color", REFERENCE_COLOR) if isinstance(uniforms, dict) else REFERENCE_COLOR
     tri = frag["tri_id"]
-    rgba = torch.as_tensor(color, dtype=torch.float32, device=tri.device)
-    return rgba.expand(*tri.shape, 4)
+    return _as_f32(color, tri).expand(*tri.shape, 4)
 
 
 register(Shader("flat_ndc", _passthrough_vs, _const_color_fs))
@@ -223,9 +222,19 @@ def _blinn_phong_vs(attrs, uniforms):
     return clip, out
 
 
+def _as_f32(value, like) -> torch.Tensor:
+    """``value`` as float32 on ``like``'s device; a constant (a default)
+    is made there by fill kernels, with no host-to-device copy."""
+    if isinstance(value, torch.Tensor):
+        return value.to(device=like.device, dtype=torch.float32)
+    if isinstance(value, (int, float)):
+        return torch.full((), value, dtype=torch.float32, device=like.device)
+    return fp.consts(value, like.device)
+
+
 def _uniform(uniforms, key, default, like):
     """A float32 uniform on ``like``'s device, or its default."""
-    return torch.as_tensor(uniforms.get(key, default), dtype=torch.float32, device=like.device)
+    return _as_f32(uniforms.get(key, default), like)
 
 
 def _blinn_phong_fs(frag, uniforms):
@@ -260,8 +269,7 @@ register(Shader("blinn_phong", _blinn_phong_vs, _blinn_phong_fs, attributes=("no
 def _instanced_color_vs(attrs, uniforms):
     """Per-instance transform (BASELINE config 4) then shared view/proj."""
     world = apply_instance_transform(attrs)
-    vp = uniforms["proj"] @ uniforms["view"]
-    clip = world @ vp.T
+    clip = math3d.transform_points(uniforms["proj"] @ uniforms["view"], world)
     out = {}
     if "color" in attrs:
         out["color"] = attrs["color"]

@@ -17,15 +17,17 @@ result lines):
      exact, and the two-pass route (B6, mapped onto raster_tile.cu) on the
      same inputs equal to B1 and to the plain version;
   4. assemble_records (B3) vs its plain version on the 1M-triangle
-     big_mesh stream at 1920x1080 (16-row records) and on the 4K MSAA-4x
-     stream (24-row records): int records exact, float records bitwise;
-     then transpose_templates (B8) on big_mesh's field-major templates
+     big_mesh stream at 1920x1080 (16-row records), on the 4K MSAA-4x
+     stream (24-row records) and on the culled instanced stream (10k cubes
+     at 1920x1080 under instance_cull 0.9: per-triangle original ids,
+     which the records must carry): int records exact, float records
+     bitwise; then transpose_templates (B8) on big_mesh's field-major templates
      (K = 6: W8 48, out_width 64) and on the same triangles with 33
      channels (W8 136, out_width 192), bitwise against its plain version and
      against its library call (one copy_ into a zeroed buffer), and the
      rows entry of assemble_records.cu reading the transposed rows, on the
-     1080p and the 4K MSAA streams, bitwise against its plain version and
-     against the per-field entry;
+     1080p, the 4K MSAA and the culled streams, bitwise against its plain
+     version and against the per-field entry;
   5. raster_sublane (B2) vs its plain version and vs raster_tile on the
      B3-assembled 1M-triangle stream (group 64), the 10k-instance stream
      (group 32, depth_clip False), the stress tie stream under the four
@@ -71,10 +73,26 @@ result lines):
      compacted draw a frame), the textured full-screen quad at 1920x1080
      (B1 once a frame, the separable sampler on every frame) and the
      textured cube with msaa=4 (B4 once and one compacted draw a frame);
-     no frame overflows; one kernel-path frame of each run added since
-     PR 4 equals the plain-path frame (tri_id, depth_q and stencil exact,
-     colour within 1e-5); median ms/frame on the kernel path and on the
-     plain path.
+     the 10k instances with instance_cull 0.9 (B3 and B2 once a frame),
+     and at msaa=4 unculled and culled (B3 and B5 once a frame; the culled
+     draw with pair and slot budgets of 1.3 and 0.7 per triangle); no frame
+     overflows; one kernel-path frame of each of the last ten runs equals
+     the plain-path frame (tri_id, depth_q and stencil exact, colour within
+     1e-5); culled frames equal unculled ones the same way, and the worst
+     visible share of the timed culled frames is printed; median ms/frame
+     on the kernel path and on the plain path;
+  9. sequences: render_sequence_multi, each frame replaying captured CUDA
+     graphs, for the cube, the textured cube (compacted), the 10k
+     instances unculled and culled, big_mesh at 1080p (uploaded and
+     generated), big_mesh at 4K MSAA-4x and the three-draw render-state
+     frame, at the sizes of phase 8: 4 frames with return_frames equal to
+     eager render_frame (colour within 1e-5), checksums sum(color),
+     distinct frames, no overflow; the first call launches each kernel
+     twice a frame's count (the eager warm-up and the capture), and a
+     later call launches none eagerly while the profiler sees each
+     kernel's symbol once a frame per launch of the eager frame; ms/frame
+     as bench.py times it (20 frames less 4, best of 3 phase-shifted
+     calls) beside the eager event-timed ms/frame.
 Every kernel time is the median of 7 CUDA-event windows around the
 wrapper in this run, with the spread and the SM clock nvidia-smi read right
 after, and beside it the kernel's own device time (kernel-only: the same
@@ -83,7 +101,8 @@ its count), which leaves out the wrapper's host work.  Then one JSON line
 of per-kernel numbers (ms, kernel_ms, and each kernel's bound: the larger
 of its bytes over 3.35 TB/s, the winning records' float rows included for
 the rasters, and its integer operations over the card's int32 rate; B8's
-library call), the nvidia-smi name/power line, and last the device line.
+library call; B3's two entries report the culled instanced stream), the
+nvidia-smi name/power line, and last the device line.
 Imports nothing of JAX and nothing of the JAX package.
 """
 
@@ -91,6 +110,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -295,6 +315,7 @@ def main() -> int:
     from based_renderer_tpu_torch.ops import fixedpoint as fp
     from based_renderer_tpu_torch.ops.binning import bin_triangles
     from based_renderer_tpu_torch.ops.clip import clip_near
+    from based_renderer_tpu_torch.ops.cull import compact_instances, instance_visibility
     from based_renderer_tpu_torch.ops.setup import setup_triangles
     from based_renderer_tpu_torch.ops.vertex import expand_instances, gather_triangles
     from based_renderer_tpu_torch.reference import oracle
@@ -458,8 +479,11 @@ def main() -> int:
         )
         return (pipe, mesh, uniforms, inst), ts, budget
 
-    def b3_vs_plain(label, ts, width, height, kw, msaa4):
-        ps = binning.pair_stream(ts, width, height, 128, 8, kw["max_pairs"], 0, kw["channels"], True, kw["slots"])
+    def b3_vs_plain(label, ts, width, height, kw, msaa4, ids=0):
+        """B3's per-field entry against its plain version on the pair stream of
+        ``ts``; ``ids`` is the first triangle id or a (T,) int32 tensor of
+        per-triangle ids (a culled draw's original ids)."""
+        ps = binning.pair_stream(ts, width, height, 128, 8, kw["max_pairs"], ids, kw["channels"], True, kw["slots"])
         if bool(ps.overflowed):
             raise AssertionError(f"{label} pair stream overflowed")
         fw = binning.frecord_width(kw["channels"].shape[-1])
@@ -476,31 +500,71 @@ def main() -> int:
         t_p = timed(lambda: binassem.assemble_records_reference(*args))
         # Bytes: the slot inputs (t_slot, ox, oy), the per-triangle fields of
         # each triangle some slot names read once (culled and empty
-        # triangles own no slot and are never read), both record arrays
-        # written once; ~60 integer instructions per slot.
+        # triangles own no slot and are never read), its int32 id too when
+        # the ids are per triangle, both record arrays written once; ~60
+        # integer instructions per slot.
         n_slots = rec_k.shape[1]
         read_t = int(torch.unique(args[1]).numel())
-        per_tri = 4 * (3 + 3 + 3 + 3 + 2 + ps.tmpl.planes.shape[1]) + 8 * 3
+        per_tri = 4 * (3 + 3 + 3 + 3 + 2 + ps.tmpl.planes.shape[1]) + 8 * 3 + 4 * torch.is_tensor(ids)
         b = bound(n_slots * (24 + 4 * (rec_k.shape[0] + fw)) + read_t * per_tri, 60 * n_slots)
         return ps, rec_k, t_k, t_p, b
 
     big_r = brt.Renderer(brt.RendererConfig(W, H))
     big_demo, big_ts, big_kw = dense_setup(big_r, "big_mesh_demo", 0.2)
-    ps, rec_k, times["assemble_records"], times["assemble_records_plain"], bounds["assemble_records"] = b3_vs_plain(
-        "big_mesh 1080p", big_ts, W, H, big_kw, False
-    )
+    ps, rec_k, t_b3_big, t_b3_big_plain, b_b3_big = b3_vs_plain("big_mesh 1080p", big_ts, W, H, big_kw, False)
     big4m_r = brt.Renderer(brt.RendererConfig(W4K, H4K, msaa=4))
     big4m_demo, big4m_ts, big4m_kw = dense_setup(big4m_r, "big_mesh_demo", 0.2)
     ps4m, rec4m, t_b3m, t_b3m_plain, b_b3m = b3_vs_plain("big_mesh 4K MSAA", big4m_ts, W4K, H4K, big4m_kw, True)
     if rec4m.shape[0] != 24:
         raise AssertionError(f"MSAA records have {rec4m.shape[0]} rows")
+
+    def culled_setup(r, t, frac):
+        """The instanced demo's pass 1 under instance_cull ``frac``, as the
+        renderer runs it: the visible instances compacted into
+        ceil(frac * I) slots, then the stream of their triangles with each
+        one's original id.  Returns (setup, budgets, ids, visible count)."""
+        pipe, mesh, uniforms, inst = brt.demos.instanced_demo(r)
+        u = {k: v.to(dev) for k, v in uniforms(t).items()}
+        shd = brt.shader.get(pipe.shader)
+        num_inst = inst["transform"].shape[0]
+        visible = instance_visibility(shd, mesh, inst, u, r.config.width, r.config.height)
+        inst_c, orig_idx, of = compact_instances(inst, visible, max(math.ceil(num_inst * frac), 1))
+        if bool(of):
+            raise AssertionError(f"instance cull {frac} overflowed: {int(visible.sum())} of {num_inst} visible")
+        tpi = mesh.num_triangles
+        ids = (orig_idx[:, None] * tpi + torch.arange(tpi, dtype=torch.int32, device=dev)[None, :]).reshape(-1)
+        attrs, tri_idx = expand_instances(mesh, inst_c)
+        clip, var = shd.vertex(attrs, u)
+        clip_tri, var_tri = gather_triangles(clip, var, tri_idx)
+        ts = setup_triangles(clip_tri, r.config.width, r.config.height, cull_mode=pipe.cull_mode,
+                             front_face=pipe.front_face)
+        n = clip_tri.shape[0]
+        kw = dict(max_pairs=max(int(n * pipe.raster_pairs_factor), 1024),
+                  slots=max(int(n * pipe.raster_slots_factor), 1024),
+                  channels=torch.cat([var_tri[k] for k in sorted(var_tri)], dim=-1))
+        return ts, kw, ids, int(visible.sum())
+
+    # The JAX package measured instance_cull 0.85 (its demos.py:157-163).
+    # At 0.85 the binner overflows: its slot budget is 0.6 per triangle of
+    # the culled stream, 61,200 slots for 102,000 triangles, and a frame
+    # of the orbit has ~62,800 live pairs.  0.9 holds them.
+    CULL = 0.9
+    cull_ts, cull_kw, cull_ids, n_visible = culled_setup(brt.Renderer(brt.RendererConfig(W, H)), 0.3, CULL)
+    ps_c, rec_c, times["assemble_records"], times["assemble_records_plain"], bounds["assemble_records"] = b3_vs_plain(
+        "instanced culled 1080p", cull_ts, W, H, cull_kw, False, cull_ids
+    )
+    live = int(ps_c.total)
+    if not torch.equal(rec_c[13, :live], cull_ids[ps_c.t_slot[:live]]):
+        raise AssertionError("the culled records do not carry the original triangle ids")
     print(
         f"[assemble_records vs plain] big_mesh 1M tris 1920x1080: {rec_k.shape[1]} slots ({int(ps.total)} live), "
         f"K={big_kw['channels'].shape[-1]}: int records exact, float records bitwise | kernel "
-        f"{fmt(times['assemble_records'])} (bound {bounds['assemble_records'][0]:.4f} ms), "
-        f"plain {fmt(times['assemble_records_plain'])} | 3840x2160 MSAA-4x, "
+        f"{fmt(t_b3_big)} (bound {b_b3_big[0]:.4f} ms), plain {fmt(t_b3_big_plain)} | 3840x2160 MSAA-4x, "
         f"24-row records: {rec4m.shape[1]} slots ({int(ps4m.total)} live), exact and bitwise | kernel {fmt(t_b3m)} "
-        f"(bound {b_b3m[0]:.4f} ms), plain {fmt(t_b3m_plain)} | {card}",
+        f"(bound {b_b3m[0]:.4f} ms), plain {fmt(t_b3m_plain)} | instanced 10k at 1920x1080, instance_cull {CULL}: "
+        f"{n_visible} of 10000 instances visible, {cull_ids.shape[0]} triangles with per-triangle ids, "
+        f"{rec_c.shape[1]} slots ({int(ps_c.total)} live): exact and bitwise | kernel {fmt(times['assemble_records'])} "
+        f"(bound {bounds['assemble_records'][0]:.4f} ms), plain {fmt(times['assemble_records_plain'])} | {card}",
         flush=True,
     )
 
@@ -557,13 +621,19 @@ def main() -> int:
     del k33
     k_rows = big_kw["channels"].shape[-1]
     per_field = binassem.assemble_records(ps.tmpl, *binning.padded_slots(ps), ps.total, binning.frecord_width(k_rows))
-    times["assemble_records_rows"], times["assemble_records_rows_plain"], bounds["assemble_records_rows"] = \
-        rows_vs_plain("big_mesh 1080p", ps, fused, k_rows, False, per_field)
+    t_rows_big, t_rows_big_plain, b_rows_big = rows_vs_plain("big_mesh 1080p", ps, fused, k_rows, False, per_field)
     fused4m = binassem.transpose_templates(*binning.templates_field_major(ps4m.tmpl))
     per_field4m = binassem.assemble_records(ps4m.tmpl, *binning.padded_slots(ps4m), ps4m.total,
                                             binning.frecord_width(k_rows), True)
     t_rows4m, t_rows4m_plain, _ = rows_vs_plain("big_mesh 4K MSAA", ps4m, fused4m, k_rows, True, per_field4m)
-    del fused, fused4m, per_field, per_field4m
+    # The culled stream: the ids ride in the template row's tri_id column.
+    k_inst = cull_kw["channels"].shape[-1]
+    fused_c = binassem.transpose_templates(*binning.templates_field_major(ps_c.tmpl))
+    per_field_c = binassem.assemble_records(ps_c.tmpl, *binning.padded_slots(ps_c), ps_c.total,
+                                            binning.frecord_width(k_inst))
+    times["assemble_records_rows"], times["assemble_records_rows_plain"], bounds["assemble_records_rows"] = \
+        rows_vs_plain("instanced culled 1080p", ps_c, fused_c, k_inst, False, per_field_c)
+    del fused, fused4m, per_field, per_field4m, fused_c, per_field_c
     check.worst["transpose_templates"] = 0.0  # held bitwise above
     print(
         f"[transpose_templates vs plain, vs library] big_mesh 1M tris 1920x1080, (W8, T, out_width) {b8_shape}: "
@@ -574,12 +644,13 @@ def main() -> int:
         flush=True,
     )
     print(
-        f"[assemble_records_rows vs plain, vs per-field] big_mesh 1080p (16 rows) and 4K MSAA-4x (24 rows) "
-        f"from the transposed template rows: records bitwise equal to the plain version and to the per-field "
-        f"entry | 1080p kernel {fmt(times['assemble_records_rows'])} (bound "
-        f"{bounds['assemble_records_rows'][0]:.4f} ms), plain {fmt(times['assemble_records_rows_plain'])}, "
-        f"per-field entry {fmt(times['assemble_records'])} | 4K MSAA kernel {fmt(t_rows4m)}, plain "
-        f"{fmt(t_rows4m_plain)} | {card}",
+        f"[assemble_records_rows vs plain, vs per-field] big_mesh 1080p (16 rows), 4K MSAA-4x (24 rows) and the "
+        f"culled instanced stream (per-triangle ids) from the transposed template rows: records bitwise equal to "
+        f"the plain version and to the per-field entry | big_mesh 1080p kernel {fmt(t_rows_big)} (bound "
+        f"{b_rows_big[0]:.4f} ms), plain {fmt(t_rows_big_plain)}, per-field entry {fmt(t_b3_big)} | 4K MSAA "
+        f"kernel {fmt(t_rows4m)}, plain {fmt(t_rows4m_plain)} | instanced culled kernel "
+        f"{fmt(times['assemble_records_rows'])} (bound {bounds['assemble_records_rows'][0]:.4f} ms), plain "
+        f"{fmt(times['assemble_records_rows_plain'])}, per-field entry {fmt(times['assemble_records'])} | {card}",
         flush=True,
     )
 
@@ -1001,8 +1072,19 @@ def main() -> int:
     tex_r = brt.Renderer(brt.RendererConfig(W, H))
     tex_m_r = brt.Renderer(brt.RendererConfig(W, H, msaa=4))
     full_r = brt.Renderer(brt.RendererConfig(W, H))
+    inst_m_r = brt.Renderer(brt.RendererConfig(W, H, msaa=4))
+    inst_m_demo = brt.demos.instanced_demo(inst_m_r)
+
+    def culled(demo, **budgets):
+        return (dataclasses.replace(demo[0], instance_cull=CULL, **budgets), *demo[1:])
+
+    # Under MSAA the padded bboxes add pairs and extra tiles, and the
+    # culled stream has fewer triangles to budget them by.
+    msaa_budgets = dict(raster_pairs_factor=1.3, raster_slots_factor=0.7)
+
     # label, renderer, draws, kernel frames, plain frames, counts per frame (COUNTS order)
     dense = per_frame(raster_sublane=1, assemble_records=1)
+    dense_msaa = per_frame(assemble_records=1, raster_msaa4_sublane=1)
     runs = [
         ("big_mesh 1920x1080", big_r, [big_demo], 10, 2, dense),
         ("big_mesh 3840x2160", big4k_r, [brt.demos.big_mesh_demo(big4k_r)], 5, 1, dense),
@@ -1026,6 +1108,9 @@ def main() -> int:
          per_frame(raster_tile=1)),
         ("textured_cube 1920x1080 MSAA-4x", tex_m_r, [brt.demos.textured_cube_demo(tex_m_r)], 10, 2,
          per_frame(raster_msaa4=1, compacted_draws=1)),
+        ("instanced 1920x1080 culled", inst_r, [culled(inst_demo)], 10, 2, dense),
+        ("instanced 1920x1080 MSAA-4x", inst_m_r, [inst_m_demo], 5, 1, dense_msaa),
+        ("instanced 1920x1080 MSAA-4x culled", inst_m_r, [culled(inst_m_demo, **msaa_budgets)], 5, 1, dense_msaa),
     ]
     separable = [0]
     sample_separable = tex_ops.sample_separable
@@ -1054,7 +1139,26 @@ def main() -> int:
     # The cube's 12 triangles are 24 after the near clipper: the decal's
     # ids start after the cube's and the 120,000 instance triangles.
     frame_diffs = {label: kernel_vs_plain(label, r, draws, decal_from=24 + 120_000 if "render-state" in label else None)
-                   for label, r, draws, *_ in runs[-7:]}
+                   for label, r, draws, *_ in runs[-10:]}
+    # The culled draw equals the unculled one (B3 + B2, and B3 + B5 under
+    # MSAA), and the visible share of every timed frame stays in the budget.
+    cull_diffs, worst_share = {}, 0.0
+    for label, r, demo, budgets in (("1080p", inst_r, inst_demo, {}), ("1080p MSAA-4x", inst_m_r, inst_m_demo,
+                                                                         msaa_budgets)):
+        for i in (0, 7):
+            us = [demo[2](0.05 * i)]
+            got, want = render(r, [culled(demo, **budgets)], us), render(r, [demo], us)
+            if bool(got.overflowed) or bool(want.overflowed):
+                raise AssertionError(f"instanced {label} culled frame {i} overflowed")
+            d = frames_equal(f"instanced {label} culled vs unculled frame {i}", got, want)
+            if not d <= COLOR_TOL:
+                raise AssertionError(f"instanced {label} culled vs unculled frame {i}: colour differs by {d}")
+            cull_diffs[f"{label} t={0.05 * i:.2f}"] = d
+    shd = brt.shader.get(inst_demo[0].shader)
+    for i in range(10):
+        u = {k: v.to(dev) for k, v in inst_demo[2](0.05 * i).items()}
+        vis = instance_visibility(shd, inst_demo[1], inst_demo[3], u, W, H)
+        worst_share = max(worst_share, int(vis.sum()) / vis.shape[0])
     with plain_path():
         plain = {label: run_frames(label, r, draws, n, (0,) * len(KERNELS) + per[len(KERNELS):])[0]
                  for label, r, draws, _, n, per in runs}
@@ -1067,7 +1171,115 @@ def main() -> int:
         + f" | kernel vs plain frame, max colour diff (tol {COLOR_TOL}): "
         + ", ".join(f"{label} {d:.3g}" for label, d in frame_diffs.items())
         + f" | big_mesh tmpl vs default frame: tri_id, depth_q exact, colour diff {tmpl_diff:.3g}"
+        + f" | instance_cull {CULL} vs unculled frames: tri_id, depth_q exact, colour diff "
+        + ", ".join(f"{k} {d:.3g}" for k, d in cull_diffs.items())
+        + f"; worst visible share of the timed frames {worst_share:.4f}"
         + f" | launches {main_launches} | {card}",
+        flush=True,
+    )
+
+    # ---- 9. sequences: captured CUDA graphs, replayed once per frame -----
+    # symbol -> the COUNTS names whose launches run it
+    symbols = {B1: ("raster_tile", "raster_two_pass"), B2: ("raster_sublane", "raster_batched"),
+               B4: ("raster_msaa4",), B5: ("raster_msaa4_sublane",), "assemble_records_kernel": ("assemble_records",),
+               "assemble_records_rows_kernel": ("assemble_records_rows",),
+               "transpose_templates_kernel": ("transpose_templates",)}
+    nk = len(KERNELS)
+
+    def seq_inputs(draws, n, phase):
+        """render_sequence_multi's draws for n frames at t = phase + 0.05 i:
+        each draw's uniforms stacked on the device, its textures static."""
+        out = []
+        for pipe, mesh, uf, inst in draws:
+            frames = [uf(phase + 0.05 * i) for i in range(n)]
+            static = {k: v for k, v in frames[0].items() if isinstance(v, brt.Texture)}
+            useq = {k: torch.stack([torch.as_tensor(np.asarray(f[k])) for f in frames]).to(dev)
+                    for k in frames[0] if k not in static}
+            out.append({"pipeline": pipe, "mesh": mesh, "uniforms_seq": useq, "instances": inst,
+                        "static_uniforms": static})
+        return out
+
+    def replay_launches(r, draws, n):
+        """Kernel launches by symbol under torch.profiler during one call of
+        n frames that captures nothing (the program of sequence_run's first
+        call, return_frames and all, is cached)."""
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        inputs = seq_inputs(draws, n, 0.01)
+        reset_counts()
+        with torch.profiler.profile(activities=acts) as prof:
+            r.render_sequence_multi(inputs, return_frames=True)
+            torch.cuda.synchronize()
+        if counts()[:nk] != (0,) * nk:
+            raise AssertionError(f"a replay-only call launched kernels eagerly: {counts()}")
+        cuda = torch.autograd.DeviceType.CUDA
+        return {sym: sum(e.count for e in prof.key_averages() if e.device_type == cuda and sym in e.key)
+                for sym in symbols}
+
+    def time_sequence(r, draws, n, reps=3):
+        """bench.py's timing: best of ``reps`` phase-shifted calls of n frames,
+        host clock around the call and the checksums' fetch."""
+        r.render_sequence_multi(seq_inputs(draws, n, 0.5)).cpu()
+        best = float("inf")
+        for k in range(reps):
+            inputs = seq_inputs(draws, n, 1e-3 * (k + 1))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sums = r.render_sequence_multi(inputs)
+            s = sums.cpu()
+            best = min(best, time.perf_counter() - t0)
+        if bool(r.last_sequence_overflowed) or len(set(np.round(s.numpy(), 1))) <= min(5, n // 4):
+            raise AssertionError(f"timed sequence overflowed={bool(r.last_sequence_overflowed)} or frames not distinct")
+        return best
+
+    def sequence_run(label, r, draws, per):
+        """A sequence of 4 frames with return_frames against eager frames, the
+        launches at capture and at replay, and the differenced ms/frame."""
+        r._sequences.clear()
+        reset_counts()
+        sums, frames = r.render_sequence_multi(seq_inputs(draws, 4, 0.0), return_frames=True)
+        torch.cuda.synchronize()
+        # Capture time: one eager warm-up frame and one captured frame, and
+        # pass 1 (every kernel) lies in the first segment.
+        if counts()[:nk] != tuple(2 * x for x in per[:nk]):
+            raise AssertionError(f"{label} sequence: launches at capture {counts()}, expected twice {per}")
+        if bool(r.last_sequence_overflowed) or r.num_cached_programs != 1:
+            raise AssertionError(f"{label} sequence: overflowed or {r.num_cached_programs} programs")
+        worst = 0.0
+        for i in range(4):
+            f = render(r, draws, [d[2](0.05 * i) for d in draws])
+            worst = max(worst, float((frames[i] - f.color_planar).abs().max()))
+            if float(sums[i]) != float(frames[i].sum()):
+                raise AssertionError(f"{label} sequence: checksum {i} is not sum(color)")
+        if not worst <= COLOR_TOL or len(set(sums.tolist())) != 4:
+            raise AssertionError(f"{label} sequence: colour differs from eager by {worst}, or frames repeat")
+        got = replay_launches(r, draws, 4)
+        want = {sym: 4 * sum(per[COUNTS.index(c)] for c in names) for sym, names in symbols.items()}
+        if got != want:
+            raise AssertionError(f"{label} sequence replays launched {got}, expected {want}")
+        t4, t20 = time_sequence(r, draws, 4), time_sequence(r, draws, 20)
+        r._sequences.clear()
+        return worst, (t20 - t4) / 16 * 1e3, t4 * 1e3, t20 * 1e3
+
+    gen_demo = brt.demos.big_mesh_demo(big_r, generated=True)
+    eager_gen = run_frames("big_mesh 1920x1080 generated", big_r, [gen_demo], 5, dense)[0]
+    by_label = {label: (r, draws, per) for label, r, draws, _, _, per in runs}
+    seq_labels = ("cube 1920x1080", "textured_cube 1920x1080", "instanced 1920x1080", "instanced 1920x1080 culled",
+                  "big_mesh 1920x1080", "big_mesh 3840x2160 MSAA-4x", "render-state 1920x1080")
+    seq_results = {}
+    for label in seq_labels:
+        r, draws, per = by_label[label]
+        seq_results[label] = sequence_run(label, r, draws, per) + (results[label][0],)
+    seq_results["big_mesh 1920x1080 generated"] = sequence_run("big_mesh 1920x1080 generated", big_r, [gen_demo],
+                                                               dense) + (eager_gen,)
+    print(
+        "[sequences] render_sequence_multi replaying captured CUDA graphs (render-state: three draws), 4 frames "
+        f"with return_frames equal to eager render_frame (colour tol {COLOR_TOL}), checksums sum(color), frames "
+        "distinct, no overflow; launches at capture twice the eager frame's (warm-up + capture), at replay the "
+        "eager frame's per frame (profiler symbols); ms/frame differenced (20 - 4 frames, best of 3 phase-shifted "
+        "calls) / eager event-timed: "
+        + "; ".join(f"{label} {ms:.3f}/{eager:.3f} (4: {t4:.2f} ms, 20: {t20:.2f} ms, max colour diff {d:.3g})"
+                    for label, (d, ms, t4, t20, eager) in seq_results.items())
+        + f" | {card}",
         flush=True,
     )
 

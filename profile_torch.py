@@ -3,15 +3,21 @@
 Run from the root of a checkout, e.g.:
     python3 profile_torch.py big_mesh 3840 2160 --msaa 4
     python3 profile_torch.py cube 1920 1080 --msaa 4 --supersample --pairs 128
-    python3 profile_torch.py textured_cube 1920 1080
+    python3 profile_torch.py textured_cube 1920 1080 --sequence 20
 
 For ``--frames`` frames of ``Renderer.render_frame`` it prints:
   * ms/frame on the host clock with a synchronise around each frame (median);
+  * with ``--sequence N``: ``Renderer.render_sequence`` of N frames, each
+    replaying the captured CUDA graphs: ms/frame (best of 3 phase-shifted
+    calls, host clock around the call and a synchronise, over N), and
+    under torch.profiler one more call's device-kernel time per frame, its
+    busy share (that device time over the profiled call's wall time) and
+    launches per frame;
   * per-stage medians: each stage function of the frame (instancing, the
     vertex and fragment shaders, triangle gather, near clip, setup,
     binning with the record assembly inside it, the record assembly alone
     (either entry) and the template transpose, the raster kernel, the
-    texture taps inside the fragment shader, the covered-tile count and
+    texture taps inside the fragment shader, the covered-tile order and
     the compacted shading pass around the fragment shader) is wrapped with
     a synchronise before and after, so a stage's time includes its launch
     cost; "rest" is the frame less the outermost stages (uniform upload,
@@ -41,7 +47,7 @@ import torch
 import based_renderer_tpu_torch as brt
 from based_renderer_tpu_torch import renderer as renderer_mod
 from based_renderer_tpu_torch import shader as shader_lib
-from based_renderer_tpu_torch.ops import binassem, raster
+from based_renderer_tpu_torch.ops import binassem, compact, raster
 from based_renderer_tpu_torch.ops import texture as tex_ops
 
 
@@ -84,8 +90,8 @@ class StageTimer:
 def install(timer: StageTimer, shader_name: str):
     """Wrap the frame's stage functions where the frame looks them up."""
     for mod, names in (
-        (renderer_mod, ("expand_instances", "gather_triangles", "clip_near", "setup_triangles", "_compact_tiles",
-                        "_shade_tiles")),
+        (renderer_mod, ("expand_instances", "gather_triangles", "clip_near", "setup_triangles", "_shade_tiles")),
+        (compact, ("covered_tile_order",)),
         (raster, ("bin_triangles", "rasterize_binned")),
         (binassem, ("assemble_records", "assemble_records_rows", "transpose_templates")),
         (tex_ops, ("sample_texture", "sample_separable")),
@@ -98,6 +104,59 @@ def install(timer: StageTimer, shader_name: str):
     )
 
 
+def kernel_summary(prof, frames: int):
+    """(device-kernel ms per frame, launches per frame, the kernels by device time)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in prof.key_averages() if e.device_type == cuda]
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / frames
+    launches = sum(e.count for e in kernels) / frames
+    return dev_ms, launches, sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)
+
+
+def top5(kernels, frames: int) -> str:
+    return "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3 / frames:.3f} ms x{e.count // frames}"
+                     for e in kernels[:5])
+
+
+def profile_sequence(r, pipe, mesh, uniforms, inst, n: int, label: str, name: str):
+    """render_sequence of n frames: replay ms/frame and the busy share."""
+    static = {k: v for k, v in uniforms(0.0).items() if isinstance(v, brt.Texture)}
+
+    def useq(phase):
+        frames = [uniforms(phase + 0.05 * i) for i in range(n)]
+        return {k: torch.stack([torch.as_tensor(f[k]) for f in frames]).to(r.device) for k in frames[0]
+                if k not in static}
+
+    def call(u):
+        return r.render_sequence(pipe, mesh, u, instances=inst, static_uniforms=static)
+
+    call(useq(0.5))  # warm-up and capture
+    walls = []
+    for k in range(3):
+        u = useq(1e-3 * (k + 1))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call(u)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3 / n)
+    if bool(r.last_sequence_overflowed):
+        raise SystemExit(f"{label}: the sequence overflowed its pair budget")
+    u = useq(0.25)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        call(u)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    dev_ms, launches, kernels = kernel_summary(prof, n)
+    print(
+        f"[sequence] {label}: {n} frames replayed, {min(walls):.3f} ms/frame (best of 3 calls, sync'd) | profiled "
+        f"call {wall:.3f} ms/frame: device kernels {dev_ms:.3f} ms per frame, busy share {dev_ms / wall:.3f}, "
+        f"{launches:.0f} launches per frame | top: {top5(kernels, n)} | {name}",
+        flush=True,
+    )
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("demo", choices=sorted(brt.demos.DEMOS))
@@ -107,6 +166,7 @@ def main() -> int:
     ap.add_argument("--supersample", action="store_true")
     ap.add_argument("--pairs", type=float, default=None, help="override raster_pairs_factor")
     ap.add_argument("--frames", type=int, default=5)
+    ap.add_argument("--sequence", type=int, default=0, metavar="N", help="also replay render_sequence of N frames")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch: torch.cuda.is_available() is false; this needs a GPU")
@@ -133,6 +193,8 @@ def main() -> int:
         raise SystemExit(f"{label}: the frame overflowed its pair budget")
     frame_ms = statistics.median(walls)
     print(f"[frame] {label}: {frame_ms:.3f} ms/frame sync'd (median of {args.frames}) | {name}", flush=True)
+    if args.sequence:
+        profile_sequence(r, pipe, mesh, uniforms, inst, args.sequence, label, name)
 
     timer = StageTimer()
     install(timer, pipe.shader)
@@ -161,16 +223,10 @@ def main() -> int:
         for i in range(args.frames):
             r.render_frame(pipe, mesh, uniforms(0.05 * i), instances=inst)
         torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
-    kernels = [e for e in prof.key_averages() if e.device_type == cuda]
-    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / args.frames
-    launches = sum(e.count for e in kernels) / args.frames
-    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:5]
+    dev_ms, launches, kernels = kernel_summary(prof, args.frames)
     print(
         f"[profiler] {label}: device kernels {dev_ms:.3f} ms per frame, busy share {dev_ms / frame_ms:.3f} "
-        f"of the sync'd frame, {launches:.0f} launches per frame | top: "
-        + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3 / args.frames:.3f} ms x{e.count // args.frames}" for e in top)
-        + f" | {name}",
+        f"of the sync'd frame, {launches:.0f} launches per frame | top: {top5(kernels, args.frames)} | {name}",
         flush=True,
     )
     return 0

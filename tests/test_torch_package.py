@@ -15,7 +15,7 @@ import torch
 import based_renderer_tpu as jbrt
 import based_renderer_tpu_torch as tbrt
 from based_renderer_tpu.models import demos as jdemos
-from based_renderer_tpu_torch.utils.errors import DeviceError, FeatureNotPresentError, ShaderError
+from based_renderer_tpu_torch.utils.errors import DeviceError, ShaderError
 
 PORT = pathlib.Path(tbrt.__file__).resolve().parent
 
@@ -24,7 +24,7 @@ def test_import_pulls_in_no_jax():
     code = (
         "import sys, based_renderer_tpu_torch, based_renderer_tpu_torch.ops.raster, "
         "based_renderer_tpu_torch.ops._build, based_renderer_tpu_torch.convert, "
-        "based_renderer_tpu_torch.ops.texture, based_renderer_tpu_torch.ops.compact; "
+        "based_renderer_tpu_torch.ops.texture, based_renderer_tpu_torch.ops.compact, based_renderer_tpu_torch.ops.cull; "
         "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'based_renderer_tpu')))"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, check=True)
@@ -79,7 +79,6 @@ _OUT_OF_SLICE = [
     dict(raster_sublane=True, raster_two_pass=True),
     dict(raster_tmpl="pallas"),
 ]
-_STILL_OUT = ("instance_cull",)
 
 
 def _as_jax(value):
@@ -98,23 +97,19 @@ def _frame(r, pipe, mesh, u):
 
 @pytest.mark.parametrize("kw", _OUT_OF_SLICE)
 def test_out_of_slice_state_raises(kw):
-    """instance_cull still raises, naming its ROADMAP step.  Stencil,
-    blending, depth bias, raster_batch, raster_two_pass, shade_compact and
-    raster_tmpl='pallas' were outside the port's slice: they now draw, warn
-    about an ineligible kernel variant as the JAX package does, and the
+    """Stencil, blending, depth bias, shade_compact, instance_cull,
+    raster_batch, raster_two_pass and raster_tmpl='pallas' were outside
+    the port's slice: they now draw, warn about an ineligible kernel
+    variant as the JAX package does, and the
     cube frame equals the JAX package's (each package runs its own vertex
     matmul: tri_id and stencil on >= 99.9% of pixels, colour within 1e-4
     where tri_id agrees).  Both packages run the Pallas backend, whose
     rule the variant warnings follow.  At 64x32 neither package compacts
     (64 is not a multiple of 128), so shade_compact shades full-screen in
-    both."""
+    both.  The cube draw has no instance table, so instance_cull culls
+    nothing in either package (tests/test_torch_cull.py culls)."""
     r = tbrt.Renderer(tbrt.RendererConfig(64, 32, raster_backend="pallas"), device="cpu")
     pipe, mesh, u, _ = tbrt.demos.cube_demo(r)
-    if set(kw) & set(_STILL_OUT):
-        r.begin_frame()
-        with pytest.raises(FeatureNotPresentError, match="ROADMAP"):
-            r.draw(dataclasses.replace(pipe, **kw), mesh, u(0.0))
-        return
     tf, t_warn = _frame(r, dataclasses.replace(pipe, **kw), mesh, u(0.7))
     jr = jbrt.Renderer(jbrt.RendererConfig(64, 32, raster_backend="pallas"))
     jpipe, jmesh, ju, _ = jdemos.cube_demo(jr)
