@@ -14,7 +14,10 @@ with hand-written Hopper kernels on CUDA tensors (``csrc/raster_tile.cu``,
 ``csrc/raster_msaa4.cu``, ``csrc/raster_msaa4_sublane.cu``,
 ``csrc/transpose_templates.cu``) and their plain PyTorch versions on CPU
 tensors.  It imports torch and never jax; the JAX package stays the
-reference it is tested against.
+reference it is tested against.  As in the JAX package, the present
+path (``present``: Swapchain, FramePacer, render_loop), the native host
+runtime (``runtime``) and ``utils.profiling``/``utils.cache`` are
+imported by path; ``examples/render_demo_torch.py`` drives them.
 
 Quick start::
 
@@ -30,7 +33,7 @@ from . import convert, math3d, models, shader
 from .models import demos
 from .pipeline import BlendState, DepthState, Pipeline, StencilState
 from .renderer import FrameResult, Renderer, RendererConfig
-from .scene import Mesh, Texture, upload_mesh, upload_texture
+from .scene import Mesh, Texture, generated_mesh, upload_mesh, upload_texture
 from .shader import Shader, register
 from .utils import errors, image
 
@@ -55,6 +58,7 @@ __all__ = [
     "models",
     "register",
     "shader",
+    "generated_mesh",
     "upload_mesh",
     "upload_texture",
     "__version__",

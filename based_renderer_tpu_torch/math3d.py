@@ -18,11 +18,21 @@ def _t(x) -> torch.Tensor:
     return torch.as_tensor(x, dtype=F32)
 
 
+def identity() -> torch.Tensor:
+    return torch.eye(4, dtype=F32)
+
+
 def translate(v, m: torch.Tensor | None = None) -> torch.Tensor:
     """GLM ``translate``: post-multiplies ``m`` by a translation by ``v``."""
     t = torch.eye(4, dtype=F32)
     t[:3, 3] = _t(v)
     return t if m is None else _t(m) @ t
+
+
+def scale(v, m: torch.Tensor | None = None) -> torch.Tensor:
+    """GLM ``scale``: post-multiplies ``m`` by a scale by ``v``."""
+    s = torch.diag(torch.cat([_t(v), torch.ones((1,), dtype=F32)]))
+    return s if m is None else _t(m) @ s
 
 
 def rotate(angle, axis, m: torch.Tensor | None = None) -> torch.Tensor:
@@ -98,6 +108,13 @@ def transform_points(m: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     if pts.shape[-1] == 3:
         pts = torch.cat([pts, torch.ones((*pts.shape[:-1], 1), dtype=F32, device=pts.device)], -1)
     return combine_columns(m.to(device=pts.device, dtype=F32), pts)
+
+
+def transform_directions(m: torch.Tensor, dirs) -> torch.Tensor:
+    """Rotate direction vectors by the upper-3x3 of ``m`` (w = 0), in the
+    fixed order of :func:`combine_columns`."""
+    dirs = torch.as_tensor(dirs, dtype=F32)
+    return combine_columns(m[:3, :3].to(device=dirs.device, dtype=F32), dirs)
 
 
 def combine_columns(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

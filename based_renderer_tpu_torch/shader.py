@@ -11,12 +11,13 @@ it: the four sample layers of coverage MSAA, (4, H, W, C), and the tiles
 of compacted shading, (B, 8, 128, C).  Each batch entry is one image, so
 screen-space differences (texture LOD) stay within it.  The dense-mesh
 demos' ``blinn_phong`` and ``instanced_color`` and the textured shaders
-(BASELINE config 3) are here; shader modules loaded from files arrive
-with a later slice (ROADMAP A.14).
+(BASELINE config 3) are here, and ``load_file``/``load_module`` compile
+and register shader modules from Python source files at run time.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Callable
 
@@ -56,6 +57,101 @@ def get(name: str) -> Shader:
 
 def names() -> list[str]:
     return sorted(_REGISTRY)
+
+
+# ---------------------------------------------------------------------------
+# Shader modules on disk (the Slang-toolchain tier)
+# ---------------------------------------------------------------------------
+
+#: Directories searched by :func:`load_module`, the analog of the Slang
+#: session's ``src/`` search path.
+MODULE_SEARCH_PATH: list[str] = ["."]
+
+
+def load_file(path, name: str | None = None) -> Shader:
+    """Compile and register a shader module from a Python source file.
+
+    A new material is a new source file, with no rebuild.  The file is
+    exec'd with this module's vocabulary in scope (``Shader``,
+    ``register``, ``torch``, ``math3d``, ``tex_ops``, ``mvp_transform``;
+    normal ``import`` statements also work) and must define one of:
+
+      - ``SHADER``: a :class:`Shader` (registered under its own name, or
+        under ``name`` when given),
+      - exactly one module-level :class:`Shader` value, or
+      - ``vertex``/``fragment`` callables (plus optional ``ATTRIBUTES``),
+        bound as ``Shader(<name or file stem>, vertex, fragment, ATTRIBUTES)``.
+
+    An unreadable file, a syntax error, an exception while the file runs
+    and a file without entry points each raise :class:`ShaderError`
+    carrying the source path and the registered-module list.
+    """
+    src_path = os.fspath(path)
+    try:
+        with open(src_path) as f:
+            src = f.read()
+    except OSError as e:
+        raise ShaderError(f"cannot read shader module {src_path!r}: {e}; registered: {sorted(_REGISTRY)}") from None
+    module_name = name or os.path.splitext(os.path.basename(src_path))[0]
+    ns: dict = {
+        "Shader": Shader,
+        "register": register,
+        "torch": torch,
+        "math3d": math3d,
+        "tex_ops": tex_ops,
+        "mvp_transform": mvp_transform,
+        "__name__": f"based_renderer_tpu_torch.shader.modules.{module_name}",
+        "__file__": src_path,
+    }
+    try:
+        exec(compile(src, src_path, "exec"), ns)
+    except ShaderError:
+        raise
+    except SyntaxError as e:
+        raise ShaderError(f"shader module {src_path!r}: {e.__class__.__name__}: {e}; "
+                          f"registered: {sorted(_REGISTRY)}") from e
+    except Exception as e:
+        raise ShaderError(f"shader module {src_path!r} raised during load: {e.__class__.__name__}: {e}; "
+                          f"registered: {sorted(_REGISTRY)}") from e
+
+    shd = ns.get("SHADER")
+    if not isinstance(shd, Shader):
+        # Explicit vertex+fragment callables win over stray Shader values (a
+        # module may look up an existing shader while defining its own entry
+        # points); Shader values count once however many names alias them.
+        if callable(ns.get("vertex")) and callable(ns.get("fragment")):
+            shd = Shader(module_name, ns["vertex"], ns["fragment"], tuple(ns.get("ATTRIBUTES", ())))
+        else:
+            found: list[Shader] = []
+            for k, v in ns.items():
+                if isinstance(v, Shader) and k != "Shader" and all(v is not f for f in found):
+                    found.append(v)
+            if len(found) != 1:
+                raise ShaderError(
+                    f"shader module {src_path!r} defines no entry points: expected SHADER, vertex+fragment "
+                    f"callables, or a single Shader value (found {len(found)} distinct Shader values"
+                    f"{', a vertex callable' if callable(ns.get('vertex')) else ''}"
+                    f"{', a fragment callable' if callable(ns.get('fragment')) else ''}); "
+                    f"registered: {sorted(_REGISTRY)}"
+                )
+            shd = found[0]
+    if name is not None and shd.name != name:
+        shd = Shader(name, shd.vertex, shd.fragment, shd.attributes)
+    return register(shd)
+
+
+def load_module(name: str, search_paths=None) -> Shader:
+    """``loadModule("cube")``: find ``<name>.py`` on the search path and
+    :func:`load_file` it.  A registered name returns the registered shader
+    without touching the disk."""
+    if name in _REGISTRY:
+        return _REGISTRY[name]
+    paths = MODULE_SEARCH_PATH if search_paths is None else list(search_paths)
+    for d in paths:
+        candidate = os.path.join(d, f"{name}.py")
+        if os.path.exists(candidate):
+            return load_file(candidate, name=name)
+    raise ShaderError(f"no shader module {name!r} on search path {paths}; registered: {sorted(_REGISTRY)}")
 
 
 def mvp_transform(attrs, uniforms):

@@ -73,6 +73,35 @@ def write_png(path: str, img: np.ndarray, srgb: bool = False) -> None:
         f.write(png)
 
 
+def read_png(path) -> np.ndarray:
+    """Decode an 8-bit, non-interlaced grey, RGB or RGBA PNG whose
+    scanlines are all unfiltered (as ``write_png`` and the native
+    runtime's writer make them) with the stdlib's zlib: (H, W, C) uint8."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path}: not a PNG")
+    pos, idat, ihdr = 8, [], None
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if tag == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat.append(body)
+        elif tag == b"IEND":
+            break
+    w, h, depth, color_type, _, _, interlace = ihdr
+    channels = {0: 1, 2: 3, 6: 4}.get(color_type)
+    if depth != 8 or channels is None or interlace:
+        raise ValueError(f"{path}: unsupported PNG (bit depth {depth}, colour type {color_type}, interlace {interlace})")
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(h, 1 + w * channels)
+    if raw[:, 0].any():
+        raise ValueError(f"{path}: filtered scanlines (filter types {sorted(set(raw[:, 0].tolist()))})")
+    return raw[:, 1:].reshape(h, w, channels).copy()
+
+
 def write_ppm(path: str, img: np.ndarray, srgb: bool = False) -> None:
     arr = to_u8(np.asarray(img), srgb=srgb)[..., :3]
     h, w, _ = arr.shape

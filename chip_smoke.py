@@ -92,7 +92,22 @@ result lines):
      later call launches none eagerly while the profiler sees each
      kernel's symbol once a frame per launch of the eager frame; ms/frame
      as bench.py times it (20 frames less 4, best of 3 phase-shifted
-     calls) beside the eager event-timed ms/frame.
+     calls) beside the eager event-timed ms/frame;
+ 10. the demo driver: examples/render_demo_torch.py's main() in this
+     process (after the sequences, so no destructor lands in a capture),
+     through present.render_loop and the native runtime's PresentRing
+     (runtime/native/brt_runtime.cpp, built with g++; zlib.h checked
+     first): the cube at 1920x1080 for 60 frames with --out and --profile,
+     again with --out and without it, 10 frames under --srgb, and
+     big_mesh (1M triangles) for 20 frames with and without --out; the
+     PNG count and PresentRing.presented equal the frame count, the last
+     PNG (decoded with zlib) equals render_frame(t_last).color_u8() byte
+     for byte, B1 launched once a frame (cube), B3 and B2 once a frame
+     (big_mesh), every presented image lay in page-locked staging; then a
+     shader file (the cube's vertex-colour program as torch source,
+     shader.load_file) renders the 1080p cube through B1 bitwise equal
+     to the built-in shader's frame; fps over each loop and the
+     StageTimer report of the --profile run.
 Every kernel time is the median of 7 CUDA-event windows around the
 wrapper in this run, with the spread and the SM clock nvidia-smi read right
 after, and beside it the kernel's own device time (kernel-only: the same
@@ -112,6 +127,7 @@ import dataclasses
 import json
 import math
 import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
@@ -142,6 +158,19 @@ KERNELS = (
 COUNTS = (*KERNELS, "compacted_draws")
 # The CUDA kernels' symbols, for their device-only times under the profiler.
 B1, B2, B4, B5 = "raster_tile_kernel", "raster_sublane_kernel", "raster_msaa4_kernel", "raster_msaa4_sublane_kernel"
+
+
+# The cube's vertex-colour program as a shader file (shader.load_file).
+SHADER_FILE = """
+ATTRIBUTES = ("color",)
+
+def vertex(attrs, uniforms):
+    return mvp_transform(attrs, uniforms), {"color": attrs["color"]}
+
+def fragment(frag, uniforms):
+    rgb = frag["color"]
+    return torch.cat([rgb, torch.ones((*rgb.shape[:-1], 1), dtype=rgb.dtype, device=rgb.device)], -1)
+"""
 
 
 def per_frame(**n) -> tuple:
@@ -1282,6 +1311,88 @@ def main() -> int:
         + f" | {card}",
         flush=True,
     )
+
+    # ---- 10. the demo driver: examples/render_demo_torch.py, in this process --
+    from based_renderer_tpu_torch import runtime
+    from based_renderer_tpu_torch import shader as shader_lib
+    from based_renderer_tpu_torch.utils import image
+
+    zlib_h = subprocess.run(["g++", "-fsyntax-only", "-x", "c++", "-"], input="#include <zlib.h>\n",
+                            capture_output=True, text=True)
+    if zlib_h.returncode != 0:
+        raise AssertionError(f"zlib.h is missing, the native runtime's PNG writer cannot build: {zlib_h.stderr}")
+    t0 = time.perf_counter()
+    runtime.build()
+    rt_s = time.perf_counter() - t0
+    sys.path.insert(0, str(ROOT / "examples"))
+    import render_demo_torch as driver
+    demo_root = ROOT / "build" / "chip_demo"
+    shutil.rmtree(demo_root, ignore_errors=True)
+
+    def drive(label, demo, frames, per, out=None, srgb=False, profile=False):
+        """One run of the driver's main(); with ``out``, the PNGs written,
+        the ring's count, the launches and the last PNG against render_frame."""
+        argv = [demo, "--frames", str(frames), "--width", str(W), "--height", str(H)]
+        argv += (["--out", str(demo_root / out)] if out else []) + (["--srgb"] if srgb else [])
+        argv += ["--profile"] if profile else []
+        reset_counts()
+        res = driver.main(argv)
+        launched = counts()[:nk]
+        if res["presented"] != frames or not res["staging_pinned"]:
+            raise AssertionError(f"{label}: presented {res['presented']} of {frames}, or staging not page-locked")
+        if launched != tuple(frames * x for x in per[:nk]):
+            raise AssertionError(f"{label}: launches {launched}, expected {frames} x {per[:nk]}")
+        if out:
+            pngs = sorted((demo_root / out).iterdir())
+            if [p.name for p in pngs] != [f"frame_{i:06d}.png" for i in range(frames)]:
+                raise AssertionError(f"{label}: wrote {len(pngs)} PNGs for {frames} frames")
+            r = brt.Renderer(brt.RendererConfig(W, H, framebuffer_srgb=srgb))
+            pipe, mesh, uniforms, inst = brt.demos.DEMOS[demo](r)
+            want = r.render_frame(pipe, mesh, uniforms(res["t"]), instances=inst).color_u8()
+            if not np.array_equal(image.read_png(pngs[-1]), want):
+                raise AssertionError(f"{label}: the last PNG differs from render_frame's color_u8")
+        return res
+
+    cube_tile = per_frame(raster_tile=1)
+    demo_runs = {
+        "cube --out --profile": drive("cube --out --profile", "cube", 60, cube_tile, out="cube", profile=True),
+        "cube --out": drive("cube --out", "cube", 60, cube_tile, out="cube_again"),
+        "cube": drive("cube", "cube", 60, cube_tile),
+        "cube --out --srgb": drive("cube --out --srgb", "cube", 10, cube_tile, out="cube_srgb", srgb=True),
+        "big_mesh --out": drive("big_mesh --out", "big_mesh", 20, dense, out="big_mesh"),
+        "big_mesh": drive("big_mesh", "big_mesh", 20, dense),
+    }
+    # A shader file: the cube's vertex-colour program as torch source,
+    # loaded at run time, renders the cube through B1 bitwise as the
+    # built-in shader does.
+    shader_dir = demo_root / "shaders"
+    shader_dir.mkdir(parents=True)
+    (shader_dir / "disk_vertex_color.py").write_text(SHADER_FILE)
+    disk = shader_lib.load_file(shader_dir / "disk_vertex_color.py")
+    pipe, mesh, uniforms, _ = brt.demos.cube_demo(cube_r)
+    builtin = cube_r.render_frame(pipe, mesh, uniforms(0.7))
+    reset_counts()
+    loaded = cube_r.render_frame(dataclasses.replace(pipe, shader=disk.name), mesh, uniforms(0.7))
+    torch.cuda.synchronize()
+    if counts()[:nk] != cube_tile[:nk]:
+        raise AssertionError(f"file shader frame launches {counts()}, expected B1 once")
+    for k in ("tri_id", "depth_q", "color_planar"):
+        if not torch.equal(getattr(loaded, k), getattr(builtin, k)):
+            raise AssertionError(f"file shader frame: {k} differs from the built-in shader's")
+    print(
+        f"[demo-driver] examples/render_demo_torch.py main() in this process at {W}x{H} (native runtime "
+        f"{runtime.library_path().name}, g++ {rt_s:.2f} s, zlib.h present): PNG count = frames = "
+        "PresentRing.presented, last PNG (zlib-decoded) = render_frame(t_last).color_u8() byte for byte (linear and "
+        "sRGB), B1 x frames (cube) and B3 + B2 x frames (big_mesh), staging page-locked; fps over the whole loop "
+        "(pacer's last window): "
+        + "; ".join(f"{label} {res['frames']} frames {res['loop_fps']:.2f} ({res['fps']:.2f})"
+                    for label, res in demo_runs.items())
+        + f" | shader file {disk.name} at {W}x{H} through B1: tri_id, depth_q, colour bitwise = built-in | {card}",
+        flush=True,
+    )
+    print("[demo-driver stages] cube --out --profile, StageTimer: "
+          + " ; ".join(" ".join(line.split()) for line in demo_runs["cube --out --profile"]["report"].splitlines())
+          + f" | {card}", flush=True)
 
     sources = {
         "raster_tile": ("raster_tile.cu", "based_renderer_tpu/ops/raster_pallas.py:58"),

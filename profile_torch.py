@@ -35,7 +35,6 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import functools
 import statistics
 import subprocess
 import sys
@@ -49,6 +48,7 @@ from based_renderer_tpu_torch import renderer as renderer_mod
 from based_renderer_tpu_torch import shader as shader_lib
 from based_renderer_tpu_torch.ops import binassem, compact, raster
 from based_renderer_tpu_torch.ops import texture as tex_ops
+from based_renderer_tpu_torch.utils.profiling import StageTimer
 
 
 
@@ -60,35 +60,11 @@ def card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-class StageTimer:
-    """Synchronised host timers around wrapped functions, per frame."""
-
-    def __init__(self):
-        self.frame = defaultdict(float)
-        self.depth = 0
-        self.outer = 0.0
-
-    def wrap(self, name, fn):
-        @functools.wraps(fn)
-        def timed(*args, **kwargs):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            self.depth += 1
-            try:
-                return fn(*args, **kwargs)
-            finally:
-                self.depth -= 1
-                torch.cuda.synchronize()
-                dt = (time.perf_counter() - t0) * 1e3
-                self.frame[name] += dt
-                if self.depth == 0:
-                    self.outer += dt
-
-        return timed
-
-
 def install(timer: StageTimer, shader_name: str):
-    """Wrap the frame's stage functions where the frame looks them up."""
+    """Wrap the frame's stage functions where the frame looks them up, each
+    synchronised with the card before and after (a stage's time includes
+    its launch cost)."""
+    card_fence = torch.device("cuda")
     for mod, names in (
         (renderer_mod, ("expand_instances", "gather_triangles", "clip_near", "setup_triangles", "_shade_tiles")),
         (compact, ("covered_tile_order",)),
@@ -97,10 +73,11 @@ def install(timer: StageTimer, shader_name: str):
         (tex_ops, ("sample_texture", "sample_separable")),
     ):
         for n in names:
-            setattr(mod, n, timer.wrap(n, getattr(mod, n)))
+            setattr(mod, n, timer.wrap(n, getattr(mod, n), fence=card_fence))
     shd = shader_lib.get(shader_name)
     shader_lib.register(
-        dataclasses.replace(shd, vertex=timer.wrap("vertex", shd.vertex), fragment=timer.wrap("fragment", shd.fragment))
+        dataclasses.replace(shd, vertex=timer.wrap("vertex", shd.vertex, fence=card_fence),
+                            fragment=timer.wrap("fragment", shd.fragment, fence=card_fence))
     )
 
 
@@ -200,16 +177,15 @@ def main() -> int:
     install(timer, pipe.shader)
     per_stage, rest = defaultdict(list), []
     for i in range(args.frames):
-        timer.frame.clear()
-        timer.outer = 0.0
+        timer.reset()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         r.render_frame(pipe, mesh, uniforms(0.05 * i), instances=inst)
         torch.cuda.synchronize()
         total = (time.perf_counter() - t0) * 1e3
-        for k, v in timer.frame.items():
-            per_stage[k].append(v)
-        rest.append(total - timer.outer)
+        for k, v in timer.totals.items():
+            per_stage[k].append(v * 1e3)
+        rest.append(total - timer.outer * 1e3)
     stages = sorted(((statistics.median(v), k) for k, v in per_stage.items()), reverse=True)
     print(
         f"[stages] {label}, ms (median of {args.frames}, each sync'd): "
