@@ -188,6 +188,7 @@ def pair_stream(
     slots: int | None = None,
     col_major_ids: bool = False,
     anchor_rows: int | None = None,
+    origin: tuple[int, int] = (0, 0),
 ) -> PairStream:
     """Expand, sort and cut the (tile, triangle) pairs; see bin_triangles.
 
@@ -203,11 +204,14 @@ def pair_stream(
         max_pairs = max(4 * num_tris, 1024)
 
     # ---- pair expansion (first-tile / extras split) ----------------------
+    # Bboxes are global: clip them to this window, so tile indices are
+    # local to its grid.
+    org_x, org_y = (int(v) for v in origin)
     bbox = ts.bbox.to(i64)
-    bx0 = bbox[:, 0].clamp_min(0)
-    by0 = bbox[:, 1].clamp_min(0)
-    bx1 = bbox[:, 2].clamp_max(width)
-    by1 = bbox[:, 3].clamp_max(height)
+    bx0 = (bbox[:, 0] - org_x).clamp_min(0)
+    by0 = (bbox[:, 1] - org_y).clamp_min(0)
+    bx1 = (bbox[:, 2] - org_x).clamp_max(width)
+    by1 = (bbox[:, 3] - org_y).clamp_max(height)
     nonempty = (bx1 > bx0) & (by1 > by0)
     x0 = torch.div(bx0, tile_w, rounding_mode="floor")
     y0 = torch.div(by0, tile_h, rounding_mode="floor")
@@ -273,15 +277,15 @@ def pair_stream(
     else:
         s_tile_x = torch.remainder(slot_tile, num_tx)
         s_tile_y = torch.div(slot_tile, num_tx, rounding_mode="floor")
-    ox = s_tile_x * tile_w  # tile-origin pixel
+    ox = s_tile_x * tile_w + org_x  # tile-origin pixel, global
     if anchor_rows is not None:
         # Anchor at the OUTPUT tile holding this band, so band-binned record
         # contents (f32 planes included) equal the unbanded stream's.
         if anchor_rows % tile_h:
             raise ValueError(f"anchor_rows {anchor_rows} must be a multiple of tile_h {tile_h}")
-        oy = torch.div(s_tile_y, anchor_rows // tile_h, rounding_mode="floor") * anchor_rows
+        oy = torch.div(s_tile_y, anchor_rows // tile_h, rounding_mode="floor") * anchor_rows + org_y
     else:
-        oy = s_tile_y * tile_h
+        oy = s_tile_y * tile_h + org_y
 
     return PairStream(
         tmpl=_templates(ts, id_offset, channels, perspective),
@@ -320,6 +324,7 @@ def bin_triangles(
     col_major_ids: bool = False,
     anchor_rows: int | None = None,
     msaa4: bool = False,
+    origin: tuple[int, int] = (0, 0),
 ) -> BinnedTriangles:
     """Bin triangles into screen tiles (tile dims must divide 128).
 
@@ -340,6 +345,13 @@ def bin_triangles(
     ``tmpl="pallas"`` builds the templates field-major, transposes them to
     one row per triangle (binassem.transpose_templates) and assembles from
     those rows; the records are the same bit for bit.
+    ``origin`` is the global pixel of this framebuffer's top-left corner:
+    (0, 0) on one device, a window's corner under parallel.TiledRenderer.
+    ``width`` and ``height`` are then the window's extent, bboxes are
+    clipped to it, and every record is anchored at its tile's global
+    origin, so a window's records equal the whole frame's for the same
+    tiles.  The depth-anchor proofs need the origin to be a multiple of
+    the tile dims (JAX binning.py:232-241).
     """
     _check_modes(assemble, tmpl)
     for d in (tile_w, tile_h):
@@ -366,7 +378,7 @@ def bin_triangles(
 
     ps = pair_stream(
         ts, width, height, tile_w, tile_h, max_pairs, id_offset, channels, perspective,
-        slots, col_major_ids, anchor_rows,
+        slots, col_major_ids, anchor_rows, origin,
     )
     kernel_assembly = assemble == "pallas" and pallas_assembly_fits(nch)
     if tmpl == "pallas":

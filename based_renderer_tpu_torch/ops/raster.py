@@ -821,6 +821,7 @@ def rasterize_vis(
     assemble: str = "xla",
     bin_rows: int | None = None,
     tmpl: str = "xla",
+    origin: tuple[int, int] = (0, 0),
 ):
     """Bin and rasterize: the counterpart of rasterize_vis_pallas.
 
@@ -838,6 +839,10 @@ def rasterize_vis(
     the draw's first triangle id, or a (T,) int32 tensor of per-triangle
     ids (a culled instanced draw's original ids): the binner writes them
     into the records, so every route's tri_id plane carries them.
+    ``origin`` is the global pixel of the framebuffer's top-left corner
+    (bin_triangles): ``width`` and ``height`` are then a window's extent,
+    every route reads records anchored at global tile origins, and
+    ``scissor`` is in the window's pixels.
     """
     _check_modes(sublane, sublane_group, bin_rows, tile_w, tile_h, depth_test, depth_write,
                  depth_compare, stencil, two_pass, batch, msaa4)
@@ -851,6 +856,7 @@ def rasterize_vis(
         assemble=assemble,
         tmpl=tmpl,
         msaa4=msaa4,
+        origin=origin,
     )
     if bin_rows is None:
         binned = bin_triangles(ts, width, height, tile_w, tile_h, **bin_kw)

@@ -69,12 +69,12 @@ from .ops import compact
 from .ops import fixedpoint as fp
 from .ops.clip import clip_near
 from .ops.cull import compact_instances, instance_visibility
-from .ops.raster import rasterize_vis
+from .ops.raster import VisBuffer, rasterize_vis
 from .ops.setup import setup_triangles
 from .ops.vertex import expand_instances, gather_triangles
 from .pipeline import Pipeline
 from .scene import Mesh, Texture, generated_mesh, upload_mesh, upload_texture
-from .utils.errors import AllocationError, DeviceError, DrawError, FrameError
+from .utils.errors import AllocationError, DeviceError, DrawError, FeatureNotPresentError, FrameError
 
 
 @dataclass(frozen=True)
@@ -303,11 +303,12 @@ def _shade_tiles(var_tri, interp, invw, vis, tri_id, fragment, uniforms, blend_s
     return compact.untile_rows(rows, s * 4, h, w).reshape(color.shape)
 
 
-def _reduction_ineligible_reason(pipe: Pipeline, coverage_msaa: bool, need_tile128: bool):
+def _reduction_ineligible_reason(pipe: Pipeline, coverage_msaa: bool, need_tile128: bool, tile_w: int):
     """Why an order-independent raster cannot serve this draw, or None: the
     JAX package's _reduction_ineligible_reason (renderer.py:496-516).  The
     sublane raster (``need_tile128``) has an MSAA form; the batched one
-    does not."""
+    does not.  ``tile_w`` is the tile width the draw rasterizes at (a
+    shard may cut it)."""
     if not (pipe.depth.test and pipe.depth.write):
         return "depth test+write disabled"
     if pipe.depth.compare not in ("less", "less_equal", "greater", "greater_equal"):
@@ -318,9 +319,42 @@ def _reduction_ineligible_reason(pipe: Pipeline, coverage_msaa: bool, need_tile1
         return "coverage-sample MSAA"
     if pipe.raster_two_pass:
         return "two-pass rasterization requested"
-    if need_tile128 and pipe.raster_tile[0] != 128:
-        return f"tile_w {pipe.raster_tile[0]} != 128"
+    if need_tile128 and tile_w != 128:
+        return f"tile_w {tile_w} != 128"
     return None
+
+
+def shard_tile(tile, extent) -> tuple:
+    """The raster tile a shard of ``extent`` (raster pixels) draws with:
+    each tile dim cut to its gcd with the extent, so the shard's tile
+    origins stay on the frame's tile grid, which the canonical depth
+    anchor needs (JAX renderer.py:519-531; every tile dim divides 128)."""
+    tw, th = math.gcd(tile[0], extent[0]), math.gcd(tile[1], extent[1])
+    if tw < 8 or th < 8:
+        raise ValueError(f"shard extent {extent[0]}x{extent[1]} incompatible with raster tiling (needs multiples of 8)")
+    return tw, th
+
+
+def _scissor_window(vis: VisBuffer, prev: Optional[VisBuffer], rect, x0: int, y0: int, clear_q: int,
+                    clear_stencil: int) -> VisBuffer:
+    """A shard's scissor, applied after the raster (JAX renderer.py:697-712):
+    ``vis`` inside ``rect`` (global raster pixels), ``prev`` (the state
+    before the draw; None: the cleared buffer) outside it.  The window's
+    top-left pixel is (x0, y0).  Equal to the kernels' own scissor, which
+    suppresses every update outside the rect."""
+    h, w = vis.tri_id.shape[-2:]
+    dev = vis.tri_id.device
+    sx0, sy0, sx1, sy1 = rect
+    gx = torch.arange(x0, x0 + w, device=dev)
+    gy = torch.arange(y0, y0 + h, device=dev)
+    m = ((gy >= sy0) & (gy < sy1))[:, None] & ((gx >= sx0) & (gx < sx1))[None, :]
+    if prev is None:
+        prev = VisBuffer(tri_id=-1, depth_q=clear_q, b0=0.0, b1=0.0, b2=0.0)
+    stencil = vis.stencil
+    if stencil is not None:
+        stencil = torch.where(m, stencil, clear_stencil & 0xFF if prev.stencil is None else prev.stencil)
+    return VisBuffer(*(torch.where(m, getattr(vis, k), getattr(prev, k)) for k in VisBuffer._fields[:5]),
+                     stencil=stencil)
 
 
 def _flatten(tree):
@@ -353,6 +387,22 @@ def _unflatten(treedef, leaves):
     return build(treedef)
 
 
+class Shard(NamedTuple):
+    """The window of the frame one rank of parallel.TiledRenderer renders:
+    the JAX package's shard dict (renderer.py:460-466).
+
+    ``origin`` is the window's top-left pixel in the frame and ``extent``
+    its (width, height), both in framebuffer pixels (a supersampled frame
+    scales them).  ``geometry`` is None, or (ng, g_index, merge): each
+    draw's triangle stream is cut into ng slices, this rank rasterizes
+    slice ``g_index``, and ``merge(vis, interp, invw, depth_state)``
+    depth-composites the slices' winners after each draw."""
+
+    origin: tuple
+    extent: tuple
+    geometry: Optional[tuple] = None
+
+
 class _Visibility(NamedTuple):
     """Pass 1's result: every draw's visibility snapshot and planes."""
 
@@ -361,6 +411,7 @@ class _Visibility(NamedTuple):
     vis: Any  # the last draw's VisBuffer, None without draws
     overflowed: torch.Tensor  # () bool
     clear_depth: float
+    shard: Optional[Shard] = None
 
 
 class _Pending(NamedTuple):
@@ -431,8 +482,9 @@ class _SequenceProgram:
     are taken as they are: the key carries their ids, and the program
     keeps the caller's objects alive so the ids stay unique."""
 
-    def __init__(self, r: "Renderer", draws, specs, keep):
+    def __init__(self, r: "Renderer", draws, specs, keep, shard: Optional[Shard] = None):
         self.r = r
+        self.shard = shard
         self.keep = keep  # the caller's objects whose ids are in the key
         self.inputs = []  # one buffer per per-frame uniform leaf, in flattening order
         self.generated = []  # (attribute buffers, generator) per generated mesh
@@ -458,9 +510,11 @@ class _SequenceProgram:
         self.clear = r._frame_clear
         self.capture = None
         self.warm = False
-        if r.device.type == "cuda":
+        # A geometry axis merges over a process group inside the frame,
+        # which no CUDA graph can capture: that frame runs eagerly.
+        if r.device.type == "cuda" and (shard is None or shard.geometry is None):
             self.capture = _Capture(torch.cuda.graph_pool_handle(), torch.cuda.Stream(r.device))
-        self.root = _Segment(lambda _: r._frame_begin(self.draws, *self.clear))
+        self.root = _Segment(lambda _: r._frame_begin(self.draws, *self.clear, shard))
 
     def frame(self):
         """One frame from the current input buffers: its result tuple."""
@@ -470,7 +524,7 @@ class _SequenceProgram:
             cur = torch.cuda.current_stream(self.r.device)
             self.capture.stream.wait_stream(cur)
             with torch.cuda.stream(self.capture.stream):
-                self.r._run_frame(self.draws, *self.clear)
+                self.r._run_frame(self.draws, *self.clear, self.shard)
             cur.wait_stream(self.capture.stream)
             self.warm = True
         node = self.root
@@ -485,14 +539,16 @@ class _SequenceProgram:
         return state
 
     def run(self, stacks, n: int, return_frames: bool):
-        """N frames: (checksums (N,), colours (N, 4, H, W) or None, overflowed ())."""
+        """N frames: (checksums (N,), colours (N, 4, H, W) or None, overflowed ()),
+        H and W the shard's extent when there is one."""
         dev = self.r.device
         for bufs, gen in self.generated:
             for k, v in gen().items():
                 bufs[k].copy_(v)
         cfg = self.r.config
+        w, h = (cfg.width, cfg.height) if self.shard is None else self.shard.extent
         sums = torch.empty((n,), dtype=torch.float32, device=dev)
-        frames = torch.empty((n, 4, cfg.height, cfg.width), dtype=torch.float32, device=dev) if return_frames else None
+        frames = torch.empty((n, 4, h, w), dtype=torch.float32, device=dev) if return_frames else None
         overflowed = torch.zeros((), dtype=torch.bool, device=dev)
         for i in range(n):
             for buf, stack in zip(self.inputs, stacks):
@@ -625,12 +681,17 @@ class Renderer:
             raise DrawError(msg)
         warnings.warn(msg, RuntimeWarning, stacklevel=4)
 
-    def end_frame(self) -> FrameResult:
+    def close_frame(self):
+        """Close the open frame without rendering it: (its recorded draws,
+        clear colour, clear depth), the frame function's arguments."""
         if not self._in_frame:
             raise FrameError("end_frame without begin_frame")
         self._in_frame = False
         draws, self._draws = self._draws, []
-        color, depth_q, tri_id, stencil, overflowed = self._run_frame(draws, *self._frame_clear)
+        return (draws, *self._frame_clear)
+
+    def end_frame(self) -> FrameResult:
+        color, depth_q, tri_id, stencil, overflowed = self._run_frame(*self.close_frame())
         if self.config.debug:
             if bool(overflowed):
                 raise AllocationError(
@@ -692,21 +753,30 @@ class Renderer:
         scale = 2 if (cfg.msaa == 4 and cfg.msaa_supersample) else 1
         return coverage_msaa, scale, cfg.width * scale, cfg.height * scale
 
-    def _run_frame(self, draws, clear_color, clear_depth: float):
+    def _window(self, shard: Optional[Shard]):
+        """(x0, y0, w, h): the part of the raster extent a frame renders, in
+        raster pixels: all of it, or the shard's window."""
+        _, scale, rw, rh = self._extent()
+        if shard is None:
+            return 0, 0, rw, rh
+        return (shard.origin[0] * scale, shard.origin[1] * scale, shard.extent[0] * scale, shard.extent[1] * scale)
+
+    def _run_frame(self, draws, clear_color, clear_depth: float, shard: Optional[Shard] = None):
         """The whole frame eagerly: the result tuple (color, depth_q,
-        tri_id, stencil, overflowed)."""
-        state = self._frame_begin(draws, clear_color, clear_depth)
+        tri_id, stencil, overflowed), over the shard's window if given."""
+        state = self._frame_begin(draws, clear_color, clear_depth, shard)
         while isinstance(state, _Pending):
             state = self._frame_resume(state, self._tile_budget(state))
         return state
 
-    def _frame_begin(self, draws, clear_color, clear_depth: float):
+    def _frame_begin(self, draws, clear_color, clear_depth: float, shard: Optional[Shard] = None):
         """Pass 1, then pass 2 up to the first compacted draw's tile count
         (a _Pending) or to the end (the result tuple)."""
-        fv = self._visibility(draws, clear_depth)
-        coverage_msaa, _, rw, rh = self._extent()
+        fv = self._visibility(draws, clear_depth, shard)
+        coverage_msaa = self._extent()[0]
+        _, _, w, h = self._window(shard)
         clear = fp.consts(clear_color, self.device).reshape(4, 1, 1)
-        color = clear.expand(*((4,) if coverage_msaa else ()), 4, rh, rw)
+        color = clear.expand(*((4,) if coverage_msaa else ()), 4, h, w)
         return self._shade_from(fv, 0, color)
 
     def _frame_resume(self, pending: _Pending, budget: int):
@@ -720,21 +790,38 @@ class Renderer:
         the count gives the same pixels, and the JAX package picks the
         smallest.  Reading the count is a compacted draw's one host
         synchronisation."""
-        _, _, rw, rh = self._extent()
+        _, _, w, h = self._window(pending.vis.shard)
         count = int(pending.count)
-        fits = [b for b in _tile_budgets(pending.vis.draws[pending.draw].pipeline.shade_compact, rh, rw) if count <= b]
+        fits = [b for b in _tile_budgets(pending.vis.draws[pending.draw].pipeline.shade_compact, h, w) if count <= b]
         return fits[0] if fits else 0
 
-    def _visibility(self, draws, clear_depth: float) -> _Visibility:
-        """Pass 1: every draw rasterized into the shared visibility buffer."""
+    def _visibility(self, draws, clear_depth: float, shard: Optional[Shard] = None) -> _Visibility:
+        """Pass 1: every draw rasterized into the shared visibility buffer.
+
+        With a ``shard`` the draws rasterize over its window (JAX
+        renderer.py:519-531, 634-666, 697-712, 806-812): setup stays in
+        global viewport coordinates and the records are anchored at global
+        tile origins; each tile dimension is cut to its gcd with the window,
+        so the window's tiles lie on the frame's tile grid; a scissor is
+        applied after the raster, in global pixels; on a geometry axis each
+        draw rasterizes its slice of the triangle stream, with global ids,
+        and the slices' winners are merged before the draw's snapshot."""
         cfg = self.config
         coverage_msaa, scale, rw, rh = self._extent()
+        x0, y0, ew, eh = self._window(shard)
+        geometry = None if shard is None else shard.geometry
+        clear_q = int(round(clear_depth * fp.DEPTH_ONE_Q))
         dev = self.device
         vis = None
         per_draw = []
         offset = 0
         overflowed = torch.zeros((), dtype=torch.bool, device=dev)
         use_pallas = self._use_pallas()
+        if geometry is not None and not use_pallas:
+            raise FeatureNotPresentError(
+                "geometry-axis parallelism requires the Pallas backend (plane-interpolated varyings make "
+                "the depth-composited winner shadeable on every shard)"
+            )
         # Off the Pallas backend a draw asking for a kernel variant takes
         # the sequential raster without a signal, as in the JAX package;
         # the variants equal it bit for bit.
@@ -742,14 +829,15 @@ class Renderer:
             pipe = d.pipeline
             shd = shader_lib.get(pipe.shader)
             uniforms = self._uniforms(d.uniforms)
+            tile_w, tile_h = pipe.raster_tile if shard is None else shard_tile(pipe.raster_tile, (ew, eh))
             sublane = batch = False
             if use_pallas and pipe.raster_sublane:
-                why = _reduction_ineligible_reason(pipe, coverage_msaa, True)
+                why = _reduction_ineligible_reason(pipe, coverage_msaa, True, tile_w)
                 sublane = why is None
                 if not sublane:
                     self._signal_fallback(pipe, "raster_sublane", why)
             if use_pallas and pipe.raster_batch and not pipe.raster_sublane:
-                why = _reduction_ineligible_reason(pipe, coverage_msaa, False)
+                why = _reduction_ineligible_reason(pipe, coverage_msaa, False, tile_w)
                 batch = why is None
                 if not batch:
                     self._signal_fallback(pipe, "raster_batch", why)
@@ -785,7 +873,29 @@ class Renderer:
             if pipe.near_clip:
                 clip_tri, var_tri = clip_near(clip_tri, var_tri)
             num_t = clip_tri.shape[0]
+            num_ids = num_t if num_logical is None else num_logical
+            id_offset = offset if tri_ids is None else tri_ids + offset
+            if geometry is not None:
+                # This rank's slice of the stream, zero-padded to ng equal
+                # slices (zero rows are degenerate: setup drops them), with
+                # the ids the whole stream gives it.
+                ng, g_index, _ = geometry
+                per = -(-num_t // ng)
+                lo, pad = g_index * per, per * ng - num_t
+
+                def cut(x):
+                    return torch.nn.functional.pad(x, (0, 0) * (x.dim() - 1) + (0, pad))[lo : lo + per]
+
+                clip_tri = cut(clip_tri)
+                var_tri = {k: cut(v) for k, v in var_tri.items()}
+                id_offset = offset + lo if tri_ids is None else cut(tri_ids) + offset
+                if num_logical is None:
+                    num_ids = per * ng
+                num_t = per
             scissor = self._scaled_scissor(pipe, scale)
+            # A shard rasterizes unscissored and applies the scissor after.
+            window_scissor = scissor if shard is not None else None
+            prev = vis
             prev_stencil = None if vis is None else vis.stencil
             ts = setup_triangles(
                 clip_tri,
@@ -803,11 +913,10 @@ class Renderer:
             )
             var_keys = sorted(var_tri)
             channels = torch.cat([var_tri[k] for k in var_keys], dim=-1) if var_keys else None
-            tile_w, tile_h = pipe.raster_tile
             out = rasterize_vis(
                 ts,
-                rw,
-                rh,
+                ew,
+                eh,
                 tile_w=tile_w,
                 tile_h=tile_h,
                 depth_test=pipe.depth.test,
@@ -822,10 +931,10 @@ class Renderer:
                     else max(int(num_t * pipe.raster_slots_factor), 1024)
                 ),
                 init=vis,
-                id_offset=offset if tri_ids is None else tri_ids + offset,
+                id_offset=id_offset,
                 channels=channels,
                 perspective=pipe.perspective_correct,
-                scissor=scissor,
+                scissor=scissor if window_scissor is None else None,
                 skip_losers=pipe.raster_skip_losers,
                 unroll=pipe.raster_unroll,
                 msaa4=coverage_msaa,
@@ -840,6 +949,7 @@ class Renderer:
                 assemble=pipe.raster_assemble,
                 tmpl=pipe.raster_tmpl,
                 return_overflow=True,
+                origin=(x0, y0),
             )
             if channels is None:
                 vis, of = out
@@ -849,10 +959,13 @@ class Renderer:
             overflowed = overflowed | of
             if vis.stencil is None and prev_stencil is not None:
                 vis = vis._replace(stencil=prev_stencil)  # a stencil-off draw leaves the attachment
-            num_ids = num_t if num_logical is None else num_logical
+            if window_scissor is not None:
+                vis = _scissor_window(vis, prev, window_scissor, x0, y0, clear_q, cfg.clear_stencil)
+            if geometry is not None:
+                vis, interp, invw = geometry[2](vis, interp, invw, pipe.depth)
             per_draw.append((var_tri, offset, num_ids, interp, invw, vis, uniforms))
             offset += num_ids
-        return _Visibility(draws, per_draw, vis, overflowed, clear_depth)
+        return _Visibility(draws, per_draw, vis, overflowed, clear_depth, shard)
 
     def _shade_from(self, fv: _Visibility, start: int, color, order=None, budget: int = 0):
         """Pass 2 from draw ``start``: gather-free shading and the blend
@@ -865,8 +978,9 @@ class Renderer:
         the pass with a _Pending until the host picks its budget; resumed
         with ``order`` and ``budget`` (0: full-screen), draw ``start``
         shades with them."""
-        coverage_msaa, scale, rw, rh = self._extent()
-        compact_on = self._use_pallas() and compact.eligible(rh, rw)
+        coverage_msaa, scale, _, _ = self._extent()
+        _, _, ew, eh = self._window(fv.shard)
+        compact_on = self._use_pallas() and compact.eligible(eh, ew)
         for i in range(start, len(fv.draws)):
             pipe = fv.draws[i].pipeline
             var_tri, off, ntri, interp, invw, vis_i, uniforms = fv.per_draw[i]
@@ -877,7 +991,7 @@ class Renderer:
             if compact_on and pipe.shade_compact is not None:
                 if i != start or order is None:
                     # Under MSAA a tile covered in any sample layer is shaded.
-                    tiles, count = compact.covered_tile_order(mask.any(dim=0) if coverage_msaa else mask, rh, rw)
+                    tiles, count = compact.covered_tile_order(mask.any(dim=0) if coverage_msaa else mask, eh, ew)
                     return _Pending(fv, i, color, tiles, count)
                 if budget:
                     color = _shade_tiles(var_tri, interp, invw, vis_i, local, fragment, uniforms, pipe.blend, color,
@@ -890,11 +1004,11 @@ class Renderer:
         if coverage_msaa:
             color = color.mean(dim=0)  # coverage resolve: box-average the samples
         if scale == 2:  # supersample resolve: 2x2 box
-            h, w = self.config.height, self.config.width
+            h, w = eh // 2, ew // 2
             color = color.reshape(4, h, 2, w, 2).sum(dim=(2, 4)) * 0.25
         if fv.vis is None:  # a frame without draws is the cleared frame
             clear_q = int(round(fv.clear_depth * fp.DEPTH_ONE_Q))
-            fbs = (4, rh, rw) if coverage_msaa else (rh, rw)
+            fbs = (4, eh, ew) if coverage_msaa else (eh, ew)
             depth_q = torch.full(fbs, clear_q, dtype=torch.int32, device=self.device)
             return color.contiguous(), depth_q, torch.full_like(depth_q, -1), None, fv.overflowed
         return color.contiguous(), fv.vis.depth_q, fv.vis.tri_id, fv.vis.stencil, fv.overflowed
@@ -969,6 +1083,18 @@ class Renderer:
           overflow of all N frames; in debug mode an overflow raises
           AllocationError.
         """
+        sums, frames, overflowed = self._sequence(seq_draws, num_frames, return_frames, t0, dt)
+        self.last_sequence_overflowed = overflowed
+        if self.config.debug and bool(overflowed):
+            raise AllocationError(
+                "raster pair buffer overflow during render_sequence; raise Pipeline.raster_pairs_factor"
+            )
+        return (sums, frames) if return_frames else sums
+
+    def _sequence(self, seq_draws, num_frames, return_frames: bool, t0: float, dt: float,
+                  shard: Optional[Shard] = None):
+        """render_sequence_multi's frames, over the shard's window if given:
+        (checksums (N,), colours (N, 4, H, W) or None, overflowed ())."""
         self.begin_frame()
         specs = []  # (per-frame leaves, treedef, static uniforms) per draw
         n = None
@@ -1019,19 +1145,15 @@ class Renderer:
             self._frame_clear,
             tuple(id(x) for x in keep),
             tuple(None if d.mesh.generator is None else id(d.mesh.generator) for d in draws),
+            shard,
         )
         program = self._sequences.get(key)
         if program is None:
-            program = _SequenceProgram(self, draws, specs, keep + [d.mesh.generator for d in draws])
+            program = _SequenceProgram(self, draws, specs, keep + [d.mesh.generator for d in draws], shard)
         stacks = [x for leaves, _, _ in specs for x in leaves if not isinstance(x, Texture)]
-        sums, frames, overflowed = program.run(stacks, n, return_frames)
+        out = program.run(stacks, n, return_frames)
         self._sequences[key] = program
-        self.last_sequence_overflowed = overflowed
-        if self.config.debug and bool(overflowed):
-            raise AllocationError(
-                "raster pair buffer overflow during render_sequence; raise Pipeline.raster_pairs_factor"
-            )
-        return (sums, frames) if return_frames else sums
+        return out
 
     def _stack_frames(self, trees):
         """uniforms_fn's N per-frame trees -> (leaves, treedef): each leaf

@@ -107,7 +107,24 @@ result lines):
      shader file (the cube's vertex-colour program as torch source,
      shader.load_file) renders the 1080p cube through B1 bitwise equal
      to the built-in shader's frame; fps over each loop and the
-     StageTimer report of the --profile run.
+     StageTimer report of the --profile run;
+ 11. multi-device: parallel.TiledRenderer on 4 ranks (parallel/launch.py)
+     sharing this card over gloo: (a) the cube at 1920x1080 over (y=1,
+     x=4), B1; (b) big_mesh (1M triangles) at 3840x2160 over (y=2, x=2),
+     1920x1080 windows, B3 + B2; (c) big_mesh at 1920x1080 over (y=1, x=1,
+     g=4), a quarter of the triangles per rank, depth-composited per draw;
+     (d) the dry run's MSAA-4x frame (scissored cube, stencil write,
+     stencil-tested blend) at 1920x1080 over (y=1, x=4), B4 with stencil;
+     (e) a cube sequence of 8 frames over (y=1, x=4), replaying each
+     rank's captured graphs.  Each rank's launches are asserted; on rank 0
+     the gathered frame equals the single-device frame on this card
+     (tri_id, depth_q and stencil bitwise, colour within 1e-5, and bitwise
+     against a frame drawn at the tile the windows cut to), the sequence's
+     checksums within rtol 1e-5 and its frames within 1e-5; per-rank
+     event-timed ms/frame while all four render, beside the single-device
+     ms/frame, and for (c) the composite's time per draw, one line a run.
+     Then entry()'s frame equals render_frame's bitwise, and
+     dryrun_multichip(8) runs on 8 gloo CPU ranks.
 Every kernel time is the median of 7 CUDA-event windows around the
 wrapper in this run, with the spread and the SM clock nvidia-smi read right
 after, and beside it the kernel's own device time (kernel-only: the same
@@ -1393,6 +1410,98 @@ def main() -> int:
     print("[demo-driver stages] cube --out --profile, StageTimer: "
           + " ; ".join(" ".join(line.split()) for line in demo_runs["cube --out --profile"]["report"].splitlines())
           + f" | {card}", flush=True)
+
+    # ---- 11. multi-device rendering: 4 ranks sharing this card over gloo --
+    # parallel.TiledRenderer on 4 processes (parallel/launch.py), all on
+    # cuda:0: NCCL refuses two ranks on one device, so the ranks run over
+    # gloo, which stages CUDA tensors through the host.  No time here is a
+    # multi-GPU time.
+    from based_renderer_tpu_torch import entry
+    from based_renderer_tpu_torch.parallel import launch, workers
+
+    torch.cuda.empty_cache()
+    # A 480x1080 window cuts the 128x32 tile to 32x8, 16 times the tiles a
+    # triangle spans: the pair budgets of these small draws (the 1024 floor)
+    # overflow, in the JAX package too, so they get more pairs a triangle
+    # (4096: the dry run's single full-window triangles span ~2000 tiles).
+    def with_pairs(spec, factor):
+        return {**spec, "draws": [{**d, "pipe": {**d.get("pipe", {}), "raster_pairs_factor": factor}}
+                                  for d in spec["draws"]]}
+
+    cube_spec = {"demo": "cube", "t": 0.5, "pipe": {"raster_pairs_factor": 512.0}}
+    big_spec = {"demo": "big_mesh", "t": 0.3}
+    tiled_runs = {
+        "(a) cube 1920x1080 over (y=1, x=4)": (
+            {"mesh": (1, 4), "config": {"width": W, "height": H}, "draws": [cube_spec], "timing": 20},
+            per_frame(raster_tile=1)),
+        "(b) big_mesh 3840x2160 over (y=2, x=2)": (
+            {"mesh": (2, 2), "config": {"width": W4K, "height": H4K}, "draws": [big_spec], "timing": 5}, dense),
+        "(c) big_mesh 1920x1080 over (y=1, x=1, g=4)": (
+            {"mesh": (1, 1, 4), "geometry_axis": "g", "config": {"width": W, "height": H}, "draws": [big_spec],
+             "timing": 5}, dense),
+        "(d) MSAA-4x stencil + blend 1920x1080 over (y=1, x=4)": (
+            {**with_pairs(workers.dryrun_msaa_spec(W, H, (1, 4)), 4096.0), "timing": 10}, per_frame(raster_msaa4=3)),
+        # The first call of a sequence runs its frame eagerly once and
+        # captures it once: twice the frame's launches, whatever N is.
+        "(e) cube sequence of 8 frames 1920x1080 over (y=1, x=4)": (
+            {"mesh": (1, 4), "config": {"width": W, "height": H}, "draws": [cube_spec],
+             "sequence": {"times": [0.05 * i for i in range(8)]}, "return_frames": True, "timing": 5},
+            per_frame(raster_tile=2)),
+    }
+    t0 = time.perf_counter()
+    ranks = launch.run(workers.run_specs, (1, 4), ([spec for spec, _ in tiled_runs.values()],), backend="gloo",
+                       devices="cuda:0", timeout=900)
+    tiled_s = time.perf_counter() - t0
+    for i, (label, (spec, per)) in enumerate(tiled_runs.items()):
+        res = [rank[i] for rank in ranks]
+        want = dict(zip(KERNELS, per))
+        for rank, r in enumerate(res):
+            if r["launches"] != want:
+                raise AssertionError(f"{label}: rank {rank} launched {r['launches']}, expected {want}")
+            if r["overflowed"]:
+                raise AssertionError(f"{label}: rank {rank} overflowed")
+        r0 = res[0]
+        if "sequence" in spec:
+            if not np.allclose(r0["sums"], r0["want_sums"], rtol=1e-5, atol=0) or len(set(r0["sums"].tolist())) < 8:
+                raise AssertionError(f"{label}: checksums {r0['sums']} against one device's {r0['want_sums']}")
+            if any(not np.array_equal(r["sums"], r0["sums"]) for r in res):
+                raise AssertionError(f"{label}: the ranks' checksums differ")
+            if not r0["frames_max_diff"] <= COLOR_TOL:
+                raise AssertionError(f"{label}: frames differ from one device's by {r0['frames_max_diff']}")
+            checks = (f"checksums within rtol 1e-5 of one device's (max rel diff "
+                      f"{float(np.max(np.abs(r0['sums'] / r0['want_sums'] - 1))):.3g}), frames max diff "
+                      f"{r0['frames_max_diff']:.3g} (bitwise {r0['frames_equal']})")
+        else:
+            for ref in ("vs_single", "vs_single_tile"):
+                c = r0[ref]
+                if not (c["tri_id"] and c["depth_q"] and c["stencil"] and c["covered"] > 0):
+                    raise AssertionError(f"{label}: tri_id, depth_q or stencil differ from one device's ({ref}: {c})")
+                if not c["color"] <= COLOR_TOL:
+                    raise AssertionError(f"{label}: colour differs from one device's by {c['color']} ({ref})")
+            checks = (f"tri_id, depth_q, stencil bitwise = one device's; colour max diff "
+                      f"{r0['vs_single']['color']:.3g} (bitwise at the shard tile: "
+                      f"{r0['vs_single_tile']['color_bitwise']})")
+        ms = ", ".join(f"{r['ms']:.3f}" for r in res)
+        merge = ""
+        if "merge_ms_per_draw" in r0:
+            merge = " | composite ms/draw per rank " + ", ".join(f"{r['merge_ms_per_draw']:.3f}" for r in res)
+        launched = {k: v for k, v in r0["launches"].items() if v}
+        print(f"[tiled] {label}, 4 ranks sharing cuda:0 over gloo: launches per rank {launched}; {checks}; ms/frame "
+              f"per rank (CUDA events, all 4 rendering) [{ms}] vs one device alone {r0['single_ms']:.3f}{merge} | {card}",
+              flush=True)
+    # entry(): the port's counterpart of __graft_entry__.entry().
+    fn, args = entry.entry()
+    got = fn(*args)
+    pipe, mesh, uniforms, _ = brt.demos.cube_demo(cube_r)
+    want_entry = cube_r.render_frame(pipe, mesh, uniforms(0.5), clear_color=(0.0, 0.0, 0.0, 0.0))
+    for k, a in zip(("color_planar", "depth_q", "tri_id"), got[:3]):
+        if not torch.equal(a, getattr(want_entry, k)):
+            raise AssertionError(f"entry(): {k} differs from render_frame's")
+    t0 = time.perf_counter()
+    entry.dryrun_multichip(8)
+    dry_s = time.perf_counter() - t0
+    print(f"[entry] launch.run of the five tiled runs {tiled_s:.1f} s | entry() frame at {W}x{H} bitwise = "
+          f"render_frame's | dryrun_multichip(8) on 8 gloo CPU ranks passed in {dry_s:.1f} s | {card}", flush=True)
 
     sources = {
         "raster_tile": ("raster_tile.cu", "based_renderer_tpu/ops/raster_pallas.py:58"),

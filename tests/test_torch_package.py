@@ -24,7 +24,9 @@ def test_import_pulls_in_no_jax():
     code = (
         "import sys, based_renderer_tpu_torch, based_renderer_tpu_torch.ops.raster, "
         "based_renderer_tpu_torch.ops._build, based_renderer_tpu_torch.convert, "
-        "based_renderer_tpu_torch.ops.texture, based_renderer_tpu_torch.ops.compact, based_renderer_tpu_torch.ops.cull; "
+        "based_renderer_tpu_torch.ops.texture, based_renderer_tpu_torch.ops.compact, based_renderer_tpu_torch.ops.cull, "
+        "based_renderer_tpu_torch.parallel, based_renderer_tpu_torch.parallel.launch, "
+        "based_renderer_tpu_torch.parallel.workers, based_renderer_tpu_torch.entry; "
         "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'based_renderer_tpu')))"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, check=True)
