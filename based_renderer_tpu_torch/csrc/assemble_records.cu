@@ -40,6 +40,21 @@
 // Both fill one SlotFields and run the same write_slot, so they produce
 // bit-identical records.
 //
+// The rows entry stages rows through shared memory.  Read straight from
+// global memory, each thread's 21 + num_planes scalar loads of its own row
+// put 32 rows 256 B apart under every load instruction: 32 L1 lines a
+// load, about 1,250 L1 wavefronts for a warp's 39 columns (K = 3), against
+// the SoA fields' few lines of the per-field entry.  So each warp owns 32
+// consecutive slots and copies the used part of their rows (ceil4(21 +
+// num_planes) columns) with 16-byte loads: lane (lane / 8, lane % 8) takes
+// chunk 8p + lane % 8 of rows 4i + lane / 8, so one load instruction reads
+// 128 contiguous bytes of each of 4 rows (4 lines).  The chunks land
+// transposed in the warp's shared tile: column c of the warp's slot j at
+// c * 33 + j, so the stores (bank 4 * chunk + row, mod 32) and each
+// thread's reads of its own row's columns (bank c + j) are free of bank
+// conflicts.  write_slot then reads the planes at that column pitch.
+// Warps share nothing, so a __syncwarp orders the copy and the reads.
+//
 // Exactness: the edge and depth arithmetic is int64 and exact; results are
 // truncated to int32 as the TPU's wrapping int32 lanes leave them.  The f32
 // steps are single roundings (__fmul_rn/__fadd_rn: nvcc may not contract
@@ -53,6 +68,8 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kRowsWarps = 4;  // warps a block of the rows entry
+constexpr int kStagePitch = 33;  // int32 words between two staged columns of one warp
 constexpr int kRecordWidth = 16;
 constexpr int kRecordWidthMsaa = 24;
 constexpr int64_t kAnchorClamp = (1LL << 30) - 1;
@@ -119,8 +136,17 @@ struct SlotFields {
   int64_t dzdx, dzdy, tid;
   int32_t zshift, zq0, x0f, y0f;
   float gx, gy;
-  const float* planes;  // num_planes floats: (p00, pdx, pdy) triples
+  const float* planes;  // num_planes floats, (p00, pdx, pdy) triples, kPlanePitch apart
 };
+
+// 16-byte chunks of a template row that the rows entry stages: every column
+// up to the last plane.
+__host__ __device__ constexpr int row_chunks(int num_planes) { return (kTemplateColumns + num_planes + 3) / 4; }
+
+// Dynamic shared memory of one block of the rows entry.
+__host__ __device__ constexpr int64_t rows_smem_bytes(int num_planes) {
+  return (int64_t)kRowsWarps * 4 * row_chunks(num_planes) * kStagePitch * (int64_t)sizeof(int32_t);
+}
 
 struct Out {
   int32_t* records;  // (rw, P)
@@ -132,6 +158,7 @@ struct Out {
 };
 
 // The record arithmetic of both entries: slot s, tile origin (ox, oy).
+template <int kPlanePitch>
 __device__ __forceinline__ void write_slot(const SlotFields& f, int64_t s, int64_t ox, int64_t oy,
                                            bool invalid, const Out& o) {
   const int64_t P = o.num_slots;
@@ -169,9 +196,9 @@ __device__ __forceinline__ void write_slot(const SlotFields& f, int64_t s, int64
   const float oyf = (float)oy;
   float* frec = o.frecords + s;
   for (int r = 0; r < o.num_planes; r += 3) {
-    const float p00 = f.planes[r];
-    const float pdx = f.planes[r + 1];
-    const float pdy = f.planes[r + 2];
+    const float p00 = f.planes[r * kPlanePitch];
+    const float pdx = f.planes[(r + 1) * kPlanePitch];
+    const float pdy = f.planes[(r + 2) * kPlanePitch];
     frec[r * P] = __fadd_rn(__fadd_rn(p00, __fmul_rn(pdx, oxf)), __fmul_rn(pdy, oyf));
     frec[(r + 1) * P] = pdx;
     frec[(r + 2) * P] = pdy;
@@ -202,38 +229,72 @@ __global__ void __launch_bounds__(kThreads) assemble_records_kernel(const Params
   f.gx = p.gx[t];
   f.gy = p.gy[t];
   f.planes = p.planes + t * o.num_planes;
-  write_slot(f, s, p.ox[s], p.oy[s], s >= *p.total, o);
+  write_slot<1>(f, s, p.ox[s], p.oy[s], s >= *p.total, o);
 }
 
 // Row entry: the slot's fields from row t_slot[s] of the (T, row_width)
 // template matrix (transpose_templates.cu's output; column layout in
-// binassem.py): one contiguous row of row_width int32 per slot.
-__global__ void __launch_bounds__(kThreads) assemble_records_rows_kernel(
+// binassem.py), staged through the warp's shared tile (see the top of the
+// file).  Rows start 16-byte aligned: the caller checks fused's address
+// and that row_width is a multiple of 4.
+__global__ void __launch_bounds__(kRowsWarps * 32) assemble_records_rows_kernel(
     const int32_t* __restrict__ fused, int row_width, const int64_t* __restrict__ t_slot,
     const int64_t* __restrict__ ox, const int64_t* __restrict__ oy, const int64_t* __restrict__ total,
     const Out o) {
+  extern __shared__ int32_t stage_all[];
+  const int lane = threadIdx.x & 31;
+  const int chunks = row_chunks(o.num_planes);
+  int32_t* stage = stage_all + (threadIdx.x >> 5) * (4 * chunks * kStagePitch);
   const int64_t s = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= o.num_slots) return;
-  const int32_t* row = fused + t_slot[s] * row_width;
+  const bool live = s < o.num_slots;
+  const int64_t t = live ? t_slot[s] : -1;
+
+  // The copy: this lane takes chunks lane % 8 (+ 8, ...) of the rows of
+  // slots 4i + lane / 8.  Lanes past num_slots stage nothing.
+  const int sub = lane >> 3;
+  int64_t rows[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) rows[i] = __shfl_sync(0xffffffffu, t, 4 * i + sub);
+  for (int q = lane & 7; q < chunks; q += 8) {
+    int4 v[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (rows[i] >= 0) v[i] = __ldg(reinterpret_cast<const int4*>(fused + rows[i] * row_width) + q);
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (rows[i] < 0) continue;
+      int32_t* d = stage + 4 * q * kStagePitch + 4 * i + sub;
+      d[0] = v[i].x;
+      d[kStagePitch] = v[i].y;
+      d[2 * kStagePitch] = v[i].z;
+      d[3 * kStagePitch] = v[i].w;
+    }
+  }
+  __syncwarp();
+  if (!live) return;
+
+  const int32_t* col = stage + lane;  // column c of this slot's row: col[c * kStagePitch]
   SlotFields f;
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
-    f.a[i] = row[i];
-    f.b[i] = row[3 + i];
+    f.a[i] = col[i * kStagePitch];
+    f.b[i] = col[(3 + i) * kStagePitch];
     // (hi, lo) pair: hi * 2^32 + lo as uint32.
-    f.e[i] = (int64_t)(((uint64_t)(uint32_t)row[6 + 2 * i] << 32) | (uint32_t)row[7 + 2 * i]);
+    f.e[i] = (int64_t)(((uint64_t)(uint32_t)col[(6 + 2 * i) * kStagePitch] << 32) |
+                       (uint32_t)col[(7 + 2 * i) * kStagePitch]);
   }
-  f.dzdx = row[12];
-  f.dzdy = row[13];
-  f.zshift = row[14];
-  f.tid = row[15];
-  f.zq0 = row[16];
-  f.x0f = row[17];
-  f.y0f = row[18];
-  f.gx = __int_as_float(row[19]);
-  f.gy = __int_as_float(row[20]);
-  f.planes = reinterpret_cast<const float*>(row + kTemplateColumns);
-  write_slot(f, s, ox[s], oy[s], s >= *total, o);
+  f.dzdx = col[12 * kStagePitch];
+  f.dzdy = col[13 * kStagePitch];
+  f.zshift = col[14 * kStagePitch];
+  f.tid = col[15 * kStagePitch];
+  f.zq0 = col[16 * kStagePitch];
+  f.x0f = col[17 * kStagePitch];
+  f.y0f = col[18 * kStagePitch];
+  f.gx = __int_as_float(col[19 * kStagePitch]);
+  f.gy = __int_as_float(col[20 * kStagePitch]);
+  f.planes = reinterpret_cast<const float*>(col + kTemplateColumns * kStagePitch);
+  write_slot<kStagePitch>(f, s, ox[s], oy[s], s >= *total, o);
 }
 
 }  // namespace
@@ -276,19 +337,30 @@ extern "C" cudaError_t brt_assemble_records(
   return cudaGetLastError();
 }
 
+// Bytes of dynamic shared memory a launch of the rows entry asks for.
+extern "C" int64_t brt_assemble_records_rows_smem(int num_planes) { return rows_smem_bytes(num_planes); }
+
 extern "C" cudaError_t brt_assemble_records_rows(
     const void* fused, int row_width, int num_planes,
     const void* t_slot, const void* ox, const void* oy, const void* total,
     void* records, void* frecords, int64_t num_slots, int rw, int fw,
     void* stream) {
-  if (num_planes % 3 || fw < num_planes + 1 || kTemplateColumns + num_planes > row_width) {
+  if (num_planes % 3 || fw < num_planes + 1 || kTemplateColumns + num_planes > row_width || row_width % 4 ||
+      reinterpret_cast<uintptr_t>(fused) % 16) {
     return cudaErrorInvalidValue;
   }
   if (rw != kRecordWidth && rw != kRecordWidthMsaa) return cudaErrorInvalidValue;
   if (num_slots <= 0) return cudaSuccess;
+  const int64_t smem = rows_smem_bytes(num_planes);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(assemble_records_rows_kernel,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
   const Out o{static_cast<int32_t*>(records), static_cast<float*>(frecords), num_slots, rw, fw, num_planes};
-  const int64_t blocks = (num_slots + kThreads - 1) / kThreads;
-  assemble_records_rows_kernel<<<(unsigned)blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  constexpr int threads = kRowsWarps * 32;
+  const int64_t blocks = (num_slots + threads - 1) / threads;
+  assemble_records_rows_kernel<<<(unsigned)blocks, threads, (size_t)smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(fused), row_width, static_cast<const int64_t*>(t_slot),
       static_cast<const int64_t*>(ox), static_cast<const int64_t*>(oy), static_cast<const int64_t*>(total), o);
   return cudaGetLastError();

@@ -202,6 +202,8 @@ def _declare(lib: ctypes.CDLL):
         p, p, i64, i, i,  # records, frecords, num_slots, rw (16 or 24), fw
         p,  # cudaStream_t
     ]
+    lib.brt_assemble_records_rows_smem.restype = i64
+    lib.brt_assemble_records_rows_smem.argtypes = [i]  # num_planes
     lib.brt_transpose_templates.restype = i
     lib.brt_transpose_templates.argtypes = [
         p, p,  # fused_t (W8, T), out (T, out_width)

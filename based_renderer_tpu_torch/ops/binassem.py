@@ -307,8 +307,9 @@ def assemble_records_rows(fused, t_slot, ox, oy, total, fw: int, num_channels: i
     ``fused`` (T, out_width) int32 (transpose_templates' output).
 
     ``num_channels`` is K: the row holds 3 * (3 + K) plane floats.  Every
-    ``t_slot`` must be below T.  CUDA tensors launch the kernel's row
-    entry, CPU tensors take the plain version.
+    ``t_slot`` must be below T, and out_width must be a multiple of 4 (on
+    the card ``fused`` must also start 16-byte aligned).  CUDA tensors
+    launch the kernel's row entry, CPU tensors take the plain version.
     """
     dev = t_slot.device
     if dev.type == "cuda":
@@ -325,6 +326,8 @@ def _num_planes(fused, fw: int, num_channels: int) -> int:
             f"{num_channels} channels do not fit template rows of width {fused.shape[1]} "
             f"or frecords of width {fw}"
         )
+    if fused.shape[1] % 4:
+        raise ValueError(f"template rows of width {fused.shape[1]}: the width must be a multiple of 4")
     return num_planes
 
 
@@ -371,11 +374,19 @@ def _assemble_rows_kernel(fused, t_slot, ox, oy, total, fw: int, num_channels: i
         ("total", total, i64, ()),
     ):
         _build.check_operand(name, x, dtype, shape, dev)
+    # The kernel copies rows in 16-byte chunks through shared memory.
+    if fused.data_ptr() % 16:
+        raise ValueError("template rows must start 16-byte aligned")
+    lib = _build.load()
+    smem = lib.brt_assemble_records_rows_smem(num_planes)
+    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    if smem > limit:
+        raise ValueError(f"{num_channels} channels need {smem} bytes of shared memory a block, over {limit}")
     rw = record_width(msaa4)
     records = torch.empty((rw, n), dtype=torch.int32, device=dev)
     frecords = torch.empty((fw, n), dtype=torch.float32, device=dev)
     p = _build.ptr
-    rc = _build.load().brt_assemble_records_rows(
+    rc = lib.brt_assemble_records_rows(
         p(fused), fused.shape[1], num_planes,
         p(t_slot), p(ox), p(oy), p(total),
         p(records), p(frecords), n, rw, fw,

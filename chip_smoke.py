@@ -26,8 +26,9 @@ result lines):
      channels (W8 136, out_width 192), bitwise against its plain version and
      against its library call (one copy_ into a zeroed buffer), and the
      rows entry of assemble_records.cu reading the transposed rows, on the
-     1080p, the 4K MSAA and the culled streams, bitwise against its plain
-     version and against the per-field entry;
+     1080p, the 4K MSAA and the culled streams and on big_mesh 1080p with 32
+     random channels (128-wide rows), bitwise against its plain version and
+     against the per-field entry;
   5. raster_sublane (B2) vs its plain version and vs raster_tile on the
      B3-assembled 1M-triangle stream (group 64), the 10k-instance stream
      (group 32, depth_clip False), the stress tie stream under the four
@@ -190,6 +191,66 @@ def fragment(frag, uniforms):
 """
 
 
+def dense_setup(r, demo, t, dev, **kw):
+    """A demo's draw through the vertex stage and setup, as the renderer runs
+    it on ``r``'s frame: ((pipe, mesh, uniforms, instances), setup, the
+    binner's budgets and channels)."""
+    import based_renderer_tpu_torch as brt
+    from based_renderer_tpu_torch.ops import fixedpoint as fp
+    from based_renderer_tpu_torch.ops.setup import setup_triangles
+    from based_renderer_tpu_torch.ops.vertex import expand_instances, gather_triangles
+
+    pipe, mesh, uniforms, inst = getattr(brt.demos, demo)(r, **kw)
+    u = {k: v.to(dev) for k, v in uniforms(t).items()}
+    attrs, tri_idx = expand_instances(mesh, inst)
+    clip, var = brt.shader.get(pipe.shader).vertex(attrs, u)
+    clip_tri, var_tri = gather_triangles(clip, var, tri_idx)
+    width, height = r.config.width, r.config.height
+    pad = fp.MSAA4_BBOX_PAD_FP if r.config.msaa == 4 else 0
+    ts = setup_triangles(clip_tri, width, height, cull_mode=pipe.cull_mode, front_face=pipe.front_face,
+                         bbox_pad_fp=pad)
+    channels = torch.cat([var_tri[k] for k in sorted(var_tri)], dim=-1)
+    n = clip_tri.shape[0]
+    budget = dict(
+        max_pairs=max(int(n * pipe.raster_pairs_factor), 1024),
+        slots=max(int(n * pipe.raster_slots_factor), 1024),
+        channels=channels,
+    )
+    return (pipe, mesh, uniforms, inst), ts, budget
+
+
+def culled_setup(r, t, frac, dev):
+    """The instanced demo's pass 1 under instance_cull ``frac``, as the
+    renderer runs it: the visible instances compacted into
+    ceil(frac * I) slots, then the stream of their triangles with each
+    one's original id.  Returns (setup, budgets, ids, visible count)."""
+    import based_renderer_tpu_torch as brt
+    from based_renderer_tpu_torch.ops.cull import compact_instances, instance_visibility
+    from based_renderer_tpu_torch.ops.setup import setup_triangles
+    from based_renderer_tpu_torch.ops.vertex import expand_instances, gather_triangles
+
+    pipe, mesh, uniforms, inst = brt.demos.instanced_demo(r)
+    u = {k: v.to(dev) for k, v in uniforms(t).items()}
+    shd = brt.shader.get(pipe.shader)
+    num_inst = inst["transform"].shape[0]
+    visible = instance_visibility(shd, mesh, inst, u, r.config.width, r.config.height)
+    inst_c, orig_idx, of = compact_instances(inst, visible, max(math.ceil(num_inst * frac), 1))
+    if bool(of):
+        raise AssertionError(f"instance cull {frac} overflowed: {int(visible.sum())} of {num_inst} visible")
+    tpi = mesh.num_triangles
+    ids = (orig_idx[:, None] * tpi + torch.arange(tpi, dtype=torch.int32, device=dev)[None, :]).reshape(-1)
+    attrs, tri_idx = expand_instances(mesh, inst_c)
+    clip, var = shd.vertex(attrs, u)
+    clip_tri, var_tri = gather_triangles(clip, var, tri_idx)
+    ts = setup_triangles(clip_tri, r.config.width, r.config.height, cull_mode=pipe.cull_mode,
+                         front_face=pipe.front_face)
+    n = clip_tri.shape[0]
+    kw = dict(max_pairs=max(int(n * pipe.raster_pairs_factor), 1024),
+              slots=max(int(n * pipe.raster_slots_factor), 1024),
+              channels=torch.cat([var_tri[k] for k in sorted(var_tri)], dim=-1))
+    return ts, kw, ids, int(visible.sum())
+
+
 def per_frame(**n) -> tuple:
     """A per-frame count tuple in COUNTS order from names (0 elsewhere)."""
     unknown = set(n) - set(COUNTS)
@@ -250,6 +311,20 @@ def raster_bound(binned, vis, tile, num_channels, int_rows, ops_per_item, per_pi
     bytes_ += winners * 4 * (9 + 3 * num_channels + int(not per_pixel))
     items = live * tile[1] * (tile[0] if per_pixel else 1)
     return bound(bytes_, items * ops_per_item)
+
+
+def rows_bound(t_slot, rw: int, fw: int, num_channels: int) -> tuple[float, str]:
+    """Bound of B3's rows entry on the padded slots ``t_slot``: the slot
+    inputs (t_slot, ox, oy), the used columns (21 + the planes) of each
+    template row some slot names, read once, both record arrays (rw int
+    and fw float rows) written once; ~60 integer instructions per slot,
+    as B3."""
+    from based_renderer_tpu_torch.ops.binassem import TEMPLATE_COLUMNS
+
+    n_slots = t_slot.shape[0]
+    read_t = int(torch.unique(t_slot).numel())
+    used = 4 * (TEMPLATE_COLUMNS + 3 * (3 + num_channels))
+    return bound(n_slots * (24 + 4 * (rw + fw)) + read_t * used, 60 * n_slots)
 
 
 def nvidia_smi(query: str) -> str:
@@ -361,9 +436,9 @@ def main() -> int:
     from based_renderer_tpu_torch.ops import fixedpoint as fp
     from based_renderer_tpu_torch.ops.binning import bin_triangles
     from based_renderer_tpu_torch.ops.clip import clip_near
-    from based_renderer_tpu_torch.ops.cull import compact_instances, instance_visibility
+    from based_renderer_tpu_torch.ops.cull import instance_visibility
     from based_renderer_tpu_torch.ops.setup import setup_triangles
-    from based_renderer_tpu_torch.ops.vertex import expand_instances, gather_triangles
+    from based_renderer_tpu_torch.ops.vertex import gather_triangles
     from based_renderer_tpu_torch.reference import oracle
 
     dev = torch.device("cuda")
@@ -506,25 +581,6 @@ def main() -> int:
     )
 
     # ---- 4. assemble_records vs plain: 1M triangles at 1080p, 4K MSAA ----
-    def dense_setup(r, demo, t, **kw):
-        pipe, mesh, uniforms, inst = getattr(brt.demos, demo)(r, **kw)
-        u = {k: v.to(dev) for k, v in uniforms(t).items()}
-        attrs, tri_idx = expand_instances(mesh, inst)
-        clip, var = brt.shader.get(pipe.shader).vertex(attrs, u)
-        clip_tri, var_tri = gather_triangles(clip, var, tri_idx)
-        width, height = r.config.width, r.config.height
-        pad = fp.MSAA4_BBOX_PAD_FP if r.config.msaa == 4 else 0
-        ts = setup_triangles(clip_tri, width, height, cull_mode=pipe.cull_mode, front_face=pipe.front_face,
-                             bbox_pad_fp=pad)
-        channels = torch.cat([var_tri[k] for k in sorted(var_tri)], dim=-1)
-        n = clip_tri.shape[0]
-        budget = dict(
-            max_pairs=max(int(n * pipe.raster_pairs_factor), 1024),
-            slots=max(int(n * pipe.raster_slots_factor), 1024),
-            channels=channels,
-        )
-        return (pipe, mesh, uniforms, inst), ts, budget
-
     def b3_vs_plain(label, ts, width, height, kw, msaa4, ids=0):
         """B3's per-field entry against its plain version on the pair stream of
         ``ts``; ``ids`` is the first triangle id or a (T,) int32 tensor of
@@ -556,46 +612,20 @@ def main() -> int:
         return ps, rec_k, t_k, t_p, b
 
     big_r = brt.Renderer(brt.RendererConfig(W, H))
-    big_demo, big_ts, big_kw = dense_setup(big_r, "big_mesh_demo", 0.2)
+    big_demo, big_ts, big_kw = dense_setup(big_r, "big_mesh_demo", 0.2, dev)
     ps, rec_k, t_b3_big, t_b3_big_plain, b_b3_big = b3_vs_plain("big_mesh 1080p", big_ts, W, H, big_kw, False)
     big4m_r = brt.Renderer(brt.RendererConfig(W4K, H4K, msaa=4))
-    big4m_demo, big4m_ts, big4m_kw = dense_setup(big4m_r, "big_mesh_demo", 0.2)
+    big4m_demo, big4m_ts, big4m_kw = dense_setup(big4m_r, "big_mesh_demo", 0.2, dev)
     ps4m, rec4m, t_b3m, t_b3m_plain, b_b3m = b3_vs_plain("big_mesh 4K MSAA", big4m_ts, W4K, H4K, big4m_kw, True)
     if rec4m.shape[0] != 24:
         raise AssertionError(f"MSAA records have {rec4m.shape[0]} rows")
-
-    def culled_setup(r, t, frac):
-        """The instanced demo's pass 1 under instance_cull ``frac``, as the
-        renderer runs it: the visible instances compacted into
-        ceil(frac * I) slots, then the stream of their triangles with each
-        one's original id.  Returns (setup, budgets, ids, visible count)."""
-        pipe, mesh, uniforms, inst = brt.demos.instanced_demo(r)
-        u = {k: v.to(dev) for k, v in uniforms(t).items()}
-        shd = brt.shader.get(pipe.shader)
-        num_inst = inst["transform"].shape[0]
-        visible = instance_visibility(shd, mesh, inst, u, r.config.width, r.config.height)
-        inst_c, orig_idx, of = compact_instances(inst, visible, max(math.ceil(num_inst * frac), 1))
-        if bool(of):
-            raise AssertionError(f"instance cull {frac} overflowed: {int(visible.sum())} of {num_inst} visible")
-        tpi = mesh.num_triangles
-        ids = (orig_idx[:, None] * tpi + torch.arange(tpi, dtype=torch.int32, device=dev)[None, :]).reshape(-1)
-        attrs, tri_idx = expand_instances(mesh, inst_c)
-        clip, var = shd.vertex(attrs, u)
-        clip_tri, var_tri = gather_triangles(clip, var, tri_idx)
-        ts = setup_triangles(clip_tri, r.config.width, r.config.height, cull_mode=pipe.cull_mode,
-                             front_face=pipe.front_face)
-        n = clip_tri.shape[0]
-        kw = dict(max_pairs=max(int(n * pipe.raster_pairs_factor), 1024),
-                  slots=max(int(n * pipe.raster_slots_factor), 1024),
-                  channels=torch.cat([var_tri[k] for k in sorted(var_tri)], dim=-1))
-        return ts, kw, ids, int(visible.sum())
 
     # The JAX package measured instance_cull 0.85 (its demos.py:157-163).
     # At 0.85 the binner overflows: its slot budget is 0.6 per triangle of
     # the culled stream, 61,200 slots for 102,000 triangles, and a frame
     # of the orbit has ~62,800 live pairs.  0.9 holds them.
     CULL = 0.9
-    cull_ts, cull_kw, cull_ids, n_visible = culled_setup(brt.Renderer(brt.RendererConfig(W, H)), 0.3, CULL)
+    cull_ts, cull_kw, cull_ids, n_visible = culled_setup(brt.Renderer(brt.RendererConfig(W, H)), 0.3, CULL, dev)
     ps_c, rec_c, times["assemble_records"], times["assemble_records_plain"], bounds["assemble_records"] = b3_vs_plain(
         "instanced culled 1080p", cull_ts, W, H, cull_kw, False, cull_ids
     )
@@ -648,13 +678,7 @@ def main() -> int:
                                                    float((frec_k - frec_p).abs().max()))
         t_k = timed(lambda: binassem.assemble_records_rows(*args), 10, "assemble_records_rows_kernel")
         t_p = timed(lambda: binassem.assemble_records_rows_reference(*args))
-        # Bytes: the slot inputs, the used columns (21 + the planes) of each
-        # template row some slot names, read once, both record arrays
-        # written once; ~60 integer instructions per slot, as B3.
-        n_slots = rec_k.shape[1]
-        read_t = int(torch.unique(args[1]).numel())
-        used = 4 * (binassem.TEMPLATE_COLUMNS + 3 * (3 + num_channels))
-        return t_k, t_p, bound(n_slots * (24 + 4 * (rec_k.shape[0] + fw)) + read_t * used, 60 * n_slots)
+        return t_k, t_p, rows_bound(args[1], rec_k.shape[0], fw, num_channels)
 
     fused, b8_shape, times["transpose_templates"], times["transpose_templates_plain"], t_b8_lib, \
         bounds["transpose_templates"] = b8_vs_plain("big_mesh 1080p", ps.tmpl)
@@ -672,6 +696,19 @@ def main() -> int:
     per_field4m = binassem.assemble_records(ps4m.tmpl, *binning.padded_slots(ps4m), ps4m.total,
                                             binning.frecord_width(k_rows), True)
     t_rows4m, t_rows4m_plain, _ = rows_vs_plain("big_mesh 4K MSAA", ps4m, fused4m, k_rows, True, per_field4m)
+    # K = 32, random channels: the widest rows the kernel stages (126 used
+    # columns of 128, 67,584 bytes of shared memory a block).
+    k32 = torch.randn((big_ts.valid.shape[0], 3, 32), generator=torch.Generator(device=dev).manual_seed(32),
+                      device=dev)
+    ps32 = binning.pair_stream(big_ts, W, H, 128, 8, big_kw["max_pairs"], 0, k32, True, big_kw["slots"])
+    fused32_t, width32 = binning.templates_field_major(ps32.tmpl)
+    if width32 != 128 or bool(ps32.overflowed):
+        raise AssertionError(f"K=32 template rows are {width32} wide (overflowed {bool(ps32.overflowed)})")
+    fused32 = binassem.transpose_templates(fused32_t, width32)
+    per_field32 = binassem.assemble_records(ps32.tmpl, *binning.padded_slots(ps32), ps32.total,
+                                            binning.frecord_width(32))
+    t_rows32, t_rows32_plain, b_rows32 = rows_vs_plain("big_mesh 1080p K=32", ps32, fused32, 32, False, per_field32)
+    del k32, ps32, fused32_t, fused32, per_field32
     # The culled stream: the ids ride in the template row's tri_id column.
     k_inst = cull_kw["channels"].shape[-1]
     fused_c = binassem.transpose_templates(*binning.templates_field_major(ps_c.tmpl))
@@ -690,11 +727,12 @@ def main() -> int:
         flush=True,
     )
     print(
-        f"[assemble_records_rows vs plain, vs per-field] big_mesh 1080p (16 rows), 4K MSAA-4x (24 rows) and the "
-        f"culled instanced stream (per-triangle ids) from the transposed template rows: records bitwise equal to "
-        f"the plain version and to the per-field entry | big_mesh 1080p kernel {fmt(t_rows_big)} (bound "
-        f"{b_rows_big[0]:.4f} ms), plain {fmt(t_rows_big_plain)}, per-field entry {fmt(t_b3_big)} | 4K MSAA "
-        f"kernel {fmt(t_rows4m)}, plain {fmt(t_rows4m_plain)} | instanced culled kernel "
+        f"[assemble_records_rows vs plain, vs per-field] big_mesh 1080p (16 rows), 4K MSAA-4x (24 rows), big_mesh "
+        f"1080p with K=32 random channels (128-wide rows) and the culled instanced stream (per-triangle ids) from "
+        f"the transposed template rows: records bitwise equal to the plain version and to the per-field entry | "
+        f"big_mesh 1080p kernel {fmt(t_rows_big)} (bound {b_rows_big[0]:.4f} ms), plain {fmt(t_rows_big_plain)}, "
+        f"per-field entry {fmt(t_b3_big)} | 4K MSAA kernel {fmt(t_rows4m)}, plain {fmt(t_rows4m_plain)} | K=32 "
+        f"kernel {fmt(t_rows32)} (bound {b_rows32[0]:.4f} ms), plain {fmt(t_rows32_plain)} | instanced culled kernel "
         f"{fmt(times['assemble_records_rows'])} (bound {bounds['assemble_records_rows'][0]:.4f} ms), plain "
         f"{fmt(times['assemble_records_rows_plain'])}, per-field entry {fmt(times['assemble_records'])} | {card}",
         flush=True,
@@ -719,7 +757,7 @@ def main() -> int:
     bounds["raster_sublane"] = raster_bound(big_b, big_vis, (128, 8), k_big, 13, 40, False)
 
     inst_r = brt.Renderer(brt.RendererConfig(W, H))
-    inst_demo, inst_ts, inst_kw = dense_setup(inst_r, "instanced_demo", 0.3)
+    inst_demo, inst_ts, inst_kw = dense_setup(inst_r, "instanced_demo", 0.3, dev)
     inst_b = bin_triangles(inst_ts, W, H, 128, 8, assemble="pallas", **inst_kw)
     inst_rkw = dict(tile_w=128, tile_h=8, num_channels=inst_kw["channels"].shape[-1], depth_clip=False)
     inst_vis = b2_checks("instanced 1080p", inst_b, W, H, sublane_group=32, **inst_rkw)[0]

@@ -45,8 +45,10 @@ W, H = 1920, 1080
 SYMBOL = "raster_sublane_kernel"
 
 
-def build_variants(variants: dict[str, pathlib.Path]) -> tuple[dict[str, ctypes.CDLL], str]:
-    """nvcc each variant into build/compare/NAME.so, all at once; load them."""
+def build_variants(variants: dict[str, pathlib.Path],
+                   symbols: tuple[str, ...] = ("brt_raster_sublane",)) -> tuple[dict[str, ctypes.CDLL], str]:
+    """nvcc each variant into build/compare/NAME.so, all at once; load them,
+    each of ``symbols`` it defines declared as the package's own."""
     from based_renderer_tpu_torch.ops import _build
 
     out = ROOT / "build" / "compare"
@@ -59,8 +61,10 @@ def build_variants(variants: dict[str, pathlib.Path]) -> tuple[dict[str, ctypes.
     libs = {}
     for name, path in paths.items():
         lib = ctypes.CDLL(str(path))
-        lib.brt_raster_sublane.restype = tree.brt_raster_sublane.restype
-        lib.brt_raster_sublane.argtypes = tree.brt_raster_sublane.argtypes
+        for sym in symbols:
+            if hasattr(lib, sym):
+                getattr(lib, sym).restype = getattr(tree, sym).restype
+                getattr(lib, sym).argtypes = getattr(tree, sym).argtypes
         libs[name] = lib
     return libs, log
 

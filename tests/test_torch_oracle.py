@@ -58,12 +58,10 @@ def test_copy_is_the_original_below_its_docstring():
     )
 
 
-def test_chip_smoke_loads_nothing_of_the_jax_package():
-    """chip_smoke.py imports and opens nothing of based_renderer_tpu/: no
-    import of it, no dynamic loading, no path into it.  The only mentions
-    allowed are the file:line citations of the TPU kernels each CUDA kernel
-    replaces (the ``replaces`` field of its kernels line)."""
-    src = (ROOT / "chip_smoke.py").read_text()
+def _loads_nothing_of_the_jax_package(name: str) -> str:
+    """Assert that the script ``name`` imports and opens nothing of
+    based_renderer_tpu/ or JAX; return its source."""
+    src = (ROOT / name).read_text()
     tree = ast.parse(src)
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
@@ -81,4 +79,20 @@ def test_chip_smoke_loads_nothing_of_the_jax_package():
             for m in re.finditer(r"based_renderer_tpu(?!_torch)\S*", node.value):
                 assert re.fullmatch(r"based_renderer_tpu/ops/\w+\.py:\d+", m.group(0)), m.group(0)
     assert "spec_from_file_location" not in src
+    return src
+
+
+def test_chip_smoke_loads_nothing_of_the_jax_package():
+    """chip_smoke.py imports and opens nothing of based_renderer_tpu/: no
+    import of it, no dynamic loading, no path into it.  The only mentions
+    allowed are the file:line citations of the TPU kernels each CUDA kernel
+    replaces (the ``replaces`` field of its kernels line)."""
+    src = _loads_nothing_of_the_jax_package("chip_smoke.py")
     assert "reference.oracle" in src or "reference import oracle" in src
+
+
+@pytest.mark.parametrize("name", ["compare_sublane.py", "compare_assemble.py"])
+def test_compare_scripts_load_nothing_of_the_jax_package(name):
+    """The on-card comparisons of kernel builds run without JAX, as
+    chip_smoke.py does."""
+    _loads_nothing_of_the_jax_package(name)

@@ -128,27 +128,40 @@ def test_wide_rows_take_the_plain_assembly():
     assert torch.equal(a.frecords.view(torch.int32), b.frecords.view(torch.int32))
 
 
+@pytest.mark.parametrize("k, width", [(3, 64), (6, 64), (32, 128)])
 @pytest.mark.parametrize("msaa4", [False, True])
-def test_rows_plain_version_equals_the_per_field_one(msaa4):
+def test_rows_plain_version_equals_the_per_field_one(msaa4, k, width):
     """On the same padded slots the row assembly's plain version equals the
     per-field assembly's, invalid tail slots included; the CPU wrappers
-    launch nothing."""
-    clip, ch = _scene(120, 11, 6)
+    launch nothing.  K = 32 gives the widest rows the kernel stages (126
+    used columns of 128)."""
+    clip, ch = _scene(120, 11, k)
     ts = tsetup.setup_triangles(torch.from_numpy(clip), W, H)
     ps = tbin.pair_stream(ts, W, H, 128, 8, None, 40, torch.from_numpy(ch), True)
     fused_t, row_width = tbin.templates_field_major(ps.tmpl)
+    assert row_width == width
     fused = tasm.transpose_templates(fused_t, row_width)
-    fw = tbin.frecord_width(6)
+    fw = tbin.frecord_width(k)
     slots = tbin.padded_slots(ps)
     before = (tasm.LAUNCHES, tasm.ROWS_LAUNCHES)
-    rec, frec = tasm.assemble_records_rows(fused, *slots, ps.total, fw, 6, msaa4)
+    rec, frec = tasm.assemble_records_rows(fused, *slots, ps.total, fw, k, msaa4)
     want_rec, want_frec = tasm.assemble_records_reference(ps.tmpl, *slots, ps.total, fw, msaa4)
     assert (tasm.LAUNCHES, tasm.ROWS_LAUNCHES) == before
     assert torch.equal(rec, want_rec)
     assert torch.equal(frec.view(torch.int32), want_frec.view(torch.int32))
     assert (rec[:3, int(ps.total):] == tasm.INVALID_EDGE).all()
     with pytest.raises(ValueError, match="channels"):
-        tasm.assemble_records_rows(fused, *slots, ps.total, fw, 11, msaa4)
+        tasm.assemble_records_rows(fused, *slots, ps.total, fw, k + 5, msaa4)
+
+
+@pytest.mark.parametrize("k, width", [(3, 42), (6, 63), (32, 130)])
+def test_rows_width_must_be_a_multiple_of_4(k, width):
+    """The kernel copies template rows in 16-byte chunks, so both versions
+    refuse a row width that is not a multiple of 4 int32."""
+    fused = torch.zeros((5, width), dtype=torch.int32)
+    slots = torch.zeros(128, dtype=torch.int64)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        tasm.assemble_records_rows(fused, slots, slots, slots, torch.tensor(3), tbin.frecord_width(k), k)
 
 
 @pytest.mark.parametrize("demo", ["cube", "big_mesh"])
