@@ -56,6 +56,28 @@ result lines):
      stencil streams (with the stencil plane) through B1 and the two-pass
      route, per-sample stencil through B4, and a depth-biased stream
      through setup and B1, at 1920x1080;
+ 7b. adversarial: every stream of the port's
+     based_renderer_tpu_torch/reference/adversarial.py (slivers engaging
+     DEPTH_GRAD_CLAMP, the clamp-boundary sliver, guard-band vertices and
+     their fuzz, zshift 0 and >= 18, a ground plane cut by the near clip,
+     degenerate triangles, the shared-edge quad, random triangles, the
+     empty draw; at 1920x1080 also a seeded mix, seeds ADV_FUZZ_SEEDS), at
+     96x64 and 1920x1080, through B1, the two-pass route, the batched route
+     and B4 at tiles 128x32, 64x64 and 32x16, B2 at 128x32 and, like B5, at
+     128x8 from B3's records, B3's per-field entry, B8 and B3's rows entry
+     (zero-size operands on the empty draw): each route against its plain
+     version on the same binned records (ints exact, floats within 1e-6,
+     B3/B8/rows bitwise) and against the oracle (tri_id, depth_q and
+     stencil exact, per sample under MSAA) under every compare each route
+     takes, depth clamp, back and front culling, the stencil and (the
+     shared edge, each half alone and both) the depth test off, as
+     adversarial_configs lists; the setup and the near clip on the card
+     bitwise equal to the CPU's; each case asserts its regime; the oracle
+     runs in 6 worker processes meanwhile.  Then the empty draw and the 10k
+     instances all culled (instance_cull 0.9) through render_frame and
+     render_sequence_multi (captured CUDA graphs): nothing covered, no
+     overflow, the clear colour; the next frame and the next sequence
+     equal the same drawn on a fresh renderer;
   8. end to end: Renderer.render_frame with big_mesh (1M triangles) at
      1920x1080 and 3840x2160, instanced (10k cubes) at 1920x1080, cube at
      1920x1080 and triangle at 800x600, and the three MSAA runs: big_mesh at
@@ -150,6 +172,7 @@ import statistics
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -418,6 +441,359 @@ class Checker:
         self.worst[kernel] = max(self.worst.get(kernel, 0.0), diff)
 
 
+# ---- phase 7b: the spec's adversarial streams ---------------------------
+ADV_SIZES = ((96, 64), (W, H))
+ADV_TILES = ((128, 32), (64, 64), (32, 16))
+ADV_FUZZ_SEEDS = (1, 2, 3)  # the 1080p mixed fuzz (reference/adversarial.py fuzz)
+ADV_K = 3  # random per-vertex channels, so the float planes are compared too
+ORDERED = ("less", "less_equal", "greater", "greater_equal")
+COMPARES = ("never", "less", "equal", "less_equal", "greater", "not_equal", "greater_equal", "always")
+
+
+def _oracle_job(job):
+    """One run of the port's numpy oracle in a worker process (phase 7b):
+    (clip, width, height, msaa4, keyword arguments) -> its int planes."""
+    clip, width, height, msaa4, kw = job
+    from based_renderer_tpu_torch.reference import oracle
+
+    out = (oracle.rasterize_msaa4 if msaa4 else oracle.rasterize)(clip, width, height, **kw)
+    return {k: out[k] for k in ("tri_id", "depth_q", "stencil") if k in out}
+
+
+class AdvConfig(NamedTuple):
+    """One raster configuration of a phase 7b case."""
+
+    compare: str = "less"
+    cull: str = "none"
+    depth_test: bool = True
+    stencil: object = None  # a StencilState, or None
+    msaa: bool = True  # also the MSAA-4x routes, against the per-sample oracle
+    depth_clip: object = True  # True, False or "clamp"
+
+
+def adversarial_configs(stream: str, label: str, big: bool, increment) -> list[AdvConfig]:
+    """The configurations of one case of phase 7b; the first is the case's
+    base ("less"), which runs every tile.
+
+    At 96x64 every case runs all eight compares (the MSAA oracle under the
+    ordered four), depth clamp instead of clip, back and front culling and
+    the stencil.  At 1080p, where the numpy oracle costs ~0.1 s a
+    full-screen triangle, every case runs "less", the small streams and one
+    fuzz seed with the MSAA oracle too; the random, guard-band fuzz and
+    mixed-fuzz streams also cull back and front, and the first fuzz seed
+    runs the other seven compares, depth clamp and the stencil.  shared_edge
+    also runs with the depth test off (each half alone and both)."""
+    fuzz0 = f"fuzz seed {ADV_FUZZ_SEEDS[0]}"
+    full_screen = big and stream in ("random", "guard_band", "fuzz") and label != "guard_band"
+    out = [AdvConfig(msaa=not full_screen or label == fuzz0)]
+    if stream == "shared_edge":
+        out.append(AdvConfig(depth_test=False))
+    if not big or label == fuzz0:
+        out += [AdvConfig(compare=c, msaa=c in ORDERED and not big) for c in COMPARES if c != "less"]
+        out += [AdvConfig(depth_clip="clamp", msaa=not big), AdvConfig(stencil=increment, msaa=not big)]
+    if not big or label in ("random seed 0", "guard_band fuzz 0", fuzz0):
+        out += [AdvConfig(cull=cull, msaa=not big) for cull in ("back", "front")]
+    return out
+
+
+def adversarial_phase(dev, check, card: str, sizes=ADV_SIZES, fuzz_seeds=ADV_FUZZ_SEEDS, workers: int = 6) -> dict:
+    """Phase 7b: every stream of reference/adversarial.py at each size of
+    ``sizes`` through every CUDA route, each held against its plain
+    version on the same binned records (``check``: ints exact, floats
+    within FLOAT_TOL; B3, B8 and the rows entry bitwise) and against the
+    port's oracle (tri_id, depth_q and stencil exact, per sample under
+    MSAA), under the configurations of adversarial_configs at tiles
+    ADV_TILES for the first configuration of a case (32x16 for the others;
+    B2 and B5 at 128x8 from B3's records, B2 also at 128x32).
+    The setup and the near clip on the card equal theirs on the CPU bit for
+    bit; every case asserts its regime (adversarial.assert_engaged).  The
+    oracle runs in ``workers`` processes while the card works.  Returns
+    the phase's counts for its line."""
+    import concurrent.futures
+    import multiprocessing
+
+    import based_renderer_tpu_torch as brt
+    from based_renderer_tpu_torch.ops import binassem, binning, raster
+    from based_renderer_tpu_torch.ops import fixedpoint as fp
+    from based_renderer_tpu_torch.ops.binning import bin_triangles
+    from based_renderer_tpu_torch.ops.clip import clip_near
+    from based_renderer_tpu_torch.ops.setup import setup_triangles
+    from based_renderer_tpu_torch.reference import adversarial as adv
+
+    t0 = time.perf_counter()
+    increment = brt.StencilState(enable=True, compare="always", pass_op="increment_clamp",
+                                 depth_fail_op="increment_wrap")
+    stats = {"cases": 0, "configs": 0, "pixels": 0, "routes": set(), "regimes": {}}
+
+    def clear(compare):
+        return 0.0 if compare.startswith("greater") else 1.0
+
+    def oracle_kw(cfg):
+        return dict(cull_mode=cfg.cull, depth_test=cfg.depth_test, depth_write=cfg.depth_test,
+                    depth_compare=cfg.compare, depth_clear=clear(cfg.compare), depth_clip=cfg.depth_clip,
+                    stencil=cfg.stencil)
+
+    plan = []  # (size, stream, label, clip, configs)
+    for width, height in sizes:
+        big = (width, height) != (96, 64)
+        for stream, label, clip in adv.cases(width, height, fuzz_seeds=fuzz_seeds if big else ()):
+            plan.append(((width, height), stream, label, clip, adversarial_configs(stream, label, big, increment)))
+
+    def bitwise(label, a, b):
+        torch.cuda.synchronize()
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        if not torch.equal(a, b):
+            raise AssertionError(f"[adversarial] {label}: differs at {int((a != b).sum())} entries")
+
+    def vs_oracle(label, vis, want, stencil):
+        for k in ("tri_id", "depth_q") + (("stencil",) if stencil else ()):
+            g = getattr(vis, k).cpu().numpy()
+            if not np.array_equal(g, want[k]):
+                raise AssertionError(f"[adversarial] {label}: {k} differs from the oracle at "
+                                     f"{int((g != want[k]).sum())} pixels")
+        stats["pixels"] += vis.tri_id.numel()
+
+    def setup_pair(clip_np, clip_d, width, height, **kw):
+        """The setup on the card, held bitwise against the same on the CPU."""
+        ts = setup_triangles(clip_d, width, height, **kw)
+        ref = setup_triangles(torch.from_numpy(clip_np), width, height, **kw)
+        for name, a, b in zip(ts._fields, ts, ref):
+            bitwise(f"setup {name} on the card vs the CPU", a.cpu(), b)
+        return ts
+
+    def b3_b8_rows(label, ts, width, height, col, msaa4):
+        """B3's per-field entry, B8 and B3's rows entry on the 128x8 pair
+        stream, each bitwise against its plain version, the rows entry also
+        against the per-field entry.  With no triangles (which the binner
+        never hands them) the three wrappers get zero-size operands: no
+        slot, no template."""
+        if ts.valid.shape[0]:
+            ps = binning.pair_stream(ts, width, height, 128, 8, pairs(ts, width, height), 0, col, True, None)
+            if bool(ps.overflowed):
+                raise AssertionError(f"[adversarial] {label}: pair stream overflowed")
+            tmpl, slots, total = ps.tmpl, binning.padded_slots(ps), ps.total
+        else:
+            tmpl = binning._templates(ts, 0, col, True)
+            slots = tuple(torch.zeros((0,), dtype=torch.int64, device=dev) for _ in range(3))
+            total = torch.zeros((), dtype=torch.int64, device=dev)
+        fw = binning.frecord_width(ADV_K)
+        per_field = binassem.assemble_records(tmpl, *slots, total, fw, msaa4)
+        for a, b in zip(per_field, binassem.assemble_records_reference(tmpl, *slots, total, fw, msaa4)):
+            bitwise(f"{label} assemble_records", a, b)
+        fused_t, row_width = binning.templates_field_major(tmpl)
+        fused = binassem.transpose_templates(fused_t, row_width)
+        bitwise(f"{label} transpose_templates", fused, binassem.transpose_templates_reference(fused_t, row_width))
+        rows = binassem.assemble_records_rows(fused, *slots, total, fw, ADV_K, msaa4)
+        rows_plain = binassem.assemble_records_rows_reference(fused, *slots, total, fw, ADV_K, msaa4)
+        for a, b, c in zip(rows, rows_plain, per_field):
+            bitwise(f"{label} assemble_records_rows vs plain", a, b)
+            bitwise(f"{label} assemble_records_rows vs per-field", a, c)
+        stats["routes"].update(("assemble_records", "transpose_templates", "assemble_records_rows"))
+
+    def pairs(ts, width, height):
+        """A pair budget no stream here can overflow: every triangle in every
+        tile of the frame at its most tiles (32x16)."""
+        return max(4096, ts.valid.shape[0] * -(-width // 32) * -(-height // 16))
+
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(max_workers=workers, mp_context=ctx) as pool:
+        jobs = {}
+        for (width, height), stream, label, clip, configs in plan:
+            for cfg in configs:
+                kw = oracle_kw(cfg)
+                clips = [clip] if stream != "shared_edge" or cfg.depth_test else [clip[:1], clip[1:], clip]
+                for part, c in enumerate(clips):
+                    for m in (False, True) if cfg.msaa else (False,):
+                        jobs[(width, height, label, cfg, part, m)] = pool.submit(
+                            _oracle_job, (c, width, height, m, kw))
+
+        for (width, height), stream, label, clip, configs in plan:
+            tag = f"{label} {width}x{height}"
+            t_n = clip.shape[0]
+            if stream == "near_plane":  # the cut on the card equals the CPU's
+                raw = torch.from_numpy(adv.near_plane_raw(width, height)).to(dev)
+                bitwise(f"{tag} clip_near on the card vs the CPU", clip_near(raw, {})[0].cpu(), torch.from_numpy(clip))
+            rng = np.random.default_rng(t_n + width)
+            col = torch.from_numpy(rng.uniform(0, 1, size=(t_n, 3, ADV_K)).astype(np.float32)).to(dev)
+            clip_d = torch.from_numpy(clip).to(dev)
+            binned = {}
+
+            def bins(cull, tile, msaa4=False, assemble="xla", parts=(None,)):
+                """B1/B2/B4/B5 inputs (cached per cull, tile and layout): the
+                setup of each part of the stream (None: all of it), binned."""
+                key = (cull, tile, msaa4, assemble, parts)
+                if key not in binned:
+                    out = []
+                    for part in parts:
+                        c_np = clip if part is None else clip[part : part + 1]
+                        c_d = clip_d if part is None else clip_d[part : part + 1]
+                        cc = col if part is None else col[part : part + 1]
+                        ts = setup_pair(c_np, c_d, width, height, cull_mode=cull,
+                                        bbox_pad_fp=fp.MSAA4_BBOX_PAD_FP if msaa4 else 0)
+                        b = bin_triangles(ts, width, height, *tile, max_pairs=pairs(ts, width, height), channels=cc,
+                                          msaa4=msaa4, assemble=assemble)
+                        if bool(b.overflowed):
+                            raise AssertionError(f"[adversarial] {tag}: binner overflowed")
+                        out.append((ts, b))
+                    binned[key] = out
+                return binned[key]
+
+            for msaa4 in (False, True):
+                ts = bins("none", (128, 8), msaa4)[0][0]
+                b3_b8_rows(f"{tag} msaa4={msaa4}", ts, width, height, col, msaa4)
+            for cfg in configs:
+                compare, cull, depth_test, stencil, msaa, depth_clip = cfg
+                ctag = f"{tag} {cfg}"
+                kw = dict(depth_test=depth_test, depth_write=depth_test, depth_compare=compare,
+                          depth_clear=clear(compare), depth_clip=depth_clip, num_channels=ADV_K, stencil=stencil)
+                ordered = depth_test and compare in ORDERED and stencil is None
+                parts = (None,) if stream != "shared_edge" or depth_test else (0, 1, None)
+                for m in (False, True) if msaa else (False,):
+                    wants = [jobs.pop((width, height, label, cfg, p, m)).result() for p in range(len(parts))]
+                    # Every tile for the first configuration, the smallest for the others.
+                    tiles = (ADV_TILES if not m else ((128, 32), (32, 16))) if cfg == configs[0] else ((32, 16),)
+                    for tile in tiles:
+                        tkw = dict(kw, tile_w=tile[0], tile_h=tile[1], msaa4=m)
+                        covered = []
+                        for (ts, b), want in zip(bins(cull, tile, m, parts=parts), wants):
+                            name = "raster_msaa4" if m else "raster_tile"
+                            got = raster.rasterize_binned(b, width, height, **tkw)
+                            plain = raster.rasterize_binned_reference(b, width, height, **tkw)
+                            check(name, f"{ctag} {tile} vs plain", got, plain)
+                            vs_oracle(f"{ctag} {name} {tile}", got[0], want, stencil is not None)
+                            stats["routes"].add(name)
+                            covered.append(got[0].tri_id)
+                            if not m:
+                                tp = raster.rasterize_binned(b, width, height, two_pass=True, **tkw)
+                                check("raster_two_pass", f"{ctag} {tile} vs raster_tile", tp, got)
+                                check("raster_two_pass", f"{ctag} {tile} vs plain", tp, plain)
+                                stats["routes"].add("raster_two_pass")
+                            if ordered and not m:
+                                bkw = dict(tkw, stencil=None, msaa4=False)
+                                b7 = raster.rasterize_binned(b, width, height, batch=16, **bkw)
+                                check("raster_batched", f"{ctag} {tile} vs plain", b7,
+                                      raster.rasterize_binned_reference(b, width, height, batch=16, **bkw))
+                                check("raster_batched", f"{ctag} {tile} vs raster_tile", b7, got)
+                                stats["routes"].add("raster_batched")
+                            if ordered and tile[0] == 128 and not m:
+                                b2 = raster.rasterize_binned(b, width, height, sublane=True, **bkw)
+                                check("raster_sublane", f"{ctag} {tile} vs plain", b2,
+                                      raster.rasterize_binned_sublane_reference(b, width, height, **bkw))
+                                vs_oracle(f"{ctag} raster_sublane {tile}", b2[0], want, False)
+                        if len(parts) == 3:  # shared_edge, depth test off: the fill rule
+                            layers = [covered] if not m else [[c[s] for c in covered] for s in range(4)]
+                            for a, b_, ab in layers:
+                                adv.assert_shared_edge(a, b_, ab)
+                    if ordered:  # B2 / B5 on B3's records at 128x8, as the dense path runs them
+                        (ts, b), want = bins(cull, (128, 8), m, "pallas")[0], wants[0]
+                        skw = dict(kw, tile_w=128, tile_h=8, stencil=None, msaa4=m)
+                        name = "raster_msaa4_sublane" if m else "raster_sublane"
+                        got = raster.rasterize_binned(b, width, height, sublane=True, **skw)
+                        plain = (raster.rasterize_binned_msaa4_sublane_reference if m
+                                 else raster.rasterize_binned_sublane_reference)
+                        check(name, f"{ctag} 128x8 from B3 vs plain", got, plain(b, width, height, **{
+                            k: v for k, v in skw.items() if k != "msaa4"}))
+                        vs_oracle(f"{ctag} {name} 128x8 from B3", got[0], want, False)
+                        stats["routes"].add(name)
+                        if not m and cfg == configs[0] and t_n:  # B8 + B3 rows + B2, the tmpl route
+                            tts = setup_triangles(clip_d, width, height, cull_mode=cull)
+                            tb = bin_triangles(tts, width, height, 128, 8, max_pairs=pairs(tts, width, height),
+                                               channels=col, assemble="pallas", tmpl="pallas")
+                            for a_, b_ in zip(tb[:2], b[:2]):
+                                bitwise(f"{ctag} tmpl records vs per-field records", a_, b_)
+                            vs_oracle(f"{ctag} tmpl route", raster.rasterize_binned(
+                                tb, width, height, sublane=True, **skw)[0], want, False)
+                    if cfg == configs[0] and not m:
+                        ts_all, b_all = bins(cull, (128, 32))[0]
+                        live = int(b_all.tile_count.sum())
+                        seen = adv.assert_engaged(stream, ts_all, wants[-1]["tri_id"], b_all.records, live)
+                        stats["regimes"][f"{label} {width}x{height}"] = seen
+                stats["configs"] += 1
+            stats["cases"] += 1
+            del binned
+        if jobs:
+            raise AssertionError(f"[adversarial] {len(jobs)} oracle runs were never compared")
+    stats["seconds"] = time.perf_counter() - t0
+    return stats
+
+
+def empty_and_culled_draws(dev, counts, reset_counts, names) -> dict:
+    """Phase 7b's draws with nothing to draw, through the renderer on the
+    card: the cube pipeline on a mesh of no triangles, and the 10k
+    instanced cubes moved out of the frustum under instance_cull 0.9 (every
+    compacted slot a culled instance), each by render_frame and by
+    render_sequence_multi (captured CUDA graphs): no CUDA error, no
+    overflow, no coverage (the clear colour everywhere); the kernels still
+    launch, over tiles of no records.  The next frame, and the next
+    sequence, equal the same drawn on a fresh renderer.  Returns the
+    launches of each empty frame."""
+    import based_renderer_tpu_torch as brt
+
+    def fresh():
+        return brt.Renderer(brt.RendererConfig(W, H), device=dev)
+
+    def nothing(label, tri_id, overflowed, color, clear_color):
+        torch.cuda.synchronize()
+        clear = torch.tensor(clear_color, device=dev).reshape(4, 1, 1)
+        if tri_id is not None and bool((tri_id >= 0).any()):
+            raise AssertionError(f"[adversarial] {label}: covered {int((tri_id >= 0).sum())} pixels")
+        if bool(overflowed):
+            raise AssertionError(f"[adversarial] {label}: overflowed")
+        if not torch.equal(color, clear.expand_as(color)):
+            raise AssertionError(f"[adversarial] {label}: colour is not the clear colour everywhere")
+
+    def same(label, got, want):
+        torch.cuda.synchronize()
+        for k in ("tri_id", "depth_q", "color_planar"):
+            if not torch.equal(getattr(got, k), getattr(want, k)):
+                raise AssertionError(f"[adversarial] {label}: {k} differs from the frame drawn alone")
+
+    r = fresh()
+    pipe, mesh, uniforms, _ = brt.demos.cube_demo(r)
+    empty = r.upload_mesh(np.zeros((0, 3), np.float32), color=np.zeros((0, 3), np.float32))
+    ipipe, imesh, iu, inst = brt.demos.instanced_demo(r)
+    ipipe = dataclasses.replace(ipipe, instance_cull=0.9)
+    away = inst["transform"].clone().reshape(-1, 4, 4)
+    away[:, :3, 3] += torch.tensor([1e5, 0.0, 0.0], device=dev)
+    gone = {**inst, "transform": away.reshape(-1, 16)}
+    clear_color = r.config.clear_color
+    launches = {}
+    for label, args in (("empty draw", (pipe, empty, uniforms(0.1))), ("culled instances", (ipipe, imesh, iu(0.3)))):
+        reset_counts()
+        f = r.render_frame(*args, instances=gone if label == "culled instances" else None)
+        nothing(f"{label} render_frame", f.tri_id, f.overflowed, f.color_planar, clear_color)
+        launches[label] = {k: v for k, v in zip(names, counts()) if v}
+        if not launches[label]:
+            raise AssertionError(f"[adversarial] {label}: no kernel launched")
+        same(f"frame after the {label}", r.render_frame(pipe, mesh, uniforms(0.3)),
+             fresh().render_frame(pipe, mesh, uniforms(0.3)))
+
+    def seq(draws, t0):
+        out = []
+        for p, m, uf, i in draws:
+            frames = [uf(t0 + 0.05 * k) for k in range(4)]
+            useq = {k: torch.stack([torch.as_tensor(np.asarray(fr[k])) for fr in frames]).to(dev) for k in frames[0]}
+            out.append({"pipeline": p, "mesh": m, "uniforms_seq": useq, "instances": i, "static_uniforms": {}})
+        return out
+
+    for label, draws in (("empty draw", [(pipe, empty, uniforms, None)]),
+                         ("culled instances", [(ipipe, imesh, iu, gone)])):
+        for call in range(2):  # the first call captures, the second replays
+            _, frames = r.render_sequence_multi(seq(draws, 0.1 * call), return_frames=True)
+            for i in range(frames.shape[0]):
+                nothing(f"{label} sequence call {call} frame {i}", None, r.last_sequence_overflowed, frames[i],
+                        clear_color)
+        cube = seq([(pipe, mesh, uniforms, None)], 0.2)
+        sums, frames = r.render_sequence_multi(cube, return_frames=True)
+        other = fresh()
+        want_sums, want_frames = other.render_sequence_multi(cube, return_frames=True)
+        torch.cuda.synchronize()
+        if not torch.equal(frames, want_frames) or not torch.equal(sums, want_sums):
+            raise AssertionError(f"[adversarial] the cube sequence after the {label} sequence differs from it alone")
+    return launches
+
+
 def main() -> int:
     # ---- 1. device ------------------------------------------------------
     if not torch.cuda.is_available():
@@ -439,7 +815,7 @@ def main() -> int:
     from based_renderer_tpu_torch.ops.cull import instance_visibility
     from based_renderer_tpu_torch.ops.setup import setup_triangles
     from based_renderer_tpu_torch.ops.vertex import gather_triangles
-    from based_renderer_tpu_torch.reference import oracle
+    from based_renderer_tpu_torch.reference import adversarial, oracle
 
     dev = torch.device("cuda")
     check = Checker()
@@ -1033,7 +1409,28 @@ def main() -> int:
         f"through raster_msaa4, MSAA big_mesh (2000 tris) through assemble_records + raster_msaa4_sublane; "
         f"stress[:2048] under increment, ops zoo and never through raster_tile and the two-pass route, the "
         f"MSAA cube's per-sample stencil through raster_msaa4, stress[:2048] biased {bias} through setup and "
-        f"raster_tile; at {W}x{H}: tri_id, depth_q and stencil bit-exact",
+        f"raster_tile; at {W}x{H}: tri_id, depth_q and stencil bit-exact; the adversarial streams "
+        f"({', '.join(adversarial.STREAMS)}, fuzz) follow in [adversarial]",
+        flush=True,
+    )
+
+    # ---- 7b. the spec's adversarial streams ------------------------------
+    adv = adversarial_phase(dev, check, card)
+    t0 = time.perf_counter()
+    empty_launches = empty_and_culled_draws(dev, counts, reset_counts, COUNTS)
+    empty_s = time.perf_counter() - t0
+    print(
+        f"[adversarial] streams {', '.join(adversarial.STREAMS)} and the mixed fuzz (seeds "
+        f"{', '.join(map(str, ADV_FUZZ_SEEDS))} at {W}x{H}), at {' and '.join(f'{w}x{h}' for w, h in ADV_SIZES)}: "
+        f"{adv['cases']} cases, {adv['configs']} configurations (compares, culls, depth clamp, depth test off, "
+        f"stencil), tiles {', '.join(f'{w}x{h}' for w, h in ADV_TILES)}; routes {', '.join(sorted(adv['routes']))}: each against "
+        f"its plain version (ints exact, floats within {FLOAT_TOL}, B3/B8/rows bitwise) and the oracle (tri_id, "
+        f"depth_q, stencil exact), setup and the near clip bitwise = the CPU's; {adv['pixels']} pixels (samples) "
+        f"compared with the oracle; regimes: "
+        + "; ".join(f"{k}: {v}" for k, v in adv["regimes"].items())
+        + f" | empty draw and culled instances through render_frame and captured render_sequence_multi: nothing "
+        f"covered, no overflow, the next frame and sequence = drawn alone; launches {empty_launches} "
+        f"({empty_s:.1f} s) | phase {adv['seconds']:.1f} s | {card}",
         flush=True,
     )
 
