@@ -160,6 +160,11 @@ class TiledRenderer:
         return self._inner.device
 
     @property
+    def num_cached_programs(self) -> int:
+        """The frame and sequence programs this rank holds (Renderer.num_cached_programs)."""
+        return self._inner.num_cached_programs
+
+    @property
     def shard(self) -> Shard:
         """This rank's window (and geometry slice)."""
         return self._shard
@@ -194,10 +199,15 @@ class TiledRenderer:
 
     def end_frame(self) -> FrameResult:
         """Render the recorded draws: this rank's window of the frame, with
-        the overflow flag OR-ed over every rank.  In debug mode an overflow
-        or a non-finite colour on any rank raises on every rank."""
+        the overflow flag OR-ed over every rank.  The frame runs through
+        the inner renderer's program for its key, the shard in the key (JAX
+        tiled.py:189): on CUDA a tile-only rank replays its captured
+        graphs, and a geometry axis, which merges inside the frame, runs
+        its program eagerly.  The flags' all-reduce lies outside the
+        program.  In debug mode an overflow or a non-finite colour on any
+        rank raises on every rank."""
         inner = self._inner
-        color, depth_q, tri_id, stencil, overflowed = inner._run_frame(*inner.close_frame(), self._shard)
+        color, depth_q, tri_id, stencil, overflowed = inner._frame(*inner.close_frame(), self._shard)
         flags = [overflowed]
         if self.config.debug:
             flags.append(~torch.isfinite(color).all())

@@ -14,7 +14,9 @@ the JAX package's frame:
      "draws": [draw, ...],
      "sequence": None, {"times": [t, ...]} or {"n": N, "t0": t0, "dt": dt},
      "return_frames": bool, "expect": None or an exception's class name,
-     "arrays": bool, "timing": frames to time (0: none)}
+     "arrays": bool, "timing": frames to time (0: none),
+     "before": [[draw, ...], ...]: frames each rank renders first, on the
+     same TiledRenderer (the single device renders only the last)}
 
 A draw is {"demo": name, "kw": demo keywords, "t": time, "pipe": overrides}
 (a demo of models/demos.py with its uniforms at t), or {"scale": s,
@@ -172,18 +174,23 @@ def _ms_per_frame(fn, n: int, device) -> float:
 
 
 def run_spec(world_mesh, spec) -> dict:
-    """One spec on this rank: its kernel launches (and with ``timing``, its
-    ms per frame, and per draw the geometry merge's), and on rank 0 the
-    comparison with the single-device frame on the same device (and the
-    whole frame as numpy when ``spec["arrays"]``).  An exception of the
-    class ``spec["expect"]`` is caught and reported."""
+    """One spec on this rank: its kernel launches (all of them, and those
+    of the spec's own frame or call after the ``before`` frames), its
+    program count (and with ``timing``, its ms per frame, and per draw the
+    geometry merge's), and on rank 0 the comparison with the
+    single-device frame on the same device (and the whole frame as numpy
+    when ``spec["arrays"]``).  An exception of the class
+    ``spec["expect"]`` is caught and reported."""
     mesh = make_mesh(spec["mesh"], world_mesh.device_type)
     cfg = RendererConfig(**spec.get("config", {}))
     is_seq = bool(spec.get("sequence"))
     before = _launch_counts()
     try:
         tr = TiledRenderer(cfg, mesh, spec.get("geometry_axis"))
+        for draws in spec.get("before", []):
+            _prepare(tr, {**spec, "draws": draws})()
         render = _prepare(tr, spec)
+        mid = _launch_counts()
         got = render()
     except Exception as e:  # an expected rejection is the result; anything else fails the run
         if type(e).__name__ != spec.get("expect"):
@@ -193,7 +200,9 @@ def run_spec(world_mesh, spec) -> dict:
         raise AssertionError(f"expected {spec['expect']}, nothing was raised")
     after = _launch_counts()
     dev = tr.device
-    res = {"launches": {k: after[k] - before[k] for k in after}, "shard": tuple(tr.shard[:2])}
+    res = {"launches": {k: after[k] - before[k] for k in after},
+           "frame_launches": {k: after[k] - mid[k] for k in after}, "shard": tuple(tr.shard[:2]),
+           "programs": tr.num_cached_programs}
     if is_seq:
         sums, frames = got
         res["overflowed"] = bool(tr.last_sequence_overflowed)

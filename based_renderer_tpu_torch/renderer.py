@@ -14,7 +14,7 @@ coverage MSAA; the template transpose and the row-reading assembly under
 ``raster_tmpl="pallas"``), then per draw the gather-free shading from the
 interpolated planes (per covered tile under ``shade_compact``) and the
 blend composite against that draw's own visibility snapshot, and the MSAA
-resolve.  ``render_frame`` runs eagerly.
+resolve.  ``_run_frame`` is that frame, eagerly.
 
 ``RendererConfig.msaa=4`` is coverage-sample MSAA-4x: per-sample
 visibility at the four standard sample positions, attributes and shading
@@ -37,18 +37,32 @@ compacts an instanced draw's visible instances into a budget before
 expansion and carries each surviving triangle's original id through the
 records, so the frame equals the unculled one.
 
+A frame is one cached program per key, as the JAX package jits one
+per key: ``end_frame`` (and ``render_frame``) looks the program up by the
+JAX package's key (the configuration; per draw the pipeline, the shapes
+and dtypes of the attributes, indices, instance tables and uniform
+leaves, the uniform tree, a texture's sampler state; the clear depth; the
+shard), copies the caller's inputs and clear colour into the program's
+own buffers and runs it.  On CUDA the program's frame is captured as
+CUDA graphs on the key's first call (one eager warm-up frame on a side
+stream, then the capture) and replayed after that; its results are
+cloned, since the next replay overwrites them.  On the CPU, and on a
+geometry axis, whose depth composite talks to other ranks inside the
+frame, the program runs the eager frame over its buffers.  A capture
+that fails raises.  The eager frame stays reachable:
+``r._run_frame(*r.close_frame())``.
+
 ``render_sequence`` and ``render_sequence_multi`` render N frames of a
 draw list whose uniforms change per frame.  Where the JAX package scans
-one compiled program, the port captures the frame as CUDA graphs, one
-cached program per key (the draws' state and shapes, the ids of the
-tensors it captures, ``return_frames``, the clear values), and replays
-them once per frame.  The frame is captured in segments split at the
-compaction's host read: the first runs pass 1 and pass 2 up to the first
-compacted draw's covered-tile count; the host reads the count and
-replays the segment captured for the chosen budget (capturing it on
-first use), which runs to the next count or the end.  All segments of a
-program share one memory pool.  On the CPU a sequence is the eager frame
-loop over the same input buffers.
+one compiled program, the port runs the same program machinery once per
+frame, one cached program per key (the draws' state and shapes, the ids
+of the tensors it captures, ``return_frames``, the clear values), and
+copies each frame's uniforms into its buffers on the device.  A frame is
+captured in segments split at the compaction's host read: the first
+runs pass 1 and pass 2 up to the first compacted draw's covered-tile
+count; the host reads the count and replays the segment captured for the
+chosen budget (capturing it on first use), which runs to the next count
+or the end.  All segments of a program share one memory pool.
 """
 
 from __future__ import annotations
@@ -426,8 +440,8 @@ class _Pending(NamedTuple):
 
 
 class _Capture(NamedTuple):
-    """Where a sequence program captures: one memory pool for all of its
-    segments, and the side stream its warm-up and captures run on."""
+    """Where a program captures: one memory pool for all of its segments,
+    and the side stream its warm-up and captures run on."""
 
     pool: Any
     stream: torch.cuda.Stream
@@ -470,48 +484,21 @@ class _Segment:
         return self.out
 
 
-class _SequenceProgram:
-    """One cached sequence: the draw list over input buffers of its own,
-    and on CUDA the captured segments of its frame.
+class _Program:
+    """A cached program: a draw list over input buffers of its own, run
+    one frame per ``frame()`` call.  On CUDA the frame's segments are
+    captured as CUDA graphs, after one eager warm-up frame on the capture
+    stream, and replayed; without a capture (the CPU, and a geometry axis,
+    which merges over a process group inside the frame, which no CUDA
+    graph can capture) the same segments run eagerly."""
 
-    Per call, a generated mesh's generator() fills its attribute buffers
-    once; per frame, each per-frame uniform leaf is copied into its buffer
-    from the stacked (N, ...) tensor, the segments run (replayed on CUDA),
-    and the checksum, the overflow and, if asked, the colour are written
-    out.  Mesh attributes, instance tables, static uniforms and textures
-    are taken as they are: the key carries their ids, and the program
-    keeps the caller's objects alive so the ids stay unique."""
-
-    def __init__(self, r: "Renderer", draws, specs, keep, shard: Optional[Shard] = None):
+    def __init__(self, r: "Renderer", draws, clear_color, clear_depth: float, shard: Optional[Shard]):
         self.r = r
+        self.draws = draws
+        self.clear = (clear_color, clear_depth)
         self.shard = shard
-        self.keep = keep  # the caller's objects whose ids are in the key
-        self.inputs = []  # one buffer per per-frame uniform leaf, in flattening order
-        self.generated = []  # (attribute buffers, generator) per generated mesh
-        self.draws = []
-        for d, (leaves, treedef, static) in zip(draws, specs):
-            mesh = d.mesh
-            if mesh.generator is not None:
-                bufs = {k: torch.empty_like(v) for k, v in mesh.attributes.items()}
-                self.generated.append((bufs, mesh.generator))
-                mesh = Mesh(attributes=bufs, indices=None, generator=mesh.generator)
-            frame_leaves = []
-            for x in leaves:
-                if isinstance(x, Texture):
-                    frame_leaves.append(x.to(r.device))
-                else:
-                    self.inputs.append(torch.empty(x.shape[1:], dtype=x.dtype, device=r.device))
-                    frame_leaves.append(self.inputs[-1])
-            u = _unflatten(treedef, frame_leaves)
-            if isinstance(u, dict):
-                u = {**r._uniforms(static), **u}
-            inst = r._uniforms(d.instances) if d.instances else None
-            self.draws.append(_DrawCmd(d.pipeline, mesh, u, inst))
-        self.clear = r._frame_clear
         self.capture = None
         self.warm = False
-        # A geometry axis merges over a process group inside the frame,
-        # which no CUDA graph can capture: that frame runs eagerly.
         if r.device.type == "cuda" and (shard is None or shard.geometry is None):
             self.capture = _Capture(torch.cuda.graph_pool_handle(), torch.cuda.Stream(r.device))
         self.root = _Segment(lambda _: r._frame_begin(self.draws, *self.clear, shard))
@@ -537,6 +524,127 @@ class _SequenceProgram:
             state = child.run(state, self.capture)
             node = child
         return state
+
+
+class _Slot:
+    """One input buffer of a frame program, and the tensor last copied
+    into it with that tensor's version counter."""
+
+    __slots__ = ("buf", "src", "version")
+
+    def __init__(self, buf: torch.Tensor):
+        self.buf, self.src, self.version = buf, None, None
+
+    def load(self, x):
+        """Copy ``x`` into the buffer on the current stream, unless it is
+        the tensor of the last call and unchanged since (an inference
+        tensor keeps no version counter: always copied).  Anything but a
+        tensor is copied every time: a numpy array can change in place
+        with no counter to show it."""
+        if isinstance(x, torch.Tensor):
+            version = None if x.is_inference() else x._version
+            if x is self.src and version is not None and version == self.version:
+                return
+            self.buf.copy_(x)
+            self.src, self.version = x, version
+            return
+        if isinstance(x, (bool, int, float)):
+            self.buf.fill_(x)
+        else:
+            self.buf.copy_(torch.tensor(np.asarray(x)))
+        self.src = self.version = None
+
+
+def _map_inputs(draws, fn) -> list:
+    """The draws with every input replaced by ``fn(x, uniform)``, in one
+    fixed order per key: per draw the mesh attributes (sorted), the
+    indices, the instance tables (sorted), then the uniform leaves in
+    flattening order, a texture's data and packed rows in its place.
+    ``uniform`` is True where the frame converts the value as a uniform
+    (Renderer._uniform_leaf) and False where it reads it as it is."""
+    out = []
+    for d in draws:
+        mesh = d.mesh
+        attrs = {k: fn(mesh.attributes[k], False) for k in sorted(mesh.attributes)}
+        indices = None if mesh.indices is None else fn(mesh.indices, False)
+        inst = {k: fn(d.instances[k], True) for k in sorted(d.instances)} if d.instances else None
+        leaves, treedef = _flatten(d.uniforms)
+        leaves = [Texture(fn(x.data, False), fn(x.packed, False), x.meta) if isinstance(x, Texture) else fn(x, True)
+                  for x in leaves]
+        out.append(_DrawCmd(d.pipeline, Mesh(attributes=attrs, indices=indices), _unflatten(treedef, leaves), inst))
+    return out
+
+
+class _FrameProgram(_Program):
+    """``end_frame``'s program for one key, the JAX package's jitted frame.
+
+    Every input of the frame lies in a buffer the program owns: the mesh
+    attributes and indices, the instance tables, the uniform leaves, each
+    texture's data and packed rows, and the clear colour.  A call copies
+    the caller's values into them (``_Slot.load``), runs the frame and
+    returns its result tuple.  A captured frame's results are clones: the
+    graph's own outputs are overwritten by the next replay."""
+
+    def __init__(self, r: "Renderer", draws, clear_depth: float, shard: Optional[Shard]):
+        self.slots = []
+
+        def make(x, uniform):
+            t = r._uniform_leaf(x) if uniform else x
+            self.slots.append(_Slot(torch.empty(t.shape, dtype=t.dtype, device=r.device)))
+            return self.slots[-1].buf
+
+        bound = _map_inputs(draws, make)
+        self.last_clear = None
+        super().__init__(r, bound, torch.empty((4,), dtype=torch.float32, device=r.device), clear_depth, shard)
+
+    def __call__(self, draws, clear_color):
+        slots = iter(self.slots)
+        _map_inputs(draws, lambda x, _: next(slots).load(x))
+        if clear_color != self.last_clear:
+            self.clear[0].copy_(torch.tensor(clear_color, dtype=torch.float32))
+            self.last_clear = clear_color
+        out = self.frame()
+        if self.capture is not None:
+            out = tuple(None if x is None else x.clone() for x in out)
+        return out
+
+
+class _SequenceProgram(_Program):
+    """One cached sequence: the draw list over input buffers of its own,
+    and on CUDA the captured segments of its frame.
+
+    Per call, a generated mesh's generator() fills its attribute buffers
+    once; per frame, each per-frame uniform leaf is copied into its buffer
+    from the stacked (N, ...) tensor, the segments run (replayed on CUDA),
+    and the checksum, the overflow and, if asked, the colour are written
+    out.  Mesh attributes, instance tables, static uniforms and textures
+    are taken as they are: the key carries their ids, and the program
+    keeps the caller's objects alive so the ids stay unique."""
+
+    def __init__(self, r: "Renderer", draws, specs, keep, shard: Optional[Shard] = None):
+        self.keep = keep  # the caller's objects whose ids are in the key
+        self.inputs = []  # one buffer per per-frame uniform leaf, in flattening order
+        self.generated = []  # (attribute buffers, generator) per generated mesh
+        bound = []
+        for d, (leaves, treedef, static) in zip(draws, specs):
+            mesh = d.mesh
+            if mesh.generator is not None:
+                bufs = {k: torch.empty_like(v) for k, v in mesh.attributes.items()}
+                self.generated.append((bufs, mesh.generator))
+                mesh = Mesh(attributes=bufs, indices=None, generator=mesh.generator)
+            frame_leaves = []
+            for x in leaves:
+                if isinstance(x, Texture):
+                    frame_leaves.append(x.to(r.device))
+                else:
+                    self.inputs.append(torch.empty(x.shape[1:], dtype=x.dtype, device=r.device))
+                    frame_leaves.append(self.inputs[-1])
+            u = _unflatten(treedef, frame_leaves)
+            if isinstance(u, dict):
+                u = {**r._uniforms(static), **u}
+            inst = r._uniforms(d.instances) if d.instances else None
+            bound.append(_DrawCmd(d.pipeline, mesh, u, inst))
+        super().__init__(r, bound, *r._frame_clear, shard)
 
     def run(self, stacks, n: int, return_frames: bool):
         """N frames: (checksums (N,), colours (N, 4, H, W) or None, overflowed ()),
@@ -578,7 +686,8 @@ class Renderer:
         self._draws: list[_DrawCmd] = []
         self._in_frame = False
         self._frame_clear = (config.clear_color, config.clear_depth)
-        self._sequences: dict = {}
+        self._programs: dict = {}  # frame programs by key
+        self._sequences: dict = {}  # sequence programs by key
         self.last_sequence_overflowed = None
         self.frame_count = 0
 
@@ -691,7 +800,7 @@ class Renderer:
         return (draws, *self._frame_clear)
 
     def end_frame(self) -> FrameResult:
-        color, depth_q, tri_id, stencil, overflowed = self._run_frame(*self.close_frame())
+        color, depth_q, tri_id, stencil, overflowed = self._frame(*self.close_frame())
         if self.config.debug:
             if bool(overflowed):
                 raise AllocationError(
@@ -719,10 +828,23 @@ class Renderer:
 
     # -- the frame -----------------------------------------------------------
 
+    def _frame(self, draws, clear_color, clear_depth: float, shard: Optional[Shard] = None):
+        """The frame through the program cached for its key (the JAX
+        package's _program_cache): made on the key's first call, which on
+        CUDA also captures it.  The result tuple is the caller's own."""
+        key = (self._cache_key(draws), clear_depth, shard)
+        program = self._programs.get(key)
+        if program is None:
+            program = _FrameProgram(self, draws, clear_depth, shard)
+        out = program(draws, clear_color)
+        self._programs[key] = program
+        return out
+
     def _uniform_leaf(self, x):
         """A uniform on the device, floats as float32.  A Python scalar is
-        made there by a fill kernel; an array is uploaded (an eager frame's
-        host-to-device copy: a sequence makes it once per call)."""
+        made there by a fill kernel; an array is uploaded (the eager
+        frame's host-to-device copy: a sequence makes it once per call, a
+        frame program once, to size its buffer)."""
         if isinstance(x, torch.Tensor):
             t = x.to(self.device)
         elif isinstance(x, (bool, int, float)):
@@ -762,8 +884,10 @@ class Renderer:
         return (shard.origin[0] * scale, shard.origin[1] * scale, shard.extent[0] * scale, shard.extent[1] * scale)
 
     def _run_frame(self, draws, clear_color, clear_depth: float, shard: Optional[Shard] = None):
-        """The whole frame eagerly: the result tuple (color, depth_q,
-        tri_id, stencil, overflowed), over the shard's window if given."""
+        """The whole frame eagerly, on the caller's inputs: the result tuple
+        (color, depth_q, tri_id, stencil, overflowed), over the shard's
+        window if given.  ``clear_color`` is a 4-tuple, or a program's (4,)
+        buffer."""
         state = self._frame_begin(draws, clear_color, clear_depth, shard)
         while isinstance(state, _Pending):
             state = self._frame_resume(state, self._tile_budget(state))
@@ -775,7 +899,9 @@ class Renderer:
         fv = self._visibility(draws, clear_depth, shard)
         coverage_msaa = self._extent()[0]
         _, _, w, h = self._window(shard)
-        clear = fp.consts(clear_color, self.device).reshape(4, 1, 1)
+        if not isinstance(clear_color, torch.Tensor):  # a program's clear colour is a buffer
+            clear_color = fp.consts(clear_color, self.device)
+        clear = clear_color.reshape(4, 1, 1)
         color = clear.expand(*((4,) if coverage_msaa else ()), 4, h, w)
         return self._shade_from(fv, 0, color)
 
@@ -1178,11 +1304,13 @@ class Renderer:
         """The JAX package's program key (renderer.py:381-404): the
         configuration, and per draw its pipeline, the shapes and dtypes of
         its attributes, indices and instance tables, its uniform tree and
-        the shapes of the uniform leaves (values for Python scalars)."""
+        the shapes of the uniform leaves (values for Python scalars); a
+        texture leaf adds its packed rows' shape and its sampler state
+        (``meta``), which the JAX package's key holds in the uniform tree."""
 
         def sig(x):
-            if isinstance(x, Texture):
-                x = x.data
+            if isinstance(x, Texture):  # the JAX Texture's treedef holds its meta
+                return sig(x.data), sig(x.packed), x.meta
             if hasattr(x, "shape") and hasattr(x, "dtype"):
                 return (tuple(x.shape), str(x.dtype))
             return repr(x)
@@ -1206,8 +1334,8 @@ class Renderer:
 
     @property
     def num_cached_programs(self) -> int:
-        """The captured sequence programs this renderer holds (CPU: the
-        programs of its eager sequences).  The JAX package counts its
-        compiled frame programs here too; the port's frames run eagerly
-        and cache nothing."""
-        return len(self._sequences)
+        """The frame and sequence programs this renderer holds, one per
+        key, as the JAX package's _program_cache counts its compiled
+        frame and sequence programs (on the CPU the programs run
+        eagerly, but they are cached all the same)."""
+        return len(self._programs) + len(self._sequences)

@@ -320,11 +320,16 @@ def _blinn_phong_vs(attrs, uniforms):
 
 def _as_f32(value, like) -> torch.Tensor:
     """``value`` as float32 on ``like``'s device; a constant (a default)
-    is made there by fill kernels, with no host-to-device copy."""
+    is made there by fill kernels, with no host-to-device copy.  A tuple
+    uniform reaches a shader as a tuple of device scalars (the renderer
+    maps uniform trees leaf by leaf): it is stacked on the device, with
+    no host read, which a captured frame may not make."""
     if isinstance(value, torch.Tensor):
         return value.to(device=like.device, dtype=torch.float32)
     if isinstance(value, (int, float)):
         return torch.full((), value, dtype=torch.float32, device=like.device)
+    if any(isinstance(v, torch.Tensor) for v in value):
+        return torch.stack([_as_f32(v, like) for v in value])
     return fp.consts(value, like.device)
 
 

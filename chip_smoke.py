@@ -74,16 +74,22 @@ result lines):
      adversarial_configs lists; the setup and the near clip on the card
      bitwise equal to the CPU's; each case asserts its regime; the oracle
      runs in 6 worker processes meanwhile.  Then the empty draw and the 10k
-     instances all culled (instance_cull 0.9) through render_frame and
-     render_sequence_multi (captured CUDA graphs): nothing covered, no
+     instances all culled (instance_cull 0.9) through render_frame (the
+     key's capture, then a replay) and render_sequence_multi (captured
+     CUDA graphs): nothing covered, no
      overflow, the clear colour; the next frame and the next sequence
      equal the same drawn on a fresh renderer;
-  8. end to end: Renderer.render_frame with big_mesh (1M triangles) at
+  8. end to end: Renderer.render_frame, through the key's program (its
+     first frame captures it as CUDA graphs, the others replay), with
+     big_mesh (1M triangles) at
      1920x1080 and 3840x2160, instanced (10k cubes) at 1920x1080, cube at
      1920x1080 and triangle at 800x600, and the three MSAA runs: big_mesh at
      3840x2160 with msaa=4 (BASELINE config 5), the cube at 1920x1080 with
      msaa=4 and with msaa_supersample; the launches of each frame are
-     asserted (dense frames assemble_records and raster_sublane once, MSAA
+     asserted (the capture frame twice the eager frame's counts, for its
+     warm-up and its capture, a replay none; the eager frames of the same
+     runs through Renderer._run_frame once a frame: dense frames
+     assemble_records and raster_sublane once, MSAA
      big_mesh assemble_records and raster_msaa4_sublane once, the MSAA cube
      raster_msaa4 once, cube, triangle and supersampled cube raster_tile
      once); the render-state frames at 1920x1080, plain and MSAA-4x (three
@@ -99,17 +105,25 @@ result lines):
      the 10k instances with instance_cull 0.9 (B3 and B2 once a frame),
      and at msaa=4 unculled and culled (B3 and B5 once a frame; the culled
      draw with pair and slot budgets of 1.3 and 0.7 per triangle); no frame
-     overflows; one kernel-path frame of each of the last ten runs equals
-     the plain-path frame (tri_id, depth_q and stencil exact, colour within
-     1e-5); culled frames equal unculled ones the same way, and the worst
-     visible share of the timed culled frames is printed; median ms/frame
-     on the kernel path and on the plain path;
+     overflows; each run's replayed frame equals _run_frame on the same
+     inputs (tri_id, depth_q and stencil exact, colour within 1e-5), and
+     the profiler sees the eager frame's kernel launches in it and no
+     counter moves; a FrameResult held across two later frames equals its
+     eager frame, and a new cube mesh of the same shapes (scaled 0.5)
+     renders through the cached program; one replayed frame of each of the
+     last ten runs equals the plain-path frame (eager: a replay ignores the
+     swap; the profiler sees no kernel symbol in it) the same way; culled
+     frames equal unculled ones the same way, and the worst visible share
+     of the timed culled frames is printed; median ms/frame replayed (the
+     capture frame left out), eager and on the plain path, each
+     program's reserved memory (memory_reserved around its capture,
+     caches emptied) and the phase's peak;
   9. sequences: render_sequence_multi, each frame replaying captured CUDA
      graphs, for the cube, the textured cube (compacted), the 10k
      instances unculled and culled, big_mesh at 1080p (uploaded and
      generated), big_mesh at 4K MSAA-4x and the three-draw render-state
      frame, at the sizes of phase 8: 4 frames with return_frames equal to
-     eager render_frame (colour within 1e-5), checksums sum(color),
+     the eager _run_frame (colour within 1e-5), checksums sum(color),
      distinct frames, no overflow; the first call launches each kernel
      twice a frame's count (the eager warm-up and the capture), and a
      later call launches none eagerly while the profiler sees each
@@ -125,12 +139,17 @@ result lines):
      big_mesh (1M triangles) for 20 frames with and without --out; the
      PNG count and PresentRing.presented equal the frame count, the last
      PNG (decoded with zlib) equals render_frame(t_last).color_u8() byte
-     for byte, B1 launched once a frame (cube), B3 and B2 once a frame
-     (big_mesh), every presented image lay in page-locked staging; then a
-     shader file (the cube's vertex-colour program as torch source,
-     shader.load_file) renders the 1080p cube through B1 bitwise equal
-     to the built-in shader's frame; fps over each loop and the
-     StageTimer report of the --profile run;
+     for byte, the counters see the first frame's warm-up and capture (B1
+     twice for the cube, B3 and B2 twice for big_mesh) and the profiler,
+     over the --srgb run, B1 once a frame and once for the warm-up, every
+     presented image lay in page-locked staging; then a shader file (the
+     cube's vertex-colour program as torch source, shader.load_file)
+     renders the 1080p cube through B1, in a program of its own, bitwise
+     equal to the built-in shader's frame; then present.render_loop with
+     the present ring writing PNGs, switched at frame 31 to a front-culled
+     cube: a new key captured with earlier frames' copies in flight, 60
+     PNGs, the last equal to that frame's color_u8; fps over each loop and
+     the StageTimer report of the --profile run;
  11. multi-device: parallel.TiledRenderer on 4 ranks (parallel/launch.py)
      sharing this card over gloo: (a) the cube at 1920x1080 over (y=1,
      x=4), B1; (b) big_mesh (1M triangles) at 3840x2160 over (y=2, x=2),
@@ -139,7 +158,10 @@ result lines):
      (d) the dry run's MSAA-4x frame (scissored cube, stencil write,
      stencil-tested blend) at 1920x1080 over (y=1, x=4), B4 with stencil;
      (e) a cube sequence of 8 frames over (y=1, x=4), replaying each
-     rank's captured graphs.  Each rank's launches are asserted; on rank 0
+     rank's captured graphs.  Runs (a)-(d) render one frame of the key
+     first (meshes of their own): a tile-only rank's compared and timed
+     frames replay its captured program, the geometry axis's run eagerly.
+     Each rank's launches and its one program are asserted; on rank 0
      the gathered frame equals the single-device frame on this card
      (tri_id, depth_q and stencil bitwise, colour within 1e-5, and bitwise
      against a frame drawn at the tile the windows cut to), the sequence's
@@ -158,14 +180,19 @@ of its bytes over 3.35 TB/s, the winning records' float rows included for
 the rasters, and its integer operations over the card's int32 rate; B8's
 library call; B3's two entries report the culled instanced stream), the
 nvidia-smi name/power line, and last the device line.
+When main() ends, passed or failed, the script stops and reaps every
+process it started, multiprocessing's resource tracker and any orphan of
+a child included (it is their subreaper), and names each on stderr.
 Imports nothing of JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
+import os
 import pathlib
 import shutil
 import statistics
@@ -356,6 +383,83 @@ def nvidia_smi(query: str) -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+PR_SET_CHILD_SUBREAPER = 36
+
+
+def adopt_orphans() -> None:
+    """Make this process the reaper of its orphaned descendants (Linux
+    prctl), so a process that a child started and left behind is still
+    this script's child when stop_children runs."""
+    import ctypes
+
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0) != 0:
+        raise OSError(ctypes.get_errno(), "prctl(PR_SET_CHILD_SUBREAPER) failed")
+
+
+def _children() -> dict[int, str]:
+    """{pid: command line} of this process's live child processes."""
+    me, kids = os.getpid(), {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+            if ppid == me:
+                with open(f"/proc/{d}/cmdline", "rb") as f:
+                    kids[int(d)] = f.read().replace(b"\0", b" ").decode(errors="replace").strip()
+        except (OSError, IndexError, ValueError):  # it exited meanwhile
+            continue
+    return kids
+
+
+def stop_children(grace: float = 10.0) -> None:
+    """Stop and reap every process this script started that still runs:
+    worker pools and ranks, multiprocessing's resource tracker (it exits
+    when its pipe closes; it ignores SIGTERM), and anything orphaned below
+    them.  Each one found is named on stderr; raises if one survives
+    SIGKILL."""
+    import multiprocessing
+    import signal
+    from multiprocessing import resource_tracker
+
+    for p in multiprocessing.active_children():
+        print(f"chip_smoke: stopping child process {p.pid}: {p.name}", file=sys.stderr, flush=True)
+        p.terminate()
+        p.join(grace)
+        if p.is_alive():
+            p.kill()
+            p.join()
+    gc.collect()  # a semaphore finalized after the tracker stopped would start a new one
+    tracker = resource_tracker._resource_tracker
+    if getattr(tracker, "_fd", None) is not None:
+        os.close(tracker._fd)
+        tracker._fd = None
+    deadline = time.monotonic() + grace
+    named = set()
+    while True:
+        kids = _children()
+        for pid, cmd in kids.items():
+            try:
+                done, _ = os.waitpid(pid, os.WNOHANG)
+            except ChildProcessError:
+                continue
+            if done:
+                continue
+            if pid not in named:
+                print(f"chip_smoke: stopping child process {pid}: {cmd[:200]}", file=sys.stderr, flush=True)
+                named.add(pid)
+                os.kill(pid, signal.SIGTERM)
+            elif time.monotonic() > deadline:
+                os.kill(pid, signal.SIGKILL)
+        if not kids:
+            return
+        if time.monotonic() > deadline + grace:
+            raise RuntimeError(f"chip_smoke: child processes {sorted(kids)} did not stop")
+        time.sleep(0.05)
 
 
 def kernel_ms(fn, symbol: str, iters: int = KERNEL_ITERS) -> float:
@@ -722,12 +826,14 @@ def empty_and_culled_draws(dev, counts, reset_counts, names) -> dict:
     """Phase 7b's draws with nothing to draw, through the renderer on the
     card: the cube pipeline on a mesh of no triangles, and the 10k
     instanced cubes moved out of the frustum under instance_cull 0.9 (every
-    compacted slot a culled instance), each by render_frame and by
-    render_sequence_multi (captured CUDA graphs): no CUDA error, no
+    compacted slot a culled instance), each by render_frame (twice: the
+    key's capture, then a replay) and by render_sequence_multi (captured
+    CUDA graphs): no CUDA error, no
     overflow, no coverage (the clear colour everywhere); the kernels still
     launch, over tiles of no records.  The next frame, and the next
     sequence, equal the same drawn on a fresh renderer.  Returns the
-    launches of each empty frame."""
+    launches of each empty frame's capture (its eager warm-up and the
+    capture)."""
     import based_renderer_tpu_torch as brt
 
     def fresh():
@@ -760,10 +866,14 @@ def empty_and_culled_draws(dev, counts, reset_counts, names) -> dict:
     clear_color = r.config.clear_color
     launches = {}
     for label, args in (("empty draw", (pipe, empty, uniforms(0.1))), ("culled instances", (ipipe, imesh, iu(0.3)))):
-        reset_counts()
-        f = r.render_frame(*args, instances=gone if label == "culled instances" else None)
-        nothing(f"{label} render_frame", f.tri_id, f.overflowed, f.color_planar, clear_color)
-        launches[label] = {k: v for k, v in zip(names, counts()) if v}
+        for call in range(2):  # the first call captures the key's frame, the second replays it
+            reset_counts()
+            f = r.render_frame(*args, instances=gone if label == "culled instances" else None)
+            nothing(f"{label} render_frame call {call}", f.tri_id, f.overflowed, f.color_planar, clear_color)
+            if call == 0:
+                launches[label] = {k: v for k, v in zip(names, counts()) if v}
+            elif any(counts()):
+                raise AssertionError(f"[adversarial] {label}: the second render_frame launched {counts()} eagerly")
         if not launches[label]:
             raise AssertionError(f"[adversarial] {label}: no kernel launched")
         same(f"frame after the {label}", r.render_frame(pipe, mesh, uniforms(0.3)),
@@ -795,6 +905,7 @@ def empty_and_culled_draws(dev, counts, reset_counts, names) -> dict:
 
 
 def main() -> int:
+    started = time.perf_counter()
     # ---- 1. device ------------------------------------------------------
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this check needs a GPU")
@@ -1374,9 +1485,9 @@ def main() -> int:
         pipe = dataclasses.replace(pipe, raster_pairs_factor=16.0)
         u = uniforms(0.2)
         before = counts()
-        frame = toy_r.render_frame(pipe, mesh, u)
+        frame = toy_r.render_frame(pipe, mesh, u)  # the key's warm-up and capture, then its replay
         got = tuple(a - b for a, b in zip(counts(), before))
-        if got != want_launches or bool(frame.overflowed):
+        if got != tuple(2 * x for x in want_launches) or bool(frame.overflowed):
             raise AssertionError(f"oracle big_mesh {cfg.msaa}x: launches {got}, overflowed {bool(frame.overflowed)}")
         clip, _ = brt.shader.get(pipe.shader).vertex(mesh.attributes, {k: v.to(dev) for k, v in u.items()})
         return frame, clip.reshape(-1, 3, 4).cpu().numpy()
@@ -1435,28 +1546,93 @@ def main() -> int:
     )
 
     # ---- 8. end to end --------------------------------------------------
-    def render(r, draws, us):
-        """One frame of ``draws`` [(pipe, mesh, uniforms_fn, instances)] with uniforms ``us``."""
+    nk = len(KERNELS)
+    # symbol -> the COUNTS names whose launches run it
+    symbols = {B1: ("raster_tile", "raster_two_pass"), B2: ("raster_sublane", "raster_batched"),
+               B4: ("raster_msaa4",), B5: ("raster_msaa4_sublane",), "assemble_records_kernel": ("assemble_records",),
+               "assemble_records_rows_kernel": ("assemble_records_rows",),
+               "transpose_templates_kernel": ("transpose_templates",)}
+
+    def symbol_launches(per, frames=1):
+        """The kernel launches by symbol of ``frames`` frames of per-frame counts ``per``."""
+        return {sym: frames * sum(per[COUNTS.index(c)] for c in names) for sym, names in symbols.items()}
+
+    def profiled(fn, want=None):
+        """(fn()'s result, its kernel launches by symbol under torch.profiler).
+        With ``want``, retried while the profiler dropped launches' records
+        (it never adds one)."""
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        cuda = torch.autograd.DeviceType.CUDA
+        for _ in range(3):
+            with torch.profiler.profile(activities=acts) as prof:
+                out = fn()
+                torch.cuda.synchronize()
+            got = {sym: sum(e.count for e in prof.key_averages() if e.device_type == cuda and sym in e.key)
+                   for sym in symbols}
+            if want is None or got == want or any(got[k] > want[k] for k in want):
+                break
+        return out, got
+
+    def record(r, draws, us):
         r.begin_frame()
         for (pipe, mesh, _, inst), u in zip(draws, us):
             r.draw(pipe, mesh, u, instances=inst)
+
+    def render(r, draws, us):
+        """One frame of ``draws`` [(pipe, mesh, uniforms_fn, instances)] with
+        uniforms ``us``, through end_frame: the key's program, captured as
+        CUDA graphs on its first call and replayed after that."""
+        record(r, draws, us)
         return r.end_frame()
 
-    def run_frames(label, r, draws, frames, per_frame):
-        """Median ms/frame over ``frames`` frames; each frame must add
-        ``per_frame`` to the counts (see COUNTS)."""
-        times_, overflow, finite, covered = [], None, None, None
+    def eager(r, draws, us):
+        """The same frame eagerly, on the same inputs (Renderer._run_frame)."""
+        record(r, draws, us)
+        return renderer_mod.FrameResult(*r._run_frame(*r.close_frame()))
+
+    def run_frames(label, r, draws, frames, per, replayed=True):
+        """Median event-timed ms/frame over ``frames`` frames, the least
+        covered count, the counts launched, and the reserved memory (MiB)
+        a new program took.  Eager (``replayed`` False: _run_frame), each
+        frame must add ``per`` to the counts (COUNTS order).  Through
+        render_frame, a frame that makes its key's program adds twice the
+        kernels of ``per`` (the eager warm-up and the capture) and is left
+        out of the median; a replay adds none."""
+        times_, overflow, finite, covered, mib = [], None, None, None, None
+        launched = (0,) * len(COUNTS)
         for i in range(frames):
             us = [d[2](0.05 * i) for d in draws]
+            programs = r.num_cached_programs
+            if replayed and programs != len(r._programs) + len(r._sequences):
+                raise AssertionError(f"{label}: num_cached_programs {programs} is not the frame and sequence programs")
+            if replayed and i == 0:
+                # Earlier phases' cyclic garbage holds CUDA memory, which a
+                # capture collects: collect it first.
+                gc.collect()
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                reserved = torch.cuda.memory_reserved()
             before = counts()
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
-            f = render(r, draws, us)
+            f = render(r, draws, us) if replayed else eager(r, draws, us)
             end.record()
             got = tuple(a - b for a, b in zip(counts(), before))
-            if got != per_frame:
-                raise AssertionError(f"{label} frame {i}: launches {got}, expected {per_frame}")
-            times_.append((start, end))
+            launched = tuple(a + b for a, b in zip(launched, got))
+            new = r.num_cached_programs - programs
+            if replayed:
+                want = tuple(2 * new * x for x in per[:nk])
+                if got[:nk] != want:
+                    raise AssertionError(f"{label} frame {i}: launches {got[:nk]}, expected {want} "
+                                         f"({new} new programs)")
+                if new and i == 0:
+                    torch.cuda.synchronize()
+                    torch.cuda.empty_cache()
+                    mib = (torch.cuda.memory_reserved() - reserved) / 2**20
+            elif got != per or new:
+                raise AssertionError(f"{label} eager frame {i}: launches {got}, expected {per}, {new} new programs")
+            if not (replayed and new):
+                times_.append((start, end))
             ok = torch.isfinite(f.color_planar).all()
             cov = (f.tri_id >= 0).sum()
             overflow = f.overflowed if overflow is None else overflow | f.overflowed
@@ -1468,7 +1644,8 @@ def main() -> int:
         w, h = r.config.width, r.config.height
         if tuple(f.color_planar.shape) != (4, h, w):
             raise AssertionError(f"{label}: color shape {tuple(f.color_planar.shape)}")
-        return statistics.median(s.elapsed_time(e) for s, e in times_), int(covered)
+        ms = statistics.median(s.elapsed_time(e) for s, e in times_)
+        return {"ms": ms, "covered": int(covered), "launched": launched, "mib": mib}
 
     class plain_path:
         """Within it, the renderer runs every kernel's plain version."""
@@ -1519,13 +1696,17 @@ def main() -> int:
         return float((got.color_planar - want.color_planar).abs().max())
 
     def kernel_vs_plain(label, r, draws, decal_from=None):
-        """One frame on the kernel path against the plain path: tri_id,
-        depth_q and stencil exact, colour within COLOR_TOL.  ``decal_from``:
-        the first triangle id of the last draw, which must win pixels."""
+        """One frame on the kernel path (render_frame: a replay) against the
+        plain path (eager: a replay would ignore the swap), in which the
+        profiler sees no kernel symbol: tri_id, depth_q and stencil exact,
+        colour within COLOR_TOL.  ``decal_from``: the first triangle id of
+        the last draw, which must win pixels."""
         us = [d[2](0.0) for d in draws]
         got = render(r, draws, us)
         with plain_path():
-            want = render(r, draws, us)
+            want, syms = profiled(lambda: eager(r, draws, us))
+        if any(syms.values()):
+            raise AssertionError(f"{label}: the plain-path frame launched kernels {syms}")
         torch.cuda.synchronize()
         diff = frames_equal(f"{label} kernel vs plain frame", got, want)
         if not diff <= COLOR_TOL:
@@ -1601,15 +1782,65 @@ def main() -> int:
         return sample_separable(*a, **kw)
 
     tex_ops.sample_separable = counted_separable
+    # The main path: every run through render_frame, each key's first frame
+    # a capture (the counters count its eager warm-up and its capture), the
+    # others replays (launches under the profiler, below).
     reset_counts()
     results = {label: run_frames(label, r, draws, n, per) for label, r, draws, n, _, per in runs}
     main_launches = dict(zip(COUNTS, counts()))
-    expected = {k: sum(n * per[i] for _, _, _, n, _, per in runs) for i, k in enumerate(COUNTS)}
-    if main_launches != expected:
-        raise AssertionError(f"main path launches {main_launches}, expected {expected}")
+    expected = dict(zip(COUNTS, (sum(x) for x in zip(*(res["launched"] for res in results.values())))))
+    if main_launches != expected or not all(main_launches[k] for k in KERNELS):
+        raise AssertionError(f"main path launches {main_launches}, expected {expected}, every kernel at least once")
+    if separable[0] != 2:  # the textured_fullscreen key's warm-up and capture
+        raise AssertionError(f"the separable sampler ran {separable[0]} times on the main path, expected 2")
+    peak_mib = torch.cuda.max_memory_reserved() / 2**20
+    held_mib = torch.cuda.memory_reserved() / 2**20
+    # The same frames eagerly (_run_frame): the counters move every frame.
+    separable[0] = 0
+    eager_ms = {label: run_frames(label, r, draws, n, per, replayed=False)["ms"] for label, r, draws, n, _, per in runs}
     if separable[0] != 20:  # the textured_fullscreen frames, one separable tap each
-        raise AssertionError(f"the separable sampler ran {separable[0]} times, expected 20")
+        raise AssertionError(f"the separable sampler ran {separable[0]} times in the eager frames, expected 20")
     tex_ops.sample_separable = sample_separable
+
+    # Each run: a replayed frame = _run_frame on the same inputs, and the
+    # profiler sees the eager frame's launches in it, none eager.
+    replay_diffs = {}
+    for label, r, draws, _, _, per in runs:
+        us = [d[2](0.37) for d in draws]
+        render(r, draws, us)  # a compacted draw's budget at t = 0.37 may be new: capture its segment first
+        before = counts()
+        got, syms = profiled(lambda: render(r, draws, us), symbol_launches(per))
+        if counts()[:nk] != before[:nk]:
+            raise AssertionError(f"{label}: a replayed frame launched kernels eagerly")
+        if syms != symbol_launches(per):
+            raise AssertionError(f"{label}: a replayed frame launched {syms}, the eager frame {symbol_launches(per)}")
+        d = frames_equal(f"{label} replayed vs eager frame", got, eager(r, draws, us))
+        if not d <= COLOR_TOL:
+            raise AssertionError(f"{label} replayed vs eager frame: colour differs by {d}")
+        replay_diffs[label] = d
+
+    # A held FrameResult outlives two later frames of its key; a new mesh of
+    # the same shapes (the cube scaled) goes through the cached program.
+    cube_draws = {label: draws for label, _, draws, *_ in runs}["cube 1920x1080"]
+    uf = cube_draws[0][2]
+    held = render(cube_r, cube_draws, [uf(0.11)])
+    held_want = eager(cube_r, cube_draws, [uf(0.11)])
+    later = [render(cube_r, cube_draws, [uf(t)]) for t in (0.6, 0.9)]
+    held_diff = frames_equal("held FrameResult after two later frames", held, held_want)
+    if not held_diff <= COLOR_TOL or torch.equal(held.tri_id, later[-1].tri_id):
+        raise AssertionError(f"held FrameResult: colour differs by {held_diff}, or the later frames are the same")
+    from based_renderer_tpu_torch.models import geometry
+
+    cube = geometry.cube_mesh_data()
+    scaled = cube_r.upload_mesh(cube["positions"] * np.float32(0.5), color=cube["color"])
+    scaled_draws = [(cube_draws[0][0], scaled, uf, None)]
+    programs = cube_r.num_cached_programs
+    f_scaled = render(cube_r, scaled_draws, [uf(0.11)])
+    scaled_diff = frames_equal("scaled cube through the cached key", f_scaled, eager(cube_r, scaled_draws, [uf(0.11)]))
+    covered_scaled, covered_held = int((f_scaled.tri_id >= 0).sum()), int((held.tri_id >= 0).sum())
+    if cube_r.num_cached_programs != programs or not scaled_diff <= COLOR_TOL or covered_scaled >= covered_held:
+        raise AssertionError(f"scaled cube: {cube_r.num_cached_programs - programs} new programs, colour diff "
+                             f"{scaled_diff}, covered {covered_scaled} of the cube's {covered_held}")
 
     # The tmpl route's frame equals the default big_mesh frame.
     u_big = big_demo[2](0.0)
@@ -1641,31 +1872,34 @@ def main() -> int:
         vis = instance_visibility(shd, inst_demo[1], inst_demo[3], u, W, H)
         worst_share = max(worst_share, int(vis.sum()) / vis.shape[0])
     with plain_path():
-        plain = {label: run_frames(label, r, draws, n, (0,) * len(KERNELS) + per[len(KERNELS):])[0]
+        plain = {label: run_frames(label, r, draws, n, (0,) * nk + per[nk:], replayed=False)["ms"]
                  for label, r, draws, _, n, per in runs}
     print(
-        "[end-to-end] median ms/frame kernel/plain (frames): "
+        "[end-to-end] render_frame through per-key programs (captured CUDA graphs, replayed after the key's first "
+        "frame); median event-timed ms/frame replayed / eager _run_frame / plain path (frames; the capture frame "
+        "left out), the program's reserved MiB: "
         + "; ".join(
-            f"{label} {results[label][0]:.3f}/{plain[label]:.3f} ({n}/{pn}, min covered {results[label][1]} samples)"
+            f"{label} {results[label]['ms']:.3f}/{eager_ms[label]:.3f}/{plain[label]:.3f} ({n}/{n}/{pn}, "
+            f"{results[label]['mib'] or 0.0:.1f} MiB, min covered {results[label]['covered']} samples)"
             for label, _, _, n, pn, _ in runs
         )
-        + f" | kernel vs plain frame, max colour diff (tol {COLOR_TOL}): "
+        + f" | reserved after the runs {held_mib:.1f} MiB, peak {peak_mib:.1f} MiB"
+        + f" | replayed = eager frame on the same inputs (tri_id, depth_q, stencil exact; the profiler sees the eager "
+        f"frame's launches, none eager), max colour diff: " + ", ".join(f"{k} {d:.3g}" for k, d in replay_diffs.items())
+        + f" | held FrameResult after two later frames = its eager frame (colour diff {held_diff:.3g}); the cube "
+        f"scaled 0.5 through the cached key = eager (colour diff {scaled_diff:.3g}, covered {covered_scaled} of "
+        f"{covered_held})"
+        + f" | kernel (replayed) vs plain (eager, no kernel symbol) frame, max colour diff (tol {COLOR_TOL}): "
         + ", ".join(f"{label} {d:.3g}" for label, d in frame_diffs.items())
         + f" | big_mesh tmpl vs default frame: tri_id, depth_q exact, colour diff {tmpl_diff:.3g}"
         + f" | instance_cull {CULL} vs unculled frames: tri_id, depth_q exact, colour diff "
         + ", ".join(f"{k} {d:.3g}" for k, d in cull_diffs.items())
         + f"; worst visible share of the timed frames {worst_share:.4f}"
-        + f" | launches {main_launches} | {card}",
+        + f" | launches (warm-up + capture) {main_launches} | {card}",
         flush=True,
     )
 
     # ---- 9. sequences: captured CUDA graphs, replayed once per frame -----
-    # symbol -> the COUNTS names whose launches run it
-    symbols = {B1: ("raster_tile", "raster_two_pass"), B2: ("raster_sublane", "raster_batched"),
-               B4: ("raster_msaa4",), B5: ("raster_msaa4_sublane",), "assemble_records_kernel": ("assemble_records",),
-               "assemble_records_rows_kernel": ("assemble_records_rows",),
-               "transpose_templates_kernel": ("transpose_templates",)}
-    nk = len(KERNELS)
 
     def seq_inputs(draws, n, phase):
         """render_sequence_multi's draws for n frames at t = phase + 0.05 i:
@@ -1684,17 +1918,12 @@ def main() -> int:
         """Kernel launches by symbol under torch.profiler during one call of
         n frames that captures nothing (the program of sequence_run's first
         call, return_frames and all, is cached)."""
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         inputs = seq_inputs(draws, n, 0.01)
         reset_counts()
-        with torch.profiler.profile(activities=acts) as prof:
-            r.render_sequence_multi(inputs, return_frames=True)
-            torch.cuda.synchronize()
+        _, got = profiled(lambda: r.render_sequence_multi(inputs, return_frames=True))
         if counts()[:nk] != (0,) * nk:
             raise AssertionError(f"a replay-only call launched kernels eagerly: {counts()}")
-        cuda = torch.autograd.DeviceType.CUDA
-        return {sym: sum(e.count for e in prof.key_averages() if e.device_type == cuda and sym in e.key)
-                for sym in symbols}
+        return got
 
     def time_sequence(r, draws, n, reps=3):
         """bench.py's timing: best of ``reps`` phase-shifted calls of n frames,
@@ -1723,18 +1952,18 @@ def main() -> int:
         # pass 1 (every kernel) lies in the first segment.
         if counts()[:nk] != tuple(2 * x for x in per[:nk]):
             raise AssertionError(f"{label} sequence: launches at capture {counts()}, expected twice {per}")
-        if bool(r.last_sequence_overflowed) or r.num_cached_programs != 1:
-            raise AssertionError(f"{label} sequence: overflowed or {r.num_cached_programs} programs")
+        if bool(r.last_sequence_overflowed) or len(r._sequences) != 1:
+            raise AssertionError(f"{label} sequence: overflowed or {len(r._sequences)} sequence programs")
         worst = 0.0
         for i in range(4):
-            f = render(r, draws, [d[2](0.05 * i) for d in draws])
+            f = eager(r, draws, [d[2](0.05 * i) for d in draws])
             worst = max(worst, float((frames[i] - f.color_planar).abs().max()))
             if float(sums[i]) != float(frames[i].sum()):
                 raise AssertionError(f"{label} sequence: checksum {i} is not sum(color)")
         if not worst <= COLOR_TOL or len(set(sums.tolist())) != 4:
             raise AssertionError(f"{label} sequence: colour differs from eager by {worst}, or frames repeat")
         got = replay_launches(r, draws, 4)
-        want = {sym: 4 * sum(per[COUNTS.index(c)] for c in names) for sym, names in symbols.items()}
+        want = symbol_launches(per, 4)
         if got != want:
             raise AssertionError(f"{label} sequence replays launched {got}, expected {want}")
         t4, t20 = time_sequence(r, draws, 4), time_sequence(r, draws, 20)
@@ -1742,19 +1971,19 @@ def main() -> int:
         return worst, (t20 - t4) / 16 * 1e3, t4 * 1e3, t20 * 1e3
 
     gen_demo = brt.demos.big_mesh_demo(big_r, generated=True)
-    eager_gen = run_frames("big_mesh 1920x1080 generated", big_r, [gen_demo], 5, dense)[0]
+    eager_gen = run_frames("big_mesh 1920x1080 generated", big_r, [gen_demo], 5, dense, replayed=False)["ms"]
     by_label = {label: (r, draws, per) for label, r, draws, _, _, per in runs}
     seq_labels = ("cube 1920x1080", "textured_cube 1920x1080", "instanced 1920x1080", "instanced 1920x1080 culled",
                   "big_mesh 1920x1080", "big_mesh 3840x2160 MSAA-4x", "render-state 1920x1080")
     seq_results = {}
     for label in seq_labels:
         r, draws, per = by_label[label]
-        seq_results[label] = sequence_run(label, r, draws, per) + (results[label][0],)
+        seq_results[label] = sequence_run(label, r, draws, per) + (eager_ms[label],)
     seq_results["big_mesh 1920x1080 generated"] = sequence_run("big_mesh 1920x1080 generated", big_r, [gen_demo],
                                                                dense) + (eager_gen,)
     print(
         "[sequences] render_sequence_multi replaying captured CUDA graphs (render-state: three draws), 4 frames "
-        f"with return_frames equal to eager render_frame (colour tol {COLOR_TOL}), checksums sum(color), frames "
+        f"with return_frames equal to eager _run_frame (colour tol {COLOR_TOL}), checksums sum(color), frames "
         "distinct, no overflow; launches at capture twice the eager frame's (warm-up + capture), at replay the "
         "eager frame's per frame (profiler symbols); ms/frame differenced (20 - 4 frames, best of 3 phase-shifted "
         "calls) / eager event-timed: "
@@ -1781,19 +2010,29 @@ def main() -> int:
     demo_root = ROOT / "build" / "chip_demo"
     shutil.rmtree(demo_root, ignore_errors=True)
 
-    def drive(label, demo, frames, per, out=None, srgb=False, profile=False):
-        """One run of the driver's main(); with ``out``, the PNGs written,
-        the ring's count, the launches and the last PNG against render_frame."""
+    def drive(label, demo, frames, per, out=None, srgb=False, profile=False, symbols_too=False):
+        """One run of the driver's main(): its renderer captures the key's
+        frame on the first frame (the counters count the eager warm-up and
+        the capture) and replays it after; with ``symbols_too`` the run is
+        under the profiler, which must see every frame's launches (the
+        warm-up's and one replay a frame).  With ``out``, the PNGs written,
+        the ring's count and the last PNG against render_frame."""
         argv = [demo, "--frames", str(frames), "--width", str(W), "--height", str(H)]
         argv += (["--out", str(demo_root / out)] if out else []) + (["--srgb"] if srgb else [])
         argv += ["--profile"] if profile else []
         reset_counts()
-        res = driver.main(argv)
+        if symbols_too:
+            want = symbol_launches(per, frames + 1)
+            res, syms = profiled(lambda: driver.main(argv), want)
+            if syms != want:
+                raise AssertionError(f"{label}: the profiler saw {syms}, expected {want}")
+        else:
+            res = driver.main(argv)
         launched = counts()[:nk]
         if res["presented"] != frames or not res["staging_pinned"]:
             raise AssertionError(f"{label}: presented {res['presented']} of {frames}, or staging not page-locked")
-        if launched != tuple(frames * x for x in per[:nk]):
-            raise AssertionError(f"{label}: launches {launched}, expected {frames} x {per[:nk]}")
+        if launched != tuple(2 * x for x in per[:nk]):
+            raise AssertionError(f"{label}: launches {launched}, expected 2 x {per[:nk]} (warm-up and capture)")
         if out:
             pngs = sorted((demo_root / out).iterdir())
             if [p.name for p in pngs] != [f"frame_{i:06d}.png" for i in range(frames)]:
@@ -1810,7 +2049,8 @@ def main() -> int:
         "cube --out --profile": drive("cube --out --profile", "cube", 60, cube_tile, out="cube", profile=True),
         "cube --out": drive("cube --out", "cube", 60, cube_tile, out="cube_again"),
         "cube": drive("cube", "cube", 60, cube_tile),
-        "cube --out --srgb": drive("cube --out --srgb", "cube", 10, cube_tile, out="cube_srgb", srgb=True),
+        "cube --out --srgb": drive("cube --out --srgb", "cube", 10, cube_tile, out="cube_srgb", srgb=True,
+                                   symbols_too=True),
         "big_mesh --out": drive("big_mesh --out", "big_mesh", 20, dense, out="big_mesh"),
         "big_mesh": drive("big_mesh", "big_mesh", 20, dense),
     }
@@ -1824,22 +2064,70 @@ def main() -> int:
     pipe, mesh, uniforms, _ = brt.demos.cube_demo(cube_r)
     builtin = cube_r.render_frame(pipe, mesh, uniforms(0.7))
     reset_counts()
+    programs = cube_r.num_cached_programs
+    # A name of its own: a key of its own, never the built-in shader's graphs.
+    if disk.name == pipe.shader:
+        raise AssertionError(f"the shader file registered the built-in name {disk.name!r}")
     loaded = cube_r.render_frame(dataclasses.replace(pipe, shader=disk.name), mesh, uniforms(0.7))
     torch.cuda.synchronize()
-    if counts()[:nk] != cube_tile[:nk]:
-        raise AssertionError(f"file shader frame launches {counts()}, expected B1 once")
+    if counts()[:nk] != tuple(2 * x for x in cube_tile[:nk]) or cube_r.num_cached_programs != programs + 1:
+        raise AssertionError(f"file shader frame launches {counts()}, expected B1 twice (warm-up and capture) in a "
+                             f"new program ({cube_r.num_cached_programs - programs} new)")
     for k in ("tri_id", "depth_q", "color_planar"):
         if not torch.equal(getattr(loaded, k), getattr(builtin, k)):
             raise AssertionError(f"file shader frame: {k} differs from the built-in shader's")
+
+    # A capture in the middle of present.render_loop: from frame 31 the
+    # cube is drawn front-culled, a new key, captured while the earlier
+    # frames' copies to the host are in flight and the present ring's
+    # thread converts and writes PNGs (it makes no CUDA call).
+    from based_renderer_tpu_torch import present
+
+    class Switching:
+        """render_loop's renderer: ``r``, drawing ``other`` from frame ``at + 1`` on."""
+
+        def __init__(self, r, other, at):
+            self.r, self.config, self.other, self.at, self.n = r, r.config, other, at, 0
+
+        def render_frame(self, pipe, mesh, u, instances=None):
+            self.n += 1
+            return self.r.render_frame(self.other if self.n > self.at else pipe, mesh, u, instances=instances)
+
+    sw_r = brt.Renderer(brt.RendererConfig(W, H))
+    sw_pipe, sw_mesh, sw_u, _ = brt.demos.cube_demo(sw_r)
+    front = dataclasses.replace(sw_pipe, cull_mode="front")
+    sw_dir = demo_root / "switch"
+    sw_dir.mkdir(parents=True)
+    ring = runtime.PresentRing(W, H, depth=2, out_dir=str(sw_dir))
+    reset_counts()
+    try:
+        _, sw_pacer = present.render_loop(Switching(sw_r, front, 30), (sw_pipe, sw_mesh, sw_u, None), frames=60,
+                                          on_frame=lambda img, _: ring.submit(img))
+        ring.flush()
+        sw_presented = ring.presented
+    finally:
+        ring.close()
+    sw_launched = counts()[:nk]
+    sw_pngs = sorted(sw_dir.iterdir())
+    sw_want = sw_r.render_frame(front, sw_mesh, sw_u(sw_pacer.t)).color_u8()
+    if (sw_presented != 60 or len(sw_pngs) != 60 or sw_r.num_cached_programs != 2
+            or sw_launched != tuple(4 * x for x in cube_tile[:nk])):
+        raise AssertionError(f"mid-loop capture: presented {sw_presented}, {len(sw_pngs)} PNGs, "
+                             f"{sw_r.num_cached_programs} programs, launches {sw_launched} (expected two captures)")
+    if not np.array_equal(image.read_png(sw_pngs[-1]), sw_want):
+        raise AssertionError("mid-loop capture: the last PNG differs from the front-culled frame's color_u8")
     print(
         f"[demo-driver] examples/render_demo_torch.py main() in this process at {W}x{H} (native runtime "
         f"{runtime.library_path().name}, g++ {rt_s:.2f} s, zlib.h present): PNG count = frames = "
         "PresentRing.presented, last PNG (zlib-decoded) = render_frame(t_last).color_u8() byte for byte (linear and "
-        "sRGB), B1 x frames (cube) and B3 + B2 x frames (big_mesh), staging page-locked; fps over the whole loop "
-        "(pacer's last window): "
+        "sRGB), the counters B1 / B3 + B2 twice (the first frame's warm-up and capture, then replays), the profiler "
+        "B1 x (frames + 1) over --srgb (the warm-up and one replay a frame), staging page-locked; fps over the whole "
+        "loop (pacer's last window): "
         + "; ".join(f"{label} {res['frames']} frames {res['loop_fps']:.2f} ({res['fps']:.2f})"
                     for label, res in demo_runs.items())
-        + f" | shader file {disk.name} at {W}x{H} through B1: tri_id, depth_q, colour bitwise = built-in | {card}",
+        + f" | shader file {disk.name} at {W}x{H} through B1, a program of its own: tri_id, depth_q, colour bitwise "
+        f"= built-in | a new key captured at frame 31 of a 60-frame render_loop with copies in flight and the "
+        f"present ring writing: 60 PNGs, the last = the front-culled frame byte for byte, two captures | {card}",
         flush=True,
     )
     print("[demo-driver stages] cube --out --profile, StageTimer: "
@@ -1863,19 +2151,27 @@ def main() -> int:
         return {**spec, "draws": [{**d, "pipe": {**d.get("pipe", {}), "raster_pairs_factor": factor}}
                                   for d in spec["draws"]]}
 
+    def before(spec):
+        """The spec with one earlier frame of its key (its draws, meshes of
+        their own): each rank's compared frame goes through a program made
+        before it, a replay where the shard has no geometry axis."""
+        return {**spec, "before": [spec["draws"]]}
+
     cube_spec = {"demo": "cube", "t": 0.5, "pipe": {"raster_pairs_factor": 512.0}}
     big_spec = {"demo": "big_mesh", "t": 0.3}
     tiled_runs = {
         "(a) cube 1920x1080 over (y=1, x=4)": (
-            {"mesh": (1, 4), "config": {"width": W, "height": H}, "draws": [cube_spec], "timing": 20},
+            before({"mesh": (1, 4), "config": {"width": W, "height": H}, "draws": [cube_spec], "timing": 20}),
             per_frame(raster_tile=1)),
         "(b) big_mesh 3840x2160 over (y=2, x=2)": (
-            {"mesh": (2, 2), "config": {"width": W4K, "height": H4K}, "draws": [big_spec], "timing": 5}, dense),
+            before({"mesh": (2, 2), "config": {"width": W4K, "height": H4K}, "draws": [big_spec], "timing": 5}),
+            dense),
         "(c) big_mesh 1920x1080 over (y=1, x=1, g=4)": (
-            {"mesh": (1, 1, 4), "geometry_axis": "g", "config": {"width": W, "height": H}, "draws": [big_spec],
-             "timing": 5}, dense),
+            before({"mesh": (1, 1, 4), "geometry_axis": "g", "config": {"width": W, "height": H},
+                    "draws": [big_spec], "timing": 5}), dense),
         "(d) MSAA-4x stencil + blend 1920x1080 over (y=1, x=4)": (
-            {**with_pairs(workers.dryrun_msaa_spec(W, H, (1, 4)), 4096.0), "timing": 10}, per_frame(raster_msaa4=3)),
+            before({**with_pairs(workers.dryrun_msaa_spec(W, H, (1, 4)), 4096.0), "timing": 10}),
+            per_frame(raster_msaa4=3)),
         # The first call of a sequence runs its frame eagerly once and
         # captures it once: twice the frame's launches, whatever N is.
         "(e) cube sequence of 8 frames 1920x1080 over (y=1, x=4)": (
@@ -1889,10 +2185,19 @@ def main() -> int:
     tiled_s = time.perf_counter() - t0
     for i, (label, (spec, per)) in enumerate(tiled_runs.items()):
         res = [rank[i] for rank in ranks]
-        want = dict(zip(KERNELS, per))
+        # Tile-only frames: the earlier frame's warm-up and capture, then
+        # the compared frame replays (no eager launch).  The geometry axis:
+        # two eager frames.  The sequence: its own warm-up and capture.
+        if "sequence" in spec:
+            want, want_frame = dict(zip(KERNELS, per)), dict(zip(KERNELS, per))
+        elif spec.get("geometry_axis"):
+            want, want_frame = dict(zip(KERNELS, (2 * x for x in per))), dict(zip(KERNELS, per))
+        else:
+            want, want_frame = dict(zip(KERNELS, (2 * x for x in per))), dict.fromkeys(KERNELS, 0)
         for rank, r in enumerate(res):
-            if r["launches"] != want:
-                raise AssertionError(f"{label}: rank {rank} launched {r['launches']}, expected {want}")
+            if r["launches"] != want or r["frame_launches"] != want_frame or r["programs"] != 1:
+                raise AssertionError(f"{label}: rank {rank} launched {r['launches']} ({r['frame_launches']} in the "
+                                     f"compared frame), {r['programs']} programs; expected {want} ({want_frame}), 1")
             if r["overflowed"]:
                 raise AssertionError(f"{label}: rank {rank} overflowed")
         r0 = res[0]
@@ -1921,8 +2226,10 @@ def main() -> int:
         if "merge_ms_per_draw" in r0:
             merge = " | composite ms/draw per rank " + ", ".join(f"{r['merge_ms_per_draw']:.3f}" for r in res)
         launched = {k: v for k, v in r0["launches"].items() if v}
-        print(f"[tiled] {label}, 4 ranks sharing cuda:0 over gloo: launches per rank {launched}; {checks}; ms/frame "
-              f"per rank (CUDA events, all 4 rendering) [{ms}] vs one device alone {r0['single_ms']:.3f}{merge} | {card}",
+        how = ("a sequence" if "sequence" in spec else "the frame eager (geometry axis)" if spec.get("geometry_axis")
+               else "the frame replayed")
+        print(f"[tiled] {label}, 4 ranks sharing cuda:0 over gloo, {how}: launches per rank {launched}; {checks}; "
+              f"ms/frame per rank (CUDA events, all 4 rendering) [{ms}] vs one device alone {r0['single_ms']:.3f}{merge} | {card}",
               flush=True)
     # entry(): the port's counterpart of __graft_entry__.entry().
     fn, args = entry.entry()
@@ -1936,7 +2243,8 @@ def main() -> int:
     entry.dryrun_multichip(8)
     dry_s = time.perf_counter() - t0
     print(f"[entry] launch.run of the five tiled runs {tiled_s:.1f} s | entry() frame at {W}x{H} bitwise = "
-          f"render_frame's | dryrun_multichip(8) on 8 gloo CPU ranks passed in {dry_s:.1f} s | {card}", flush=True)
+          f"render_frame's | dryrun_multichip(8) on 8 gloo CPU ranks passed in {dry_s:.1f} s | the script so far "
+          f"{time.perf_counter() - started:.1f} s | {card}", flush=True)
 
     sources = {
         "raster_tile": ("raster_tile.cu", "based_renderer_tpu/ops/raster_pallas.py:58"),
@@ -1975,4 +2283,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    adopt_orphans()
+    try:
+        code = main()
+    finally:
+        stop_children()
+    sys.exit(code)

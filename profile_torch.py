@@ -5,15 +5,22 @@ Run from the root of a checkout, e.g.:
     python3 profile_torch.py cube 1920 1080 --msaa 4 --supersample --pairs 128
     python3 profile_torch.py textured_cube 1920 1080 --sequence 20
 
-For ``--frames`` frames of ``Renderer.render_frame`` it prints:
-  * ms/frame on the host clock with a synchronise around each frame (median);
+For ``--frames`` frames it prints:
+  * ms/frame on the host clock with a synchronise around each frame
+    (median), for the eager frame (``Renderer._run_frame``) and for
+    ``Renderer.render_frame``, which replays the key's captured CUDA
+    graphs after its first call;
+  * under torch.profiler, over the same number of replayed
+    ``render_frame`` frames: device-kernel time per frame, its busy share
+    of the sync'd replayed ms/frame and launches per frame;
   * with ``--sequence N``: ``Renderer.render_sequence`` of N frames, each
     replaying the captured CUDA graphs: ms/frame (best of 3 phase-shifted
     calls, host clock around the call and a synchronise, over N), and
     under torch.profiler one more call's device-kernel time per frame, its
     busy share (that device time over the profiled call's wall time) and
     launches per frame;
-  * per-stage medians: each stage function of the frame (instancing, the
+  * per-stage medians of the eager frame (a replay calls no stage
+    function): each stage function (instancing, the
     vertex and fragment shaders, triangle gather, near clip, setup,
     binning with the record assembly inside it, the record assembly alone
     (either entry) and the template transpose, the raster kernel, the
@@ -22,11 +29,11 @@ For ``--frames`` frames of ``Renderer.render_frame`` it prints:
     a synchronise before and after, so a stage's time includes its launch
     cost; "rest" is the frame less the outermost stages (uniform upload,
     composite, MSAA resolve);
-  * under torch.profiler, over the same number of frames: device-kernel
-    time per frame, the busy share (that device time over the sync'd
-    ms/frame above: the profiled window's own wall time includes the
-    profiler's start-up), kernel launches per frame and the five largest
-    kernels by device time.
+  * under torch.profiler, over the same number of eager frames:
+    device-kernel time per frame, the busy share (that device time over
+    the sync'd eager ms/frame above: the profiled window's own wall time
+    includes the profiler's start-up), kernel launches per frame and the
+    five largest kernels by device time.
 Each line names the card (nvidia-smi name and power limit).  Needs a GPU;
 imports nothing of JAX.
 """
@@ -156,20 +163,46 @@ def main() -> int:
         pipe = dataclasses.replace(pipe, raster_pairs_factor=args.pairs)
     label = f"{args.demo} {args.width}x{args.height} msaa={args.msaa}{' supersample' if args.supersample else ''}"
 
-    for i in range(2):  # warm-up: kernel build, allocator
-        r.render_frame(pipe, mesh, uniforms(0.05 * i), instances=inst)
+    def eager(i):
+        """The eager frame at t = 0.05 i: the result tuple."""
+        r.begin_frame()
+        r.draw(pipe, mesh, uniforms(0.05 * i), instances=inst)
+        return r._run_frame(*r.close_frame())
+
+    def replayed(i):
+        return r.render_frame(pipe, mesh, uniforms(0.05 * i), instances=inst)
+
+    for i in range(2):  # warm-up: kernel build, allocator; the key's capture
+        eager(i)
+        replayed(i)
     torch.cuda.synchronize()
 
-    walls = []
-    for i in range(args.frames):
-        t0 = time.perf_counter()
-        f = r.render_frame(pipe, mesh, uniforms(0.05 * i), instances=inst)
+    frame_ms = {}
+    for kind, fn in (("eager _run_frame", eager), ("render_frame (replayed)", replayed)):
+        walls = []
+        for i in range(args.frames):
+            t0 = time.perf_counter()
+            out = fn(i)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        if bool(out[4] if isinstance(out, tuple) else out.overflowed):
+            raise SystemExit(f"{label}: the frame overflowed its pair budget")
+        frame_ms[kind] = statistics.median(walls)
+        print(f"[frame] {label}, {kind}: {frame_ms[kind]:.3f} ms/frame sync'd (median of {args.frames}) | {name}",
+              flush=True)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for i in range(args.frames):
+            replayed(i)
         torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    if bool(f.overflowed):
-        raise SystemExit(f"{label}: the frame overflowed its pair budget")
-    frame_ms = statistics.median(walls)
-    print(f"[frame] {label}: {frame_ms:.3f} ms/frame sync'd (median of {args.frames}) | {name}", flush=True)
+    dev_ms, launches, kernels = kernel_summary(prof, args.frames)
+    replay_ms = frame_ms["render_frame (replayed)"]
+    print(
+        f"[replayed] {label}: render_frame under the profiler: device kernels {dev_ms:.3f} ms per frame, busy share "
+        f"{dev_ms / replay_ms:.3f} of the sync'd replayed frame, {launches:.0f} launches per frame | "
+        f"top: {top5(kernels, args.frames)} | {name}",
+        flush=True,
+    )
     if args.sequence:
         profile_sequence(r, pipe, mesh, uniforms, inst, args.sequence, label, name)
 
@@ -180,7 +213,7 @@ def main() -> int:
         timer.reset()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        r.render_frame(pipe, mesh, uniforms(0.05 * i), instances=inst)
+        eager(i)
         torch.cuda.synchronize()
         total = (time.perf_counter() - t0) * 1e3
         for k, v in timer.totals.items():
@@ -188,21 +221,22 @@ def main() -> int:
         rest.append(total - timer.outer * 1e3)
     stages = sorted(((statistics.median(v), k) for k, v in per_stage.items()), reverse=True)
     print(
-        f"[stages] {label}, ms (median of {args.frames}, each sync'd): "
+        f"[stages] {label}, eager _run_frame, ms (median of {args.frames}, each sync'd): "
         + ", ".join(f"{k} {v:.3f}" for v, k in stages)
         + f", rest {statistics.median(rest):.3f} | {name}",
         flush=True,
     )
 
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    eager_ms = frame_ms["eager _run_frame"]
     with torch.profiler.profile(activities=acts) as prof:
         for i in range(args.frames):
-            r.render_frame(pipe, mesh, uniforms(0.05 * i), instances=inst)
+            eager(i)
         torch.cuda.synchronize()
     dev_ms, launches, kernels = kernel_summary(prof, args.frames)
     print(
-        f"[profiler] {label}: device kernels {dev_ms:.3f} ms per frame, busy share {dev_ms / frame_ms:.3f} "
-        f"of the sync'd frame, {launches:.0f} launches per frame | top: {top5(kernels, args.frames)} | {name}",
+        f"[profiler] {label}, eager _run_frame: device kernels {dev_ms:.3f} ms per frame, busy share "
+        f"{dev_ms / eager_ms:.3f} of the sync'd frame, {launches:.0f} launches per frame | "
+        f"top: {top5(kernels, args.frames)} | {name}",
         flush=True,
     )
     return 0

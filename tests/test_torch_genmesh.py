@@ -77,7 +77,9 @@ def test_sequence_regenerates_per_call():
     np.testing.assert_allclose(sums.numpy(), frame_sums, rtol=1e-4)
     assert len(set(np.round(sums.numpy(), 1))) == 3
     r.render_sequence(pipe, mesh, useq)
-    assert len(calls) == 2 and r.num_cached_programs == 1
+    # One frame program (the three frames share a key) and one sequence
+    # program, as the JAX package's _program_cache counts them.
+    assert len(calls) == 2 and r.num_cached_programs == 2
     (key,) = r._sequences
     assert key[4] == (), f"generated-mesh attributes leaked into the captured ids: {key[4]}"
 

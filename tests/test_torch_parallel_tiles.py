@@ -72,6 +72,9 @@ FRAMES = {
     "scissor-xla": {"mesh": (2, 2), "config": XLA, "draws": [cube(0.5, scissor=(20, 10, 60, 40))]},
     "scissor-pallas": {"mesh": (2, 2), "config": PALLAS, "draws": [cube(0.5, scissor=(20, 10, 60, 40))]},
     "dryrun-msaa-stencil-blend": workers.dryrun_msaa_spec(W, H, (2, 2)),
+    # Two frames of one key: a cube of its own at another time, then the
+    # compared frame through the same program.
+    "program-reuse": {"mesh": (2, 2), "config": PALLAS, "draws": [cube(0.5)], "before": [[cube(0.2)]]},
 }
 SEQUENCES = {
     "uniforms-seq": {"mesh": (2, 2), "config": PALLAS, "draws": [cube(0.0)],
@@ -144,6 +147,13 @@ def test_tiled_frame_matches_single_device(results, name):
     lw, lh = W // nx, H // ny
     assert {r["shard"] for r in ranks} == {((x * lw, y * lh), (lw, lh)) for y in range(ny) for x in range(nx)}
     assert_matches_jax(r0["arrays"], jax_frame(FRAMES[name]))
+
+
+def test_tiled_frames_of_one_key_share_a_program(results):
+    """Each rank renders both frames through one frame program (the shard
+    in its key), and the second frame is the single device's."""
+    assert [r["programs"] for r in results["program-reuse"]] == [1] * 4
+    assert [r["programs"] for r in results["pallas-2x2"]] == [1] * 4
 
 
 def test_tiled_scissor_clips(results):
