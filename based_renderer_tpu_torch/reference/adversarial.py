@@ -11,6 +11,22 @@ again at each size (``assert_engaged``).  Nothing here is part of the
 renderer: ``tests/test_torch_adversarial.py`` and ``chip_smoke.py`` (phase
 7b) both read these streams.
 
+The raster states the streams also run under (``tests/
+test_torch_adversarial_state.py`` and ``chip_smoke.py`` phase 7c), each with
+its expected planes and an engagement check of its own:
+  scissors        rects (tile-aligned, off-grid with odd edges, one pixel,
+                  to the far edge, the full frame); scissor_expect masks
+                  the unscissored oracle (assert_scissor_engaged)
+  bias_triples    depth-bias (constant, slope, clamp) triples: constants of
+                  both signs, slopes at the +/-2^29 clip, binding clamps,
+                  constants past [0, 1], and one whose int32 sum wraps
+                  (assert_bias_engaged)
+  BAND_ROWS       band heights of band binning per tile
+                  (assert_bands_engaged)
+  windows         shard windows (origin, extent); window_expect crops the
+                  full-frame oracle (assert_window_engaged)
+  supersampling   the stream at 2W x 2H (assert_supersample_engaged)
+
 Streams (name: what it engages):
   slivers         sub-pixel slivers spanning the depth range (the JAX
                   test's), then copies of clamp_boundary moved around the
@@ -46,7 +62,7 @@ import numpy as np
 import torch
 
 from ..ops.clip import clip_near
-from ..ops.fixedpoint import ANCHOR_CLAMP, DEPTH_GRAD_CLAMP, GUARD_BAND_PIX, GUARD_HI, GUARD_LO
+from ..ops.fixedpoint import ANCHOR_CLAMP, DEPTH_GRAD_CLAMP, DEPTH_ONE_Q, GUARD_BAND_PIX, GUARD_HI, GUARD_LO
 
 STREAMS = (
     "slivers",
@@ -432,3 +448,254 @@ def assert_shared_edge(alone_a, alone_b, both) -> int:
     if not np.array_equal(a | b, ab):
         raise AssertionError("shared_edge: the halves' union is not the quad's coverage")
     return int(ab.sum())
+
+
+# ---- raster states (phase 7c) ------------------------------------------
+
+# Band rows of band binning (rasterize_vis bin_rows) per sublane tile.
+BAND_ROWS = (((128, 8), (1, 2, 4, 8)), ((128, 32), (8, 16)))
+
+
+def _down(v: int, m: int) -> int:
+    return v // m * m
+
+
+def scissors(width: int, height: int) -> list[tuple[str, tuple]]:
+    """(label, (x0, y0, x1, y1)) scissor rects, x1 and y1 exclusive: one on
+    the 32x16 tile and 8-row band grid; one off it with odd edges that cut
+    tiles, bands and MSAA samples ((13, 7, 61, 45) at 96x64, scaled
+    elsewhere); one pixel; one that runs to the frame's far edges; and
+    the full frame."""
+    sx, sy = width / 96, height / 64
+    odd = lambda v: int(v) | 1  # noqa: E731
+    return [
+        ("aligned", (_down(width // 3, 32), _down(height // 4, 16), _down(2 * width // 3, 32),
+                     _down(3 * height // 4, 16))),
+        ("off-grid", (odd(13 * sx), odd(7 * sy), odd(61 * sx), odd(45 * sy))),
+        ("one pixel", (odd(width // 2), odd(height // 2), odd(width // 2) + 1, odd(height // 2) + 1)),
+        ("far edge", (odd(width // 3), odd(height // 2 - 8), width, height)),
+        ("full", (0, 0, width, height)),
+    ]
+
+
+def scissor_expect(want: dict, rect, clear_q: int, clear_stencil: int = 0) -> dict:
+    """The oracle's planes (``want``: (H, W) or per-sample (4, H, W);
+    ``bary`` with a trailing 3) under a scissor: pixels outside ``rect``
+    keep their clear values (tri_id -1, depth_q ``clear_q``, stencil
+    ``clear_stencil``, barycentrics 0).  Every update outside the rect is
+    suppressed, so inside it the unscissored draw is unchanged."""
+    h, w = np.asarray(want["tri_id"]).shape[-2:]
+    x0, y0, x1, y1 = rect
+    ys, xs = np.arange(h)[:, None], np.arange(w)[None, :]
+    inside = (xs >= x0) & (xs < x1) & (ys >= y0) & (ys < y1)
+    fill = {"tri_id": -1, "depth_q": clear_q, "stencil": clear_stencil & 0xFF, "bary": 0.0,
+            "depth": clear_q / float(DEPTH_ONE_Q)}
+    out = dict(want)
+    for k, v in fill.items():
+        if k in want:
+            plane = np.asarray(want[k])
+            out[k] = np.where(inside[..., None] if k == "bary" else inside, plane, np.asarray(v, plane.dtype))
+    return out
+
+
+def assert_scissor_engaged(rect, tri_id) -> str:
+    """Raise unless the scissor changes the draw: the unscissored oracle
+    (``tri_id``, (H, W) or (4, H, W)) covers a pixel outside ``rect`` and
+    one inside it.  For a rect of the whole frame (nothing to cut) the
+    draw must cover the last column or row instead, where the rect's
+    exclusive bounds lie."""
+    cov = np.asarray(tri_id) >= 0
+    cov = cov.any(0) if cov.ndim == 3 else cov
+    h, w = cov.shape
+    x0, y0, x1, y1 = rect
+    inside = np.zeros_like(cov)
+    inside[y0:y1, x0:x1] = True
+    n_in, n_out = int((cov & inside).sum()), int((cov & ~inside).sum())
+    if (x0, y0, x1, y1) == (0, 0, w, h):
+        edge = int(cov[:, -1].sum() + cov[-1, :].sum())
+        if edge == 0:
+            raise AssertionError("scissor: regime not engaged: nothing covered on the full rect's far edges")
+        return f"{edge} covered on the far edges"
+    if n_out == 0 or n_in == 0:
+        raise AssertionError(f"scissor {rect}: regime not engaged: {n_in} covered inside, {n_out} outside")
+    return f"{n_out} covered pixels cut, {n_in} kept"
+
+
+def bias_triples():
+    """The depth-bias configurations the oracle is held to: (label, kind,
+    (constant, slope, clamp), depth_clip modes), constants in quantized-LSB
+    (2^-24 depth) units, clamps in depth units."""
+    return [
+        ("constant +", "constant", (3000.0, 0.0, 0.0), (True,)),
+        ("constant -", "constant", (-3000.0, 0.0, 0.0), (True,)),
+        ("slope clip +", "slope_clip", (0.0, 4.0, 0.0), (True, "clamp")),
+        ("slope clip -", "slope_clip", (0.0, -4.0, 0.0), (True, "clamp")),
+        ("clamp +", "clamp", (2000.0, 1.0, 0.0005), (True,)),
+        ("clamp -", "clamp", (-2000.0, -1.0, -0.0005), (True,)),
+        ("past 1.0", "range", (float(1 << 23), 0.0, 0.0), (True, "clamp")),
+        ("below 0.0", "range", (-float(1 << 23), 0.0, 0.0), (True, "clamp")),
+    ]
+
+
+# A constant of 2^30 on top of a clipped slope (2^29): a vertex at the
+# +2^29 depth clamp then sums to 2^31, which wraps in the JAX package's
+# and the port's int32 setup (ops/setup.py) and not in the oracle's int64
+# sum; see bias_offsets.
+BIAS_WRAP = ("int32 wrap", "wrap", (float(1 << 30), 4.0, 0.0), ("clamp",))
+
+
+def bias_offsets(ts, triple) -> dict:
+    """The offset of each valid triangle of the unbiased setup ``ts`` under
+    ``triple``, in int64 (the oracle's sum): the slope term before
+    and after its +/-2^29 clip, the offset before and after the bias
+    clamp, and vertex 0's biased depth before the vertex clamp."""
+    c, s, cl = triple
+    valid = ts.valid.cpu().numpy()
+    g16 = np.float32(16)
+    m = np.maximum(np.abs(ts.gx.cpu().numpy() * g16), np.abs(ts.gy.cpu().numpy() * g16))[valid]
+    raw = (m * np.float32(s)).astype(np.float32)
+    lim = np.float32(1 << 29)
+    slope = np.rint(np.clip(raw, -lim, lim)).astype(np.int64)
+    o = slope + int(round(float(c)))
+    o_cl = o
+    if cl > 0:
+        o_cl = np.minimum(o, int(round(float(cl) * (1 << 24))))
+    elif cl < 0:
+        o_cl = np.maximum(o, int(round(float(cl) * (1 << 24))))
+    zq0 = ts.zq.cpu().numpy()[valid][:, 0].astype(np.int64)
+    return {"raw": raw, "clipped": np.abs(raw) >= lim, "o": o, "o_clamped": o_cl, "z0": zq0 + o_cl}
+
+
+def assert_bias_engaged(kind: str, ts, triple, biased=None, unbiased=None) -> str:
+    """Raise unless the triple does what its kind says on this stream
+    (``ts``: the unbiased setup): "slope_clip", some slope term reaches
+    the +/-2^29 clip; "clamp", the bias clamp binds on some triangle;
+    "constant", every offset is the constant; "range", the biased oracle
+    (``biased``, against ``unbiased``) has a covered pixel at depth 0 or
+    1.0 that the unbiased one does not, or covers fewer pixels; "wrap",
+    some vertex 0 sums past the int32 range."""
+    off = bias_offsets(ts, triple)
+    n = off["o"].size
+
+    def need(ok, what):
+        if not ok:
+            raise AssertionError(f"bias {kind} {triple}: regime not engaged: {what}")
+
+    need(n > 0, "no valid triangle")
+    if kind == "slope_clip":
+        k = int(off["clipped"].sum())
+        need(k > 0, "no slope term at the +/-2^29 clip")
+        return f"{k} slope terms clipped"
+    if kind == "clamp":
+        k = int((off["o"] != off["o_clamped"]).sum())
+        need(k > 0, "the bias clamp never binds")
+        return f"{k} offsets clamped"
+    if kind == "constant":
+        need(bool((off["o"] == int(round(triple[0]))).all()), "an offset is not the constant")
+        return f"{n} offsets of {int(round(triple[0]))}"
+    if kind == "wrap":
+        k = int((off["z0"] > np.iinfo(np.int32).max).sum() + (off["z0"] < np.iinfo(np.int32).min).sum())
+        need(k > 0, "no vertex-0 sum past the int32 range")
+        return f"{k} vertex-0 sums past int32"
+    b, u = np.asarray(biased["tri_id"]) >= 0, np.asarray(unbiased["tri_id"]) >= 0
+    zq = np.asarray(biased["depth_q"])
+    at_bound = b & ((zq == 0) | (zq == DEPTH_ONE_Q)) & ~(u & np.isin(np.asarray(unbiased["depth_q"]), (0, DEPTH_ONE_Q)))
+    need(int(at_bound.sum()) > 0 or int(b.sum()) < int(u.sum()), "no depth pushed past [0, 1]")
+    return f"{int(at_bound.sum())} pixels clamped to [0, 1], coverage {int(u.sum())} -> {int(b.sum())}"
+
+
+def assert_bands_engaged(binned, width: int, height: int, tile, bin_rows: int) -> str:
+    """Raise unless band binning splits a triangle: with more than one
+    band a tile, some triangle is binned into more than one band of one
+    tile; with one band a tile, into more than one bin.  ``binned`` is the
+    band-binned stream (column-major (tile, band) ids) of a frame of
+    ``height`` rows padded to the tile grid."""
+    tile_w, tile_h = tile
+    bands = tile_h // bin_rows
+    num_by = -(-height // tile_h) * bands
+    start = binned.tile_start.cpu().numpy().astype(np.int64)
+    count = binned.tile_count.cpu().numpy().astype(np.int64)
+    tri = binned.records[13].cpu().numpy()
+    b = np.repeat(np.arange(start.size), count)
+    slot = np.concatenate([np.arange(s, s + c) for s, c in zip(start, count)]) if count.sum() else np.zeros(0, int)
+    tid = tri[slot]
+    tile_of = (b // num_by) * (num_by // bands) + (b % num_by) // bands
+    key = tile_of * (1 << 32) + tid if bands > 1 else tid
+    _, per = np.unique(key, return_counts=True)
+    k = int((per > 1).sum())
+    if k == 0:
+        where = "bands of one tile" if bands > 1 else "bins"
+        raise AssertionError(f"bands {bin_rows} at {tile_w}x{tile_h}: regime not engaged: no triangle in two {where}")
+    return f"{k} triangles split over {'bands' if bands > 1 else 'bins'}"
+
+
+def windows(width: int, height: int) -> list[tuple[str, tuple, tuple]]:
+    """(label, origin, extent) shard windows, in pixels: the top-left
+    quadrant; an off-origin window whose extent cuts each tile dimension
+    to 8 (renderer.shard_tile); one touching the far edges; and one whose
+    tile columns stay on the 128-px grid, so the sublane raster (B2, B5)
+    still takes it (at 96x64 the full width from x = 0)."""
+    quad = (_down(width // 2, 8), _down(height // 2, 8))
+    cut = (_down(width // 2, 16) + 8, _down(height // 3, 16) + 8)
+    cut_o = (_down(width // 4, 16) + 8, _down(height // 4, 16) + 8)
+    far = (_down(width // 3, 32), _down(height // 2, 8))
+    wide = ((128, 64), (256, 128)) if width >= 384 and height >= 192 else ((0, 16), (width, _down(height // 2, 8) + 8))
+    return [
+        ("quadrant", (0, 0), quad),
+        ("cut to 8", cut_o, cut),
+        ("far edges", (width - far[0], height - far[1]), far),
+        ("128 wide", *wide),
+    ]
+
+
+def window_sublane_ok(origin, extent, width: int) -> bool:
+    """Whether a 128-wide tile grid serves the window: its tile columns
+    start on the frame's 128-px grid and end at a multiple of 128 or at
+    the frame's right edge."""
+    return origin[0] % 128 == 0 and (extent[0] % 128 == 0 or origin[0] + extent[0] == width)
+
+
+def window_expect(want: dict, origin, extent) -> dict:
+    """The full-frame oracle's planes cropped to the window."""
+    (x0, y0), (w, h) = origin, extent
+    out = {}
+    for k, v in want.items():
+        v = np.asarray(v)
+        if k == "bary":
+            out[k] = v[..., y0 : y0 + h, x0 : x0 + w, :]
+        elif v.ndim >= 2:
+            out[k] = v[..., y0 : y0 + h, x0 : x0 + w]
+    return out
+
+
+def assert_window_engaged(origin, extent, tri_id) -> str:
+    """Raise unless some triangle crosses a window edge: the full-frame
+    oracle (``tri_id``) has a triangle winning pixels inside the window
+    and outside it."""
+    t = np.asarray(tri_id)
+    t = t.reshape(-1, *t.shape[-2:])
+    (x0, y0), (w, h) = origin, extent
+    inside = np.zeros(t.shape[-2:], bool)
+    inside[y0 : y0 + h, x0 : x0 + w] = True
+    ids_in = set(np.unique(t[:, inside]).tolist()) - {-1}
+    ids_out = set(np.unique(t[:, ~inside]).tolist()) - {-1}
+    both = ids_in & ids_out
+    if not both:
+        raise AssertionError(f"window {origin} {extent}: regime not engaged: no triangle crosses its edge")
+    return f"{len(both)} triangles cross the window's edge"
+
+
+def assert_supersample_engaged(ts2, tri_id2) -> str:
+    """Raise unless supersampling keeps an adversarial regime: at 2W x 2H
+    (``ts2`` the setup there, ``tri_id2`` the oracle's winners), some
+    triangle with a snapped coordinate at the guard band or a quantized
+    gradient at DEPTH_GRAD_CLAMP wins a pixel."""
+    valid = ts2.valid.cpu().numpy()
+    xf, yf = ts2.xf.cpu().numpy(), ts2.yf.cpu().numpy()
+    guard = (np.isin(xf, (GUARD_LO, GUARD_HI)) | np.isin(yf, (GUARD_LO, GUARD_HI))).any(-1)
+    clamp = (np.abs(ts2.dzdx_q.cpu().numpy()) == DEPTH_GRAD_CLAMP) | (np.abs(ts2.dzdy_q.cpu().numpy()) == DEPTH_GRAD_CLAMP)
+    special = np.flatnonzero(valid & (guard | clamp))
+    won = np.isin(np.asarray(tri_id2), special)
+    if not won.any():
+        raise AssertionError("supersample: regime not engaged: no guard-band or clamped triangle covers a pixel at 2x")
+    return f"{int(won.sum())} pixels won by guard-band or clamped triangles at 2x"

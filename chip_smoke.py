@@ -79,6 +79,30 @@ result lines):
      CUDA graphs): nothing covered, no
      overflow, the clear colour; the next frame and the next sequence
      equal the same drawn on a fresh renderer;
+ 7c. adversarial state: the same streams (at 96x64 every one, with mixed
+     fuzz seeds 0 and 1; at 1920x1080 the small ones, guard_band fuzz 0
+     and fuzz seed 1) under the raster states of reference/adversarial.py:
+     scissor rects (aligned, off-grid with odd edges, one pixel, to the far
+     edge, the full frame), depth-bias triples (constants of both signs,
+     slopes at the +/-2^29 clip, binding clamps, depths pushed past [0, 1]
+     under clip and clamp), band binning (1, 2, 4, 8 rows at 128x8; 8, 16
+     at 128x32), shard windows (the quadrant, one cutting the tile to 8x8,
+     one at the far edges, one on the 128-px grid) and 2x2 supersampling
+     through Renderer.render_frame (capture, then replay) with flat_ndc,
+     with and without a scissor, and a Shard of it; combined: the scissor
+     with 4-row bands and under MSAA, bias on the clamp slivers under
+     greater_equal with the depth clamp, a window with a scissor.  Every
+     CUDA route that takes the state (B1, B6, B7, B2 and B5 from B3's
+     records, the tmpl route, B4, B3/B8/rows) against its plain version
+     and the oracle masked by the scissor or cropped to the window, per
+     sample under MSAA; setup under scissor and bias and the binner's
+     window records on the card bitwise equal to the CPU's; band records
+     from the XLA assembly, B3 and the tmpl route equal, each banded frame
+     equal to the unbanded one; supersampled replays equal the eager
+     frame and the oracle at 2W x 2H, a shard the frame cropped.  The int32
+     wrap triple (the JAX package and the port wrap, the oracle does not)
+     holds the kernels to their plain versions only.  Each regime value is
+     engaged by some case at each size (adversarial.assert_*_engaged);
   8. end to end: Renderer.render_frame, through the key's program (its
      first frame captures it as CUDA graphs, the others replay), with
      big_mesh (1M triangles) at
@@ -600,6 +624,84 @@ def adversarial_configs(stream: str, label: str, big: bool, increment) -> list[A
     return out
 
 
+def bitwise(label, a, b):
+    """Raise unless a == b bit for bit (floats compared as their bits)."""
+    torch.cuda.synchronize()
+    if a.shape != b.shape:
+        raise AssertionError(f"{label}: shapes {tuple(a.shape)} and {tuple(b.shape)}")
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    if not torch.equal(a, b):
+        raise AssertionError(f"{label}: differs at {int((a != b).sum())} entries")
+
+
+def compare_oracle(stats, label, vis, want, stencil=False):
+    """Raise unless the planes of ``vis`` equal the oracle's (``want``):
+    tri_id and depth_q, and the stencil with ``stencil``; counts the
+    pixels (samples) compared in stats["pixels"]."""
+    for k in ("tri_id", "depth_q") + (("stencil",) if stencil else ()):
+        g = getattr(vis, k).cpu().numpy()
+        if not np.array_equal(g, want[k]):
+            raise AssertionError(f"{label}: {k} differs from the oracle at {int((g != want[k]).sum())} pixels")
+    stats["pixels"] += vis.tri_id.numel()
+
+
+def setup_pair(clip_np, clip_d, width, height, **kw):
+    """The setup on the card, held bitwise against the same on the CPU."""
+    from based_renderer_tpu_torch.ops.setup import setup_triangles
+
+    ts = setup_triangles(clip_d, width, height, **kw)
+    ref = setup_triangles(torch.from_numpy(clip_np), width, height, **kw)
+    for name, a, b in zip(ts._fields, ts, ref):
+        bitwise(f"setup {name} on the card vs the CPU", a.cpu(), b)
+    return ts
+
+
+def pair_budget(ts, tile, origin=(0, 0)) -> int:
+    """A pair budget the stream cannot overflow at this tile: the tiles of
+    every valid triangle's bbox (on the grid from ``origin``), and a
+    floor."""
+    tw, th = tile
+    bb = ts.bbox.to(torch.int64)[ts.valid]
+    ox, oy = origin
+    nx = torch.div(bb[:, 2] - 1 - ox, tw, rounding_mode="floor") - torch.div(bb[:, 0] - ox, tw, rounding_mode="floor") + 1
+    ny = torch.div(bb[:, 3] - 1 - oy, th, rounding_mode="floor") - torch.div(bb[:, 1] - oy, th, rounding_mode="floor") + 1
+    return 4096 + ts.valid.shape[0] + int((nx * ny).sum())
+
+
+def b3_b8_rows_bitwise(stats, label, ts, width, height, col, msaa4, max_pairs, tile=(128, 8), **pair_kw):
+    """B3's per-field entry, B8 and B3's rows entry on the pair stream at
+    ``tile`` (``pair_kw``: a window origin, band ids), each bitwise against
+    its plain version, the rows entry also against the per-field entry.
+    With no triangles (which the binner never hands them) the three
+    wrappers get zero-size operands: no slot, no template."""
+    from based_renderer_tpu_torch.ops import binassem, binning
+
+    dev = ts.valid.device
+    if ts.valid.shape[0]:
+        ps = binning.pair_stream(ts, width, height, *tile, max_pairs, 0, col, True, None, **pair_kw)
+        if bool(ps.overflowed):
+            raise AssertionError(f"{label}: pair stream overflowed")
+        tmpl, slots, total = ps.tmpl, binning.padded_slots(ps), ps.total
+    else:
+        tmpl = binning._templates(ts, 0, col, True)
+        slots = tuple(torch.zeros((0,), dtype=torch.int64, device=dev) for _ in range(3))
+        total = torch.zeros((), dtype=torch.int64, device=dev)
+    fw = binning.frecord_width(ADV_K)
+    per_field = binassem.assemble_records(tmpl, *slots, total, fw, msaa4)
+    for a, b in zip(per_field, binassem.assemble_records_reference(tmpl, *slots, total, fw, msaa4)):
+        bitwise(f"{label} assemble_records", a, b)
+    fused_t, row_width = binning.templates_field_major(tmpl)
+    fused = binassem.transpose_templates(fused_t, row_width)
+    bitwise(f"{label} transpose_templates", fused, binassem.transpose_templates_reference(fused_t, row_width))
+    rows = binassem.assemble_records_rows(fused, *slots, total, fw, ADV_K, msaa4)
+    rows_plain = binassem.assemble_records_rows_reference(fused, *slots, total, fw, ADV_K, msaa4)
+    for a, b, c in zip(rows, rows_plain, per_field):
+        bitwise(f"{label} assemble_records_rows vs plain", a, b)
+        bitwise(f"{label} assemble_records_rows vs per-field", a, c)
+    stats["routes"].update(("assemble_records", "transpose_templates", "assemble_records_rows"))
+
+
 def adversarial_phase(dev, check, card: str, sizes=ADV_SIZES, fuzz_seeds=ADV_FUZZ_SEEDS, workers: int = 6) -> dict:
     """Phase 7b: every stream of reference/adversarial.py at each size of
     ``sizes`` through every CUDA route, each held against its plain
@@ -617,7 +719,7 @@ def adversarial_phase(dev, check, card: str, sizes=ADV_SIZES, fuzz_seeds=ADV_FUZ
     import multiprocessing
 
     import based_renderer_tpu_torch as brt
-    from based_renderer_tpu_torch.ops import binassem, binning, raster
+    from based_renderer_tpu_torch.ops import raster
     from based_renderer_tpu_torch.ops import fixedpoint as fp
     from based_renderer_tpu_torch.ops.binning import bin_triangles
     from based_renderer_tpu_torch.ops.clip import clip_near
@@ -643,57 +745,12 @@ def adversarial_phase(dev, check, card: str, sizes=ADV_SIZES, fuzz_seeds=ADV_FUZ
         for stream, label, clip in adv.cases(width, height, fuzz_seeds=fuzz_seeds if big else ()):
             plan.append(((width, height), stream, label, clip, adversarial_configs(stream, label, big, increment)))
 
-    def bitwise(label, a, b):
-        torch.cuda.synchronize()
-        if a.dtype == torch.float32:
-            a, b = a.view(torch.int32), b.view(torch.int32)
-        if not torch.equal(a, b):
-            raise AssertionError(f"[adversarial] {label}: differs at {int((a != b).sum())} entries")
-
     def vs_oracle(label, vis, want, stencil):
-        for k in ("tri_id", "depth_q") + (("stencil",) if stencil else ()):
-            g = getattr(vis, k).cpu().numpy()
-            if not np.array_equal(g, want[k]):
-                raise AssertionError(f"[adversarial] {label}: {k} differs from the oracle at "
-                                     f"{int((g != want[k]).sum())} pixels")
-        stats["pixels"] += vis.tri_id.numel()
-
-    def setup_pair(clip_np, clip_d, width, height, **kw):
-        """The setup on the card, held bitwise against the same on the CPU."""
-        ts = setup_triangles(clip_d, width, height, **kw)
-        ref = setup_triangles(torch.from_numpy(clip_np), width, height, **kw)
-        for name, a, b in zip(ts._fields, ts, ref):
-            bitwise(f"setup {name} on the card vs the CPU", a.cpu(), b)
-        return ts
+        compare_oracle(stats, f"[adversarial] {label}", vis, want, stencil)
 
     def b3_b8_rows(label, ts, width, height, col, msaa4):
-        """B3's per-field entry, B8 and B3's rows entry on the 128x8 pair
-        stream, each bitwise against its plain version, the rows entry also
-        against the per-field entry.  With no triangles (which the binner
-        never hands them) the three wrappers get zero-size operands: no
-        slot, no template."""
-        if ts.valid.shape[0]:
-            ps = binning.pair_stream(ts, width, height, 128, 8, pairs(ts, width, height), 0, col, True, None)
-            if bool(ps.overflowed):
-                raise AssertionError(f"[adversarial] {label}: pair stream overflowed")
-            tmpl, slots, total = ps.tmpl, binning.padded_slots(ps), ps.total
-        else:
-            tmpl = binning._templates(ts, 0, col, True)
-            slots = tuple(torch.zeros((0,), dtype=torch.int64, device=dev) for _ in range(3))
-            total = torch.zeros((), dtype=torch.int64, device=dev)
-        fw = binning.frecord_width(ADV_K)
-        per_field = binassem.assemble_records(tmpl, *slots, total, fw, msaa4)
-        for a, b in zip(per_field, binassem.assemble_records_reference(tmpl, *slots, total, fw, msaa4)):
-            bitwise(f"{label} assemble_records", a, b)
-        fused_t, row_width = binning.templates_field_major(tmpl)
-        fused = binassem.transpose_templates(fused_t, row_width)
-        bitwise(f"{label} transpose_templates", fused, binassem.transpose_templates_reference(fused_t, row_width))
-        rows = binassem.assemble_records_rows(fused, *slots, total, fw, ADV_K, msaa4)
-        rows_plain = binassem.assemble_records_rows_reference(fused, *slots, total, fw, ADV_K, msaa4)
-        for a, b, c in zip(rows, rows_plain, per_field):
-            bitwise(f"{label} assemble_records_rows vs plain", a, b)
-            bitwise(f"{label} assemble_records_rows vs per-field", a, c)
-        stats["routes"].update(("assemble_records", "transpose_templates", "assemble_records_rows"))
+        b3_b8_rows_bitwise(stats, f"[adversarial] {label}", ts, width, height, col, msaa4,
+                           pairs(ts, width, height))
 
     def pairs(ts, width, height):
         """A pair budget no stream here can overflow: every triangle in every
@@ -902,6 +959,418 @@ def empty_and_culled_draws(dev, counts, reset_counts, names) -> dict:
         if not torch.equal(frames, want_frames) or not torch.equal(sums, want_sums):
             raise AssertionError(f"[adversarial] the cube sequence after the {label} sequence differs from it alone")
     return launches
+
+
+# ---- phase 7c: the adversarial streams under raster state ---------------
+STATE_SIZES = ((96, 64), (W, H))
+# At 1080p the small streams, one guard-band fuzz and one mixed fuzz: the
+# numpy oracle costs ~0.1 s a full-screen triangle there.
+STATE_BIG_LABELS = ("guard_band fuzz 0", "fuzz seed 1")
+STATE_FUZZ_SEEDS = {(96, 64): (0, 1), (W, H): (1,)}
+# What runs at 1080p besides the windows: the scissors that cut, the bias
+# triples (the full-screen streams only the first two) under their last
+# depth-clip mode, one band height a tile.
+STATE_BIG_SCISSORS = ("off-grid", "one pixel", "far edge")
+STATE_BIG_BIAS = ("slope clip +", "clamp -", "past 1.0")
+STATE_BIG_BANDS = (((128, 8), (4,)), ((128, 32), (16,)))
+# Streams drawn supersampled through the renderer, per size (at 1080p the
+# oracle runs at 3840x2160: small streams only).
+STATE_SS = {
+    (96, 64): ("slivers seed 0", "guard_band", "guard_band fuzz 0", "guard_band fuzz 1", "zshift_steep",
+               "near_plane", "fuzz seed 0", "fuzz seed 1"),
+    (W, H): ("slivers seed 0", "guard_band", "zshift_steep"),
+}
+SS_COLOR = (0.2, 0.6, 0.9, 1.0)
+
+
+def state_plan(sizes=STATE_SIZES):
+    """(size, stream, label, clip) of every case of phase 7c."""
+    from based_renderer_tpu_torch.reference import adversarial as adv
+
+    plan = []
+    for width, height in sizes:
+        big = (width, height) != (96, 64)
+        for stream, label, clip in adv.cases(width, height, fuzz_seeds=STATE_FUZZ_SEEDS.get((width, height), (1,))):
+            full_screen = stream in ("random", "guard_band", "fuzz") and label != "guard_band"
+            if not big or not full_screen or label in STATE_BIG_LABELS:
+                plan.append(((width, height), stream, label, clip))
+    return plan
+
+
+def state_bias(stream: str, label: str, big: bool):
+    """The (label, kind, triple, depth_clip) bias configurations of a case
+    held to the oracle, then the wrap triple's (kernels against their plain
+    versions only: the oracle's int64 sum does not wrap)."""
+    from based_renderer_tpu_torch.reference import adversarial as adv
+
+    full_screen = stream in ("random", "guard_band", "fuzz") and label != "guard_band"
+    big_bias = STATE_BIG_BIAS[:2] if full_screen else STATE_BIG_BIAS
+    out = [(lab, kind, triple, c) for lab, kind, triple, clips in adv.bias_triples() for c in clips
+           if not big or (lab in big_bias and (c == clips[-1]))]
+    lab, kind, triple, clips = adv.BIAS_WRAP
+    return out, [(lab, kind, triple, c) for c in clips]
+
+
+def adversarial_state_phase(dev, check, card: str, sizes=STATE_SIZES, workers: int = 6) -> dict:
+    """Phase 7c: the streams of reference/adversarial.py under a scissor,
+    depth bias, band binning, a shard window and 2x2 supersampling, at
+    each size of ``sizes`` (96x64: every stream, with two mixed fuzz seeds;
+    1920x1080: the small streams, guard_band fuzz 0 and fuzz seed 1),
+    through every CUDA route that takes the state.  Each route is held
+    against its plain version on the same records (``check``: ints exact,
+    floats within FLOAT_TOL; B3, B8 and the rows entry bitwise) and
+    against the port's oracle, masked by the scissor (scissor_expect) or
+    cropped to the window (window_expect), per sample under MSAA.  The
+    setup under a scissor or a bias on the card equals the CPU's bit for
+    bit, and so do the binner's window records.  Band-binned records from
+    the XLA assembly, from B3 and through the tmpl route (B8 + B3 rows)
+    are equal, and each band-binned frame equals the unbanded one.  The
+    combinations: the scissor with 4-row bands and under MSAA (its odd
+    edges cut samples), a bias on the clamp slivers under greater_equal
+    with the depth clamp, a window with a scissor.  Supersampled frames go
+    through Renderer(msaa=4, msaa_supersample=True) with flat_ndc, with and
+    without a scissor: the replayed frame equals the eager one and the
+    oracle at 2W x 2H; a Shard of it equals the frame cropped.  The int32
+    wrap triple (adversarial.BIAS_WRAP) holds each kernel to its plain
+    version only.  Each regime value must be engaged by some case at each
+    size.  The oracle runs in ``workers`` processes.  Returns the counts
+    for the phase's line."""
+    import concurrent.futures
+    import multiprocessing
+
+    from based_renderer_tpu_torch.ops import fixedpoint as fp
+    from based_renderer_tpu_torch.ops import raster
+    from based_renderer_tpu_torch.ops.binning import bin_triangles
+    from based_renderer_tpu_torch.ops.setup import setup_triangles
+    from based_renderer_tpu_torch.reference import adversarial as adv
+    from based_renderer_tpu_torch.renderer import shard_tile
+
+    t0 = time.perf_counter()
+    one_q = fp.DEPTH_ONE_Q
+    stats = {"cases": 0, "configs": 0, "pixels": 0, "routes": set(), "engaged": {}, "t": {}}
+    plan = state_plan(sizes)
+    pad4 = fp.MSAA4_BBOX_PAD_FP
+
+    def engaged(size, regime, fn, *args):
+        """Count a case that engages ``regime`` (the assert_*_engaged of
+        adversarial.py passes), and every case that runs it."""
+        key = (size, regime)
+        hits, runs = stats["engaged"].get(key, (0, 0))
+        try:
+            fn(*args)
+            hits += 1
+        except AssertionError:
+            pass
+        stats["engaged"][key] = (hits, runs + 1)
+
+    def kw_of(compare="less", depth_clip=True, bias=None):
+        return dict(depth_compare=compare, depth_clear=0.0 if compare.startswith("greater") else 1.0,
+                    depth_clip=depth_clip, depth_bias=bias)
+
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(max_workers=workers, mp_context=ctx) as pool:
+        jobs = {}
+
+        def submit(key, clip, width, height, msaa4, **kw):
+            jobs[key] = pool.submit(_oracle_job, (clip, width, height, msaa4, kw))
+
+        for (width, height), stream, label, clip in plan:
+            big = (width, height) != (96, 64)
+            for m in (False, True):
+                submit((width, height, label, "base", m), clip, width, height, m, **kw_of())
+                for lab, _, triple, c in state_bias(stream, label, big)[0]:
+                    submit((width, height, label, lab, c, m), clip, width, height, m, **kw_of(depth_clip=c, bias=triple))
+                for c in {c for _, kind, _, c in state_bias(stream, label, big)[0] if kind == "range" and c is not True}:
+                    if not m:
+                        submit((width, height, label, "unbiased", c), clip, width, height, False, **kw_of(depth_clip=c))
+                if stream in ("slivers", "clamp_boundary"):
+                    for lab in ("slope clip -", "clamp +"):
+                        triple = dict((b[0], b[2]) for b in adv.bias_triples())[lab]
+                        submit((width, height, label, "ge", lab, m), clip, width, height, m,
+                               **kw_of("greater_equal", "clamp", triple))
+            if label in STATE_SS.get((width, height), ()):
+                submit((width, height, label, "ss"), clip, 2 * width, 2 * height, False, **kw_of())
+
+        def want_of(*key):
+            return jobs.pop(key).result()
+
+        for (width, height), stream, label, clip in plan:
+            size = f"{width}x{height}"
+            tag = f"[adversarial state] {label} {size}"
+            big = (width, height) != (96, 64)
+            rng = np.random.default_rng(clip.shape[0] + width + 7)
+            col = torch.from_numpy(rng.uniform(0, 1, size=(clip.shape[0], 3, ADV_K)).astype(np.float32)).to(dev)
+            clip_d = torch.from_numpy(clip).to(dev)
+            base, base4 = want_of(width, height, label, "base", False), want_of(width, height, label, "base", True)
+
+            def binned(ts, extent, tile, origin=(0, 0), **bk):
+                b = bin_triangles(ts, *extent, *tile, max_pairs=pair_budget(ts, tile, origin), channels=col,
+                                  origin=origin, **bk)
+                if bool(b.overflowed):
+                    raise AssertionError(f"{tag}: binner overflowed")
+                return b
+
+            def routes(ctag, ts, ts4, want, want4, compare="less", depth_clip=True, scissor=None, origin=(0, 0),
+                       extent=None, full=True, sublane=True, bands=()):
+                """The CUDA routes that take the state, each against its
+                plain version and ``want`` (``want4`` per sample); ``want``
+                None: the plain versions only.  B1 and B4 always; B2 and B5
+                (from B3's records) with ``sublane`` where the tile grid
+                allows; ``full`` adds the two-pass, batched and tmpl routes
+                and B3/B8/rows; ``bands`` the band-binned B2 under the same
+                state."""
+                ew, eh = extent or (width, height)
+                local = None if scissor is None else (scissor[0] - origin[0], scissor[1] - origin[1],
+                                                      scissor[2] - origin[0], scissor[3] - origin[1])
+                kw = dict(depth_compare=compare, depth_clear=0.0 if compare.startswith("greater") else 1.0,
+                          depth_clip=depth_clip, num_channels=ADV_K, scissor=local)
+                ordered = compare in ORDERED
+
+                def held(name, label_, got, plain, want_, also=None):
+                    check(name, f"{ctag} {label_} vs plain", got, plain)
+                    if also is not None:
+                        check(name, f"{ctag} {label_} vs {also[0]}", got, also[1])
+                    if want_ is not None:
+                        compare_oracle(stats, f"{ctag} {label_}", got[0], want_)
+                    stats["routes"].add(name)
+                    return got
+
+                # B1, B6 and B4 at the default tile for the full set and at
+                # 1080p; at 96x64 the others take 32x16 (fewer records a
+                # tile: the plain versions loop over them).
+                tile = shard_tile((128, 32) if full or big else (32, 16), (ew, eh))
+                b = binned(ts, (ew, eh), tile, origin)
+                tkw = dict(kw, tile_w=tile[0], tile_h=tile[1])
+                b1_plain = raster.rasterize_binned_reference(b, ew, eh, **tkw)
+                b1 = held("raster_tile", f"B1 {tile}", raster.rasterize_binned(b, ew, eh, **tkw), b1_plain, want)
+                if origin != (0, 0):  # the same through rasterize_vis(origin=...)
+                    vis = raster.rasterize_vis(ts, ew, eh, tile_w=tile[0], tile_h=tile[1], channels=col,
+                                               max_pairs=pair_budget(ts, tile, origin), origin=origin,
+                                               **{k: v for k, v in kw.items() if k != "num_channels"})
+                    check("raster_tile", f"{ctag} rasterize_vis(origin={origin}) vs rasterize_binned", vis, b1)
+                if full:
+                    held("raster_two_pass", f"B6 {tile}", raster.rasterize_binned(b, ew, eh, two_pass=True, **tkw),
+                         b1_plain, None, ("B1", b1))
+                    if ordered:
+                        t7 = shard_tile((64, 64), (ew, eh))
+                        b7 = binned(ts, (ew, eh), t7, origin)
+                        k7 = dict(kw, tile_w=t7[0], tile_h=t7[1], batch=16)
+                        held("raster_batched", f"B7 {t7}", raster.rasterize_binned(b7, ew, eh, **k7),
+                             raster.rasterize_binned_reference(b7, ew, eh, **k7), want)
+                sub_ok = sublane and ordered and adv.window_sublane_ok(origin, (ew, eh), width)
+                sub = (128, math.gcd(8, eh))
+                if sub_ok:
+                    b3 = binned(ts, (ew, eh), sub, origin, assemble="pallas")
+                    skw = dict(kw, tile_w=sub[0], tile_h=sub[1])
+                    b2 = held("raster_sublane", f"B2 {sub} from B3", raster.rasterize_binned(b3, ew, eh, sublane=True, **skw),
+                              raster.rasterize_binned_sublane_reference(b3, ew, eh, **skw), want)
+                    if full:
+                        bt = binned(ts, (ew, eh), sub, origin, assemble="pallas", tmpl="pallas")
+                        for a_, b_ in zip(bt[:2], b3[:2]):
+                            bitwise(f"{ctag} tmpl records vs B3 records", a_, b_)
+                        held("raster_sublane", "B2 tmpl route", raster.rasterize_binned(bt, ew, eh, sublane=True, **skw),
+                             raster.rasterize_binned_sublane_reference(bt, ew, eh, **skw), want, ("B2", b2))
+                    for rows in bands:
+                        band_routes(ctag, ts, (ew, eh), sub, rows, kw, want, b2, origin)
+                if full:
+                    for m, t_ in ((False, ts), (True, ts4)):
+                        b3_b8_rows_bitwise(stats, f"{ctag} msaa4={m}", t_, ew, eh, col, m,
+                                           pair_budget(t_, tile, origin), tile=tile, origin=origin)
+                b4 = binned(ts4, (ew, eh), tile, origin, msaa4=True)
+                mkw = dict(tkw, msaa4=True)
+                held("raster_msaa4", f"B4 {tile}", raster.rasterize_binned(b4, ew, eh, **mkw),
+                     raster.rasterize_binned_reference(b4, ew, eh, **mkw), want4)
+                if sub_ok:
+                    b5 = binned(ts4, (ew, eh), sub, origin, msaa4=True, assemble="pallas")
+                    k5 = dict(kw, tile_w=sub[0], tile_h=sub[1])
+                    held("raster_msaa4_sublane", f"B5 {sub} from B3",
+                         raster.rasterize_binned(b5, ew, eh, sublane=True, msaa4=True, **k5),
+                         raster.rasterize_binned_msaa4_sublane_reference(b5, ew, eh, **k5), want4)
+                stats["configs"] += 1
+
+            def band_routes(ctag, ts, extent, tile, rows, kw, want, whole, origin=(0, 0)):
+                """B2 over ``rows``-row bands from the XLA assembly, from B3
+                and through the tmpl route: the three record streams equal,
+                each frame equal to its plain version, to the unbanded frame
+                ``whole`` and to ``want``."""
+                ew, eh = extent
+                bin_h = -(-eh // tile[1]) * tile[1]
+                bk = dict(col_major_ids=True, anchor_rows=tile[1])
+                streams = {asm: binned(ts, (ew, bin_h), (tile[0], rows), origin, assemble=a, tmpl=t, **bk)
+                           for asm, a, t in (("xla", "xla", "xla"), ("B3", "pallas", "xla"), ("tmpl", "pallas", "pallas"))}
+                live = int(streams["xla"].tile_count.sum())  # the assemblies pad the stream differently
+                for asm in ("B3", "tmpl"):
+                    got, ref = streams[asm], streams["xla"]
+                    for a_, b_ in ((got.records[:, :live], ref.records[:, :live]),
+                                   (got.frecords[:, :live], ref.frecords[:, :live]), *zip(got[2:4], ref[2:4])):
+                        bitwise(f"{ctag} bands {rows} {asm} records vs XLA", a_, b_)
+                bkw = dict(kw, tile_w=tile[0], tile_h=tile[1], bin_rows=rows)
+                for asm, bs in streams.items():
+                    check("raster_sublane", f"{ctag} bands {rows} {asm} vs plain",
+                          got := raster.rasterize_binned(bs, ew, eh, sublane=True, **bkw),
+                          raster.rasterize_binned_sublane_reference(bs, ew, eh, **bkw))
+                    check("raster_sublane", f"{ctag} bands {rows} {asm} vs unbanded", got, whole)
+                    if want is not None:
+                        compare_oracle(stats, f"{ctag} bands {rows} {asm}", got[0], want)
+                if ts.valid.shape[0]:
+                    b3_b8_rows_bitwise(stats, f"{ctag} bands {rows}", ts, ew, bin_h, col, False,
+                                       pair_budget(ts, (tile[0], rows), origin), tile=(tile[0], rows), origin=origin,
+                                       **bk)
+                stats["routes"].add("raster_sublane")
+                return streams["xla"]
+
+            def setups(**kw):
+                return (setup_pair(clip, clip_d, width, height, **kw),
+                        setup_pair(clip, clip_d, width, height, bbox_pad_fp=pad4, **kw))
+
+            clock = [time.perf_counter()]
+
+            def lap(state):
+                """Add the seconds since the last lap to the state's total."""
+                now = time.perf_counter()
+                key = f"{state} {size}"
+                stats["t"][key] = stats["t"].get(key, 0.0) + now - clock[0]
+                clock[0] = now
+
+            ts, ts4 = setups()
+            # -- scissor: every rect; the off-grid one through every route, with 4-row bands
+            for name, rect in adv.scissors(width, height):
+                if big and name not in STATE_BIG_SCISSORS:
+                    continue
+                engaged(size, f"scissor {name}", adv.assert_scissor_engaged, rect, base["tri_id"])
+                sts, sts4 = setups(scissor=rect)
+                routes(f"{tag} scissor {name}", sts, sts4, adv.scissor_expect(base, rect, one_q),
+                       adv.scissor_expect(base4, rect, one_q), scissor=rect, full=name == "off-grid",
+                       sublane=not big or name == "off-grid", bands=(4,) if name == "off-grid" else ())
+            lap("scissor")
+            # -- depth bias
+            held_bias, wrap = state_bias(stream, label, big)
+            unbiased = {True: base}
+            for lab, kind, triple, c in held_bias:
+                want, want4 = want_of(width, height, label, lab, c, False), want_of(width, height, label, lab, c, True)
+                if c not in unbiased and kind == "range":
+                    unbiased[c] = want_of(width, height, label, "unbiased", c)
+                engaged(size, f"bias {lab}", adv.assert_bias_engaged, kind, ts, triple, want, unbiased.get(c))
+                bts, bts4 = setups(depth_bias=triple)
+                # Every route for the slopes at the clip under the depth clamp,
+                # the rasters for the other slopes, the bias clamps and the
+                # clamped depth range, B1 and B4 for the rest.
+                routes(f"{tag} bias {lab} clip={c}", bts, bts4, want, want4, depth_clip=c,
+                       full=kind == "slope_clip" and c == "clamp",
+                       sublane=kind in ("slope_clip", "clamp") or c == "clamp")
+            for lab, kind, triple, c in wrap:
+                engaged(size, f"bias {lab}", adv.assert_bias_engaged, kind, ts, triple)
+                bts, bts4 = setups(depth_bias=triple)
+                routes(f"{tag} bias {lab} clip={c}", bts, bts4, None, None, depth_clip=c, full=not big)
+            if stream in ("slivers", "clamp_boundary"):  # bias on the clamp slivers, greater_equal, depth clamp
+                for lab in ("slope clip -", "clamp +"):
+                    triple = dict((b[0], b[2]) for b in adv.bias_triples())[lab]
+                    bts, bts4 = setups(depth_bias=triple)
+                    routes(f"{tag} bias {lab} greater_equal clamp", bts, bts4,
+                           want_of(width, height, label, "ge", lab, False), want_of(width, height, label, "ge", lab, True),
+                           compare="greater_equal", depth_clip="clamp", full=False)
+            lap("bias")
+            # -- band binning at every BAND_ROWS
+            skw = dict(depth_compare="less", depth_clear=1.0, depth_clip=True, num_channels=ADV_K, scissor=None)
+            for tile, all_rows in STATE_BIG_BANDS if big else adv.BAND_ROWS:
+                b3 = binned(ts, (width, height), tile, assemble="pallas")
+                whole = raster.rasterize_binned(b3, width, height, sublane=True, tile_w=tile[0], tile_h=tile[1], **skw)
+                for rows in all_rows:
+                    xla = band_routes(f"{tag} tile {tile}", ts, (width, height), tile, rows, skw, base, whole)
+                    engaged(size, f"bands {tile[0]}x{tile[1]}/{rows}", adv.assert_bands_engaged, xla, width, height,
+                            tile, rows)
+                    stats["configs"] += 1
+            lap("bands")
+            # -- shard windows: the binner's window records on the card equal the CPU's
+            ts_cpu = setup_triangles(torch.from_numpy(clip), width, height)
+            for name, origin, extent in adv.windows(width, height):
+                engaged(size, f"window {name}", adv.assert_window_engaged, origin, extent, base["tri_id"])
+                tile = shard_tile((128, 32), extent)
+                on_card = binned(ts, extent, tile, origin)
+                on_cpu = bin_triangles(ts_cpu, *extent, *tile, max_pairs=pair_budget(ts_cpu, tile, origin),
+                                       channels=col.cpu(), origin=origin)
+                for a_, b_ in zip(on_card[:5], on_cpu[:5]):
+                    bitwise(f"{tag} window {name} records on the card vs the CPU", a_.cpu(), b_)
+                routes(f"{tag} window {name}", ts, ts4, adv.window_expect(base, origin, extent),
+                       adv.window_expect(base4, origin, extent), origin=origin, extent=extent,
+                       full=not big or name == "cut to 8")
+            if not big:  # a window with the off-grid scissor (in frame pixels)
+                rect = dict(adv.scissors(width, height))["off-grid"]
+                name, origin, extent = adv.windows(width, height)[1]
+                sts, sts4 = setups(scissor=rect)
+                routes(f"{tag} window {name} scissor off-grid", sts, sts4,
+                       adv.window_expect(adv.scissor_expect(base, rect, one_q), origin, extent),
+                       adv.window_expect(adv.scissor_expect(base4, rect, one_q), origin, extent),
+                       scissor=rect, origin=origin, extent=extent, full=False)
+            lap("window")
+            # -- supersampling through the renderer
+            if label in STATE_SS.get((width, height), ()):
+                supersample_runs(dev, stats, tag, clip, width, height, want_of(width, height, label, "ss"), engaged)
+                lap("supersample")
+            stats["cases"] += 1
+        if jobs:
+            raise AssertionError(f"[adversarial state] {len(jobs)} oracle runs were never compared")
+    for (size, regime), (hits, runs) in stats["engaged"].items():
+        if hits == 0:
+            raise AssertionError(f"[adversarial state] {regime} at {size}: engaged by none of {runs} cases")
+    stats["seconds"] = time.perf_counter() - t0
+    return stats
+
+
+def supersample_runs(dev, stats, tag, clip, width, height, want, engaged) -> None:
+    """One stream drawn by Renderer(msaa=4, msaa_supersample=True) with the
+    flat_ndc shader (clip positions drawn as given, no near clip), without
+    and with the off-grid scissor: render_frame twice (the key's capture,
+    then a replay), the replay equal to the eager frame (_run_frame on the
+    same draw) and its tri_id and depth_q to the oracle at 2W x 2H (masked
+    by the rect scaled by 2); a Shard of the "cut to 8" window equal to the
+    eager frame cropped (colour at framebuffer pixels, the raster planes
+    at twice them)."""
+    import based_renderer_tpu_torch as brt
+    from based_renderer_tpu_torch.ops import fixedpoint as fp
+    from based_renderer_tpu_torch.ops.setup import setup_triangles
+    from based_renderer_tpu_torch.reference import adversarial as adv
+    from based_renderer_tpu_torch.renderer import Shard, shard_tile
+
+    size = f"{width}x{height}"
+    engaged(size, "supersample", adv.assert_supersample_engaged,
+            setup_triangles(torch.from_numpy(clip), 2 * width, 2 * height), want["tri_id"])
+    r = brt.Renderer(brt.RendererConfig(width, height, msaa=4, msaa_supersample=True), device=dev)
+    mesh = r.upload_mesh(clip.reshape(-1, 4))
+    rect = dict(adv.scissors(width, height))["off-grid"]
+    _, origin, extent = adv.windows(width, height)[1]
+    (x0, y0), (ew, eh) = origin, extent
+    for sc in (None, rect):
+        ctag = f"{tag} supersample scissor={sc}"
+        # A pair budget of every triangle in every tile of the 2x raster, at
+        # the frame's tile and at the one the shard's window cuts it to.
+        tw, th = shard_tile((128, 32), (2 * ew, 2 * eh))
+        tiles = max(-(-2 * width // 128) * -(-2 * height // 32), -(-2 * ew // tw) * -(-2 * eh // th))
+        pipe = brt.Pipeline(shader="flat_ndc", scissor=sc, near_clip=False, raster_pairs_factor=float(tiles + 1))
+        u = {"color": SS_COLOR}
+        r.render_frame(pipe, mesh, u)
+        replay = r.render_frame(pipe, mesh, u)
+        r.begin_frame()
+        r.draw(pipe, mesh, u)
+        eager = r._run_frame(*r.close_frame())
+        r.begin_frame()
+        r.draw(pipe, mesh, u)
+        part = r._run_frame(*r.close_frame(), shard=Shard(origin, extent))
+        torch.cuda.synchronize()
+        for k, i in (("color_planar", 0), ("depth_q", 1), ("tri_id", 2)):
+            if not torch.equal(getattr(replay, k), eager[i]):
+                raise AssertionError(f"{ctag}: replayed {k} differs from the eager frame")
+        if bool(replay.overflowed) or bool(eager[4]) or bool(part[4]):
+            raise AssertionError(f"{ctag}: overflowed")
+        w_ = want if sc is None else adv.scissor_expect(want, tuple(2 * v for v in sc), fp.DEPTH_ONE_Q)
+        compare_oracle(stats, f"{ctag} at 2x", replay, w_)
+        if not torch.equal(part[0], eager[0][..., y0 : y0 + eh, x0 : x0 + ew]):
+            raise AssertionError(f"{ctag}: the shard's colour is not the frame's, cropped")
+        for i in (1, 2):
+            if not torch.equal(part[i], eager[i][..., 2 * y0 : 2 * (y0 + eh), 2 * x0 : 2 * (x0 + ew)]):
+                raise AssertionError(f"{ctag}: the shard's raster planes are not the frame's, cropped")
+        stats["configs"] += 1
+    stats["routes"].add("supersampled render_frame")
 
 
 def main() -> int:
@@ -1542,6 +2011,24 @@ def main() -> int:
         + f" | empty draw and culled instances through render_frame and captured render_sequence_multi: nothing "
         f"covered, no overflow, the next frame and sequence = drawn alone; launches {empty_launches} "
         f"({empty_s:.1f} s) | phase {adv['seconds']:.1f} s | {card}",
+        flush=True,
+    )
+
+    # ---- 7c. the adversarial streams under raster state ------------------
+    st = adversarial_state_phase(dev, check, card)
+    regimes = "; ".join(f"{regime} at {size}: {hits}/{runs}" for (size, regime), (hits, runs) in st["engaged"].items())
+    print(
+        f"[adversarial state] scissor ({', '.join(n for n, _ in adversarial.scissors(W, H))}), depth bias "
+        f"({', '.join(b[0] for b in adversarial.bias_triples())}; {adversarial.BIAS_WRAP[0]} against the plain "
+        f"versions only), bands ({'; '.join(f'{t[0]}x{t[1]}: {r}' for t, r in adversarial.BAND_ROWS)}), windows "
+        f"({', '.join(n for n, _, _ in adversarial.windows(W, H))}) and supersampling, at "
+        f"{' and '.join(f'{w}x{h}' for w, h in STATE_SIZES)}: {st['cases']} cases, {st['configs']} configurations; "
+        f"routes {', '.join(sorted(st['routes']))}: each against its plain version (ints exact, floats within "
+        f"{FLOAT_TOL}, B3/B8/rows bitwise) and the oracle masked or cropped (tri_id, depth_q exact); setup under "
+        f"scissor and bias and the window records bitwise = the CPU's; {st['pixels']} pixels (samples) compared "
+        f"with the oracle; regimes engaged (cases engaging/run): {regimes} | seconds by state: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in st["t"].items())
+        + f" | phase {st['seconds']:.1f} s | {card}",
         flush=True,
     )
 
