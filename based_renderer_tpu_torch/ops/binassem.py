@@ -56,11 +56,14 @@ INVALID_EDGE = -(1 << 30)  # edge value that no pixel of a tile can reach
 N_TI = 19  # int columns
 TEMPLATE_COLUMNS = N_TI + 2  # + the float columns before the planes
 
-#: Launches of the CUDA assembly kernel, per-field entry (main-path proof).
+# The *LAUNCHES counters count calls of a kernel's wrapper in this
+# process: eager frames and graph captures, never a graph's replay.
+
+#: Wrapper calls of the CUDA assembly kernel, per-field entry (main-path proof).
 LAUNCHES = 0
-#: Launches of the CUDA assembly kernel, template-row entry.
+#: Wrapper calls of the CUDA assembly kernel, template-row entry.
 ROWS_LAUNCHES = 0
-#: Launches of the CUDA template transpose.
+#: Wrapper calls of the CUDA template transpose.
 TRANSPOSE_LAUNCHES = 0
 
 

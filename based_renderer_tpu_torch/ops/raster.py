@@ -56,18 +56,22 @@ from . import fixedpoint as fp
 from .binning import bin_triangles
 from .setup import TriSetup
 
-#: Launches of the sequential raster kernel (csrc/raster_tile.cu) in this
-#: process (main-path proof).
+# The *_LAUNCHES counters count calls of a kernel's wrapper in this
+# process: eager frames and graph captures, never a graph's replay.  They
+# tell which route a frame took, not how often a kernel ran.
+
+#: Wrapper calls of the sequential raster kernel (csrc/raster_tile.cu)
+#: (main-path proof).
 KERNEL_LAUNCHES = 0
-#: Launches of csrc/raster_tile.cu for the two-pass route (``two_pass``).
+#: Wrapper calls of csrc/raster_tile.cu for the two-pass route (``two_pass``).
 TWO_PASS_LAUNCHES = 0
-#: Launches of the sublane raster kernel (csrc/raster_sublane.cu).
+#: Wrapper calls of the sublane raster kernel (csrc/raster_sublane.cu).
 SUBLANE_LAUNCHES = 0
-#: Launches of csrc/raster_sublane.cu for the batched route (``batch``).
+#: Wrapper calls of csrc/raster_sublane.cu for the batched route (``batch``).
 BATCH_LAUNCHES = 0
-#: Launches of the coverage MSAA-4x raster kernel (csrc/raster_msaa4.cu).
+#: Wrapper calls of the coverage MSAA-4x raster kernel (csrc/raster_msaa4.cu).
 MSAA_LAUNCHES = 0
-#: Launches of the MSAA-4x sublane raster kernel (csrc/raster_msaa4_sublane.cu).
+#: Wrapper calls of the MSAA-4x sublane raster kernel (csrc/raster_msaa4_sublane.cu).
 MSAA_SUBLANE_LAUNCHES = 0
 NUM_SAMPLES = 4
 

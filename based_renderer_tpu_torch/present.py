@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from . import runtime
+from .utils import profiling
 from .utils.errors import PresentError
 
 _BLOCK_ALIGN = 1 << 16  # the staging block's alignment and size multiple: whole pages
@@ -147,16 +148,18 @@ class Swapchain:
             raise PresentError(f"frame extent {shape} does not match swapchain {self._staging.shape}"
                                " — call resize() (the OutOfDate analog)")
         slot = self._slot(self.submitted)
-        rgba = planar.permute(1, 2, 0).contiguous()
-        self._staging.tensors[slot].copy_(rgba, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(planar.device))
+        with profiling.span("brt.swapchain.copy"):
+            rgba = planar.permute(1, 2, 0).contiguous()
+            self._staging.tensors[slot].copy_(rgba, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(planar.device))
         return _InFlight(slot, event, rgba)
 
     def _drain_one(self) -> np.ndarray:
         oldest = self._ring.popleft()
         if isinstance(oldest, _InFlight):
-            oldest.event.synchronize()  # the fence: this frame's copy, nothing newer
+            with profiling.span("brt.sync.present_fence"):
+                oldest.event.synchronize()  # the fence: this frame's copy, nothing newer
             img = self._staging.views[oldest.slot]
         else:
             img = oldest.color_np() if hasattr(oldest, "color_np") else np.asarray(oldest.color)
@@ -258,7 +261,9 @@ def render_loop(
         for _ in range(frames):
             t = pacer.tick()
             with stage("record+dispatch"):
-                frame = renderer.render_frame(pipeline, mesh, uniforms_fn(t), instances=instances)
+                with profiling.span("brt.caller.uniforms_fn"):
+                    uniforms = uniforms_fn(t)
+                frame = renderer.render_frame(pipeline, mesh, uniforms, instances=instances)
             with stage("present", fence=frame.color_planar if timer else None):
                 img = chain.submit(frame)
             if img is not None:

@@ -88,6 +88,7 @@ from .ops.setup import setup_triangles
 from .ops.vertex import expand_instances, gather_triangles
 from .pipeline import Pipeline
 from .scene import Mesh, Texture, generated_mesh, upload_mesh, upload_texture
+from .utils import profiling
 from .utils.errors import AllocationError, DeviceError, DrawError, FeatureNotPresentError, FrameError
 
 
@@ -462,8 +463,12 @@ class _Segment:
         self.children: dict = {}
 
     def run(self, state, capture: Optional[_Capture]):
+        """The segment once: its eager run without a capture, else its
+        graph's replay (span ``brt.frame.replay`` either way), captured
+        first on the first call (``brt.frame.capture``)."""
         if capture is None:
-            return self.fn(state)
+            with profiling.span("brt.frame.replay"):
+                return self.fn(state)
         if self.graph is None:
             graph = torch.cuda.CUDAGraph()
             # Cyclic garbage that holds CUDA resources (a profiler's results,
@@ -474,13 +479,15 @@ class _Segment:
             collecting = gc.isenabled()
             gc.disable()
             try:
-                with torch.cuda.graph(graph, pool=capture.pool, stream=capture.stream):
-                    out = self.fn(state)
+                with profiling.span("brt.frame.capture"):
+                    with torch.cuda.graph(graph, pool=capture.pool, stream=capture.stream):
+                        out = self.fn(state)
             finally:
                 if collecting:
                     gc.enable()
             self.graph, self.out = graph, out
-        self.graph.replay()
+        with profiling.span("brt.frame.replay"):
+            self.graph.replay()
         return self.out
 
 
@@ -510,7 +517,7 @@ class _Program:
             # the kernel library, cuBLAS and the allocator are set up.
             cur = torch.cuda.current_stream(self.r.device)
             self.capture.stream.wait_stream(cur)
-            with torch.cuda.stream(self.capture.stream):
+            with profiling.span("brt.frame.capture"), torch.cuda.stream(self.capture.stream):
                 self.r._run_frame(self.draws, *self.clear, self.shard)
             cur.wait_stream(self.capture.stream)
             self.warm = True
@@ -545,14 +552,26 @@ class _Slot:
             version = None if x.is_inference() else x._version
             if x is self.src and version is not None and version == self.version:
                 return
-            self.buf.copy_(x)
+            with _upload_span(self.buf.device, x):
+                self.buf.copy_(x)
             self.src, self.version = x, version
             return
         if isinstance(x, (bool, int, float)):
             self.buf.fill_(x)
         else:
-            self.buf.copy_(torch.tensor(np.asarray(x)))
+            x = torch.tensor(np.asarray(x))
+            with _upload_span(self.buf.device, x):
+                self.buf.copy_(x)
         self.src = self.version = None
+
+
+def _upload_span(device: torch.device, src: torch.Tensor):
+    """``brt.sync.upload`` around a copy of ``src`` onto ``device`` that
+    blocks the host until the stream reaches it: from pageable host memory
+    onto a CUDA device.  ``profiling.OFF`` around any other copy."""
+    if not profiling.recording() or device.type != "cuda" or src.is_cuda or src.is_pinned():
+        return profiling.OFF
+    return profiling.span("brt.sync.upload")
 
 
 def _map_inputs(draws, fn) -> list:
@@ -598,14 +617,18 @@ class _FrameProgram(_Program):
         super().__init__(r, bound, torch.empty((4,), dtype=torch.float32, device=r.device), clear_depth, shard)
 
     def __call__(self, draws, clear_color):
-        slots = iter(self.slots)
-        _map_inputs(draws, lambda x, _: next(slots).load(x))
-        if clear_color != self.last_clear:
-            self.clear[0].copy_(torch.tensor(clear_color, dtype=torch.float32))
-            self.last_clear = clear_color
+        with profiling.span("brt.frame.load"):
+            slots = iter(self.slots)
+            _map_inputs(draws, lambda x, _: next(slots).load(x))
+            if clear_color != self.last_clear:
+                clear = torch.tensor(clear_color, dtype=torch.float32)
+                with _upload_span(self.clear[0].device, clear):
+                    self.clear[0].copy_(clear)
+                self.last_clear = clear_color
         out = self.frame()
         if self.capture is not None:
-            out = tuple(None if x is None else x.clone() for x in out)
+            with profiling.span("brt.frame.clone"):
+                out = tuple(None if x is None else x.clone() for x in out)
         return out
 
 
@@ -659,13 +682,14 @@ class _SequenceProgram(_Program):
         frames = torch.empty((n, 4, h, w), dtype=torch.float32, device=dev) if return_frames else None
         overflowed = torch.zeros((), dtype=torch.bool, device=dev)
         for i in range(n):
-            for buf, stack in zip(self.inputs, stacks):
-                buf.copy_(stack[i])
-            color, _depth_q, _tri_id, _stencil, of = self.frame()
-            sums[i] = color.sum()
-            overflowed |= of
-            if frames is not None:
-                frames[i].copy_(color)
+            with profiling.span("brt.sequence.frame"):
+                for buf, stack in zip(self.inputs, stacks):
+                    buf.copy_(stack[i])
+                color, _depth_q, _tri_id, _stencil, of = self.frame()
+                sums[i] = color.sum()
+                overflowed |= of
+                if frames is not None:
+                    frames[i].copy_(color)
         return sums, frames, overflowed
 
 
@@ -802,13 +826,16 @@ class Renderer:
     def end_frame(self) -> FrameResult:
         color, depth_q, tri_id, stencil, overflowed = self._frame(*self.close_frame())
         if self.config.debug:
-            if bool(overflowed):
+            with profiling.span("brt.sync.debug"):
+                bad_pairs = bool(overflowed)
+                finite = bool(torch.isfinite(color).all())
+            if bad_pairs:
                 raise AllocationError(
                     "raster pair buffer overflow: a draw's (tile, triangle) pair "
                     "count exceeded its raster_pairs_factor budget, so trailing "
                     "triangles were dropped; raise Pipeline.raster_pairs_factor"
                 )
-            if not bool(torch.isfinite(color).all()):
+            if not finite:
                 raise FrameError("non-finite values in rendered color buffer")
         self.frame_count += 1
         return FrameResult(
@@ -822,9 +849,10 @@ class Renderer:
 
     def render_frame(self, pipeline, mesh, uniforms=None, instances=None, **clear) -> FrameResult:
         """Convenience: one-draw frame."""
-        self.begin_frame(**clear)
-        self.draw(pipeline, mesh, uniforms, instances)
-        return self.end_frame()
+        with profiling.span("brt.render_frame"):
+            self.begin_frame(**clear)
+            self.draw(pipeline, mesh, uniforms, instances)
+            return self.end_frame()
 
     # -- the frame -----------------------------------------------------------
 
@@ -832,8 +860,9 @@ class Renderer:
         """The frame through the program cached for its key (the JAX
         package's _program_cache): made on the key's first call, which on
         CUDA also captures it.  The result tuple is the caller's own."""
-        key = (self._cache_key(draws), clear_depth, shard)
-        program = self._programs.get(key)
+        with profiling.span("brt.frame.key"):
+            key = (self._cache_key(draws), clear_depth, shard)
+            program = self._programs.get(key)
         if program is None:
             program = _FrameProgram(self, draws, clear_depth, shard)
         out = program(draws, clear_color)
@@ -845,12 +874,12 @@ class Renderer:
         made there by a fill kernel; an array is uploaded (the eager
         frame's host-to-device copy: a sequence makes it once per call, a
         frame program once, to size its buffer)."""
-        if isinstance(x, torch.Tensor):
-            t = x.to(self.device)
-        elif isinstance(x, (bool, int, float)):
+        if isinstance(x, (bool, int, float)):
             t = torch.full((), x, device=self.device)  # the dtype torch.tensor(x) would take
         else:
-            t = torch.tensor(np.asarray(x), device=self.device)
+            x = x if isinstance(x, torch.Tensor) else torch.tensor(np.asarray(x))
+            with _upload_span(self.device, x):
+                t = x.to(self.device)
         return t.to(torch.float32) if t.is_floating_point() else t
 
     def _uniforms(self, tree):
@@ -917,7 +946,8 @@ class Renderer:
         smallest.  Reading the count is a compacted draw's one host
         synchronisation."""
         _, _, w, h = self._window(pending.vis.shard)
-        count = int(pending.count)
+        with profiling.span("brt.sync.tile_count"):
+            count = int(pending.count)
         fits = [b for b in _tile_budgets(pending.vis.draws[pending.draw].pipeline.shade_compact, h, w) if count <= b]
         return fits[0] if fits else 0
 
@@ -1211,94 +1241,101 @@ class Renderer:
         """
         sums, frames, overflowed = self._sequence(seq_draws, num_frames, return_frames, t0, dt)
         self.last_sequence_overflowed = overflowed
-        if self.config.debug and bool(overflowed):
-            raise AllocationError(
-                "raster pair buffer overflow during render_sequence; raise Pipeline.raster_pairs_factor"
-            )
+        if self.config.debug:
+            with profiling.span("brt.sync.debug"):
+                bad_pairs = bool(overflowed)
+            if bad_pairs:
+                raise AllocationError(
+                    "raster pair buffer overflow during render_sequence; raise Pipeline.raster_pairs_factor"
+                )
         return (sums, frames) if return_frames else sums
 
     def _sequence(self, seq_draws, num_frames, return_frames: bool, t0: float, dt: float,
                   shard: Optional[Shard] = None):
         """render_sequence_multi's frames, over the shard's window if given:
         (checksums (N,), colours (N, 4, H, W) or None, overflowed ())."""
-        self.begin_frame()
-        specs = []  # (per-frame leaves, treedef, static uniforms) per draw
-        n = None
-        try:
-            for sd in seq_draws:
-                fn = sd.get("uniforms_fn")
-                static = sd.get("static_uniforms") or {}
-                if fn is not None:
-                    if sd.get("uniforms_seq"):
-                        raise FrameError("pass either uniforms_seq or uniforms_fn, not both")
-                    if num_frames is None:
-                        raise FrameError("render_sequence needs num_frames when uniforms are empty")
-                    times = [np.float32(t0) + np.float32(dt) * np.float32(i) for i in range(num_frames)]
-                    leaves, treedef = self._stack_frames([fn(t) for t in times])
-                else:
-                    if sd.get("uniforms_seq") is None:
-                        raise FrameError("each sequence draw needs uniforms_seq or uniforms_fn")
-                    leaves, treedef = _flatten(sd["uniforms_seq"])
-                    leaves = [x if isinstance(x, Texture) else self._uniform_leaf(x) for x in leaves]
-                for x in leaves:
-                    if not isinstance(x, Texture):
-                        if n is not None and x.shape[0] != n:
-                            raise FrameError(f"per-frame uniforms of {x.shape[0]} and {n} frames")
-                        n = x.shape[0]
-                u0 = _unflatten(treedef, [x if isinstance(x, Texture) else x[0] for x in leaves])
-                if isinstance(u0, dict):
-                    u0 = {**static, **u0}
-                self.draw(sd["pipeline"], sd["mesh"], u0, sd.get("instances"))
-                specs.append((leaves, treedef, static))
-        finally:
-            draws, self._draws, self._in_frame = self._draws, [], False
-        n = num_frames if n is None else n
-        if n is None:
-            raise FrameError("render_sequence needs num_frames when uniforms are empty")
+        with profiling.span("brt.sequence"):
+            self.begin_frame()
+            specs = []  # (per-frame leaves, treedef, static uniforms) per draw
+            n = None
+            try:
+                for sd in seq_draws:
+                    fn = sd.get("uniforms_fn")
+                    static = sd.get("static_uniforms") or {}
+                    if fn is not None:
+                        if sd.get("uniforms_seq"):
+                            raise FrameError("pass either uniforms_seq or uniforms_fn, not both")
+                        if num_frames is None:
+                            raise FrameError("render_sequence needs num_frames when uniforms are empty")
+                        times = [np.float32(t0) + np.float32(dt) * np.float32(i) for i in range(num_frames)]
+                        with profiling.span("brt.caller.uniforms_fn"):
+                            trees = [fn(t) for t in times]
+                        leaves, treedef = self._stack_frames(trees)
+                    else:
+                        if sd.get("uniforms_seq") is None:
+                            raise FrameError("each sequence draw needs uniforms_seq or uniforms_fn")
+                        leaves, treedef = _flatten(sd["uniforms_seq"])
+                        leaves = [x if isinstance(x, Texture) else self._uniform_leaf(x) for x in leaves]
+                    for x in leaves:
+                        if not isinstance(x, Texture):
+                            if n is not None and x.shape[0] != n:
+                                raise FrameError(f"per-frame uniforms of {x.shape[0]} and {n} frames")
+                            n = x.shape[0]
+                    u0 = _unflatten(treedef, [x if isinstance(x, Texture) else x[0] for x in leaves])
+                    if isinstance(u0, dict):
+                        u0 = {**static, **u0}
+                    self.draw(sd["pipeline"], sd["mesh"], u0, sd.get("instances"))
+                    specs.append((leaves, treedef, static))
+            finally:
+                draws, self._draws, self._in_frame = self._draws, [], False
+            n = num_frames if n is None else n
+            if n is None:
+                raise FrameError("render_sequence needs num_frames when uniforms are empty")
 
-        # The caller's objects the program captures as they are: ids in the key.
-        keep = []
-        for d, (leaves, _, static) in zip(draws, specs):
-            if d.mesh.generator is None:
-                keep += [d.mesh.attributes[k] for k in sorted(d.mesh.attributes)]
-                keep += [] if d.mesh.indices is None else [d.mesh.indices]
-            keep += [d.instances[k] for k in sorted(d.instances or {})]
-            keep += _flatten(static)[0] + [x for x in leaves if isinstance(x, Texture)]
-        key = (
-            "seq",
-            self._cache_key(draws),
-            return_frames,
-            self._frame_clear,
-            tuple(id(x) for x in keep),
-            tuple(None if d.mesh.generator is None else id(d.mesh.generator) for d in draws),
-            shard,
-        )
-        program = self._sequences.get(key)
-        if program is None:
-            program = _SequenceProgram(self, draws, specs, keep + [d.mesh.generator for d in draws], shard)
-        stacks = [x for leaves, _, _ in specs for x in leaves if not isinstance(x, Texture)]
-        out = program.run(stacks, n, return_frames)
-        self._sequences[key] = program
-        return out
+            # The caller's objects the program captures as they are: ids in the key.
+            keep = []
+            for d, (leaves, _, static) in zip(draws, specs):
+                if d.mesh.generator is None:
+                    keep += [d.mesh.attributes[k] for k in sorted(d.mesh.attributes)]
+                    keep += [] if d.mesh.indices is None else [d.mesh.indices]
+                keep += [d.instances[k] for k in sorted(d.instances or {})]
+                keep += _flatten(static)[0] + [x for x in leaves if isinstance(x, Texture)]
+            key = (
+                "seq",
+                self._cache_key(draws),
+                return_frames,
+                self._frame_clear,
+                tuple(id(x) for x in keep),
+                tuple(None if d.mesh.generator is None else id(d.mesh.generator) for d in draws),
+                shard,
+            )
+            program = self._sequences.get(key)
+            if program is None:
+                program = _SequenceProgram(self, draws, specs, keep + [d.mesh.generator for d in draws], shard)
+            stacks = [x for leaves, _, _ in specs for x in leaves if not isinstance(x, Texture)]
+            out = program.run(stacks, n, return_frames)
+            self._sequences[key] = program
+            return out
 
     def _stack_frames(self, trees):
         """uniforms_fn's N per-frame trees -> (leaves, treedef): each leaf
         stacked (N, ...) on the host and uploaded once; a Texture leaf must
         be one object in every frame, and stays as it is."""
-        flat = [_flatten(t) for t in trees]
-        treedef = flat[0][1]
-        if any(d != treedef for _, d in flat):
-            raise FrameError("uniforms_fn returned trees of different structure")
-        leaves = []
-        for col in zip(*(f[0] for f in flat)):
-            if any(isinstance(x, Texture) for x in col):
-                if any(x is not col[0] for x in col):
-                    raise FrameError("a texture from uniforms_fn must be the same object in every frame")
-                leaves.append(col[0])
-                continue
-            host = [x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x)) for x in col]
-            leaves.append(self._uniform_leaf(torch.stack(host)))
-        return leaves, treedef
+        with profiling.span("brt.sequence.stack"):
+            flat = [_flatten(t) for t in trees]
+            treedef = flat[0][1]
+            if any(d != treedef for _, d in flat):
+                raise FrameError("uniforms_fn returned trees of different structure")
+            leaves = []
+            for col in zip(*(f[0] for f in flat)):
+                if any(isinstance(x, Texture) for x in col):
+                    if any(x is not col[0] for x in col):
+                        raise FrameError("a texture from uniforms_fn must be the same object in every frame")
+                    leaves.append(col[0])
+                    continue
+                host = [x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x)) for x in col]
+                leaves.append(self._uniform_leaf(torch.stack(host)))
+            return leaves, treedef
 
     def _cache_key(self, draws):
         """The JAX package's program key (renderer.py:381-404): the

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import itertools
 import os
 import shutil
 import subprocess
@@ -27,6 +28,8 @@ import threading
 from pathlib import Path
 
 import numpy as np
+
+from ..utils import profiling
 
 SRC = Path(__file__).resolve().parent / "native" / "brt_runtime.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_runtime"
@@ -98,6 +101,8 @@ def _declare(lib):
     lib.brt_present_submit.restype = c.c_uint64
     lib.brt_present_submit.argtypes = [c.c_void_p, c.c_void_p]
     lib.brt_present_flush.argtypes = [c.c_void_p]
+    lib.brt_present_records.restype = c.c_int32
+    lib.brt_present_records.argtypes = [c.c_void_p, c.c_void_p, c.c_int32]
     lib.brt_present_count.restype = c.c_uint64
     lib.brt_present_count.argtypes = [c.c_void_p]
     lib.brt_present_destroy.argtypes = [c.c_void_p]
@@ -206,17 +211,29 @@ class NativePacer:
             self._h = None
 
 
+#: Records the native ring keeps per ring (kPresentRecords), and read at once.
+PRESENT_RECORDS = 4096
+_ring_serials = itertools.count()
+
+
 class PresentRing:
     """Background present thread and bounded frame ring (swapchain analog).
 
     Frames submitted as float32 (H, W, 4) numpy arrays are copied, then
     converted and written as PNGs ``frame_%06d.png`` (or dropped, without
     ``out_dir``) off the Python thread; submit blocks only while ``depth``
-    frames wait."""
+    frames wait.
+
+    Each frame's phases are stamped on both threads.  A submit made while
+    a torch profiler records drains the stamps of the frames presented so
+    far into ``utils.profiling.ring_records``; after one has, ``flush``
+    and ``close`` drain the rest."""
 
     def __init__(self, width: int, height: int, depth: int = 2, out_dir: str | None = None, srgb: bool = False):
         self._lib = require()
         self.width, self.height = width, height
+        self.serial = next(_ring_serials)
+        self._traced = False
         self._h = self._lib.brt_present_create(
             width, height, depth, os.fsencode(out_dir) if out_dir else None, 1 if srgb else 0
         )
@@ -224,13 +241,27 @@ class PresentRing:
     def submit(self, rgba_f32: np.ndarray) -> int:
         from ..utils.errors import PresentError
 
-        a = np.ascontiguousarray(rgba_f32, np.float32)
-        if a.shape != (self.height, self.width, 4):
-            raise PresentError(f"present expects ({self.height}, {self.width}, 4), got {a.shape}")
-        return self._lib.brt_present_submit(self._h, a.ctypes.data)
+        with profiling.span("brt.ring.submit"):
+            a = np.ascontiguousarray(rgba_f32, np.float32)
+            if a.shape != (self.height, self.width, 4):
+                raise PresentError(f"present expects ({self.height}, {self.width}, 4), got {a.shape}")
+            index = self._lib.brt_present_submit(self._h, a.ctypes.data)
+        if profiling.recording():
+            self._traced = True
+            self._drain()
+        return index
+
+    def _drain(self):
+        """Hand the stamps of the frames presented since the last drain to
+        utils.profiling."""
+        out = np.empty((PRESENT_RECORDS, 8), np.uint64)
+        n = self._lib.brt_present_records(self._h, out.ctypes.data, PRESENT_RECORDS)
+        profiling.keep_ring_records(self.serial, out[:n].tolist())
 
     def flush(self):
         self._lib.brt_present_flush(self._h)
+        if self._traced:
+            self._drain()
 
     @property
     def presented(self) -> int:
@@ -238,6 +269,8 @@ class PresentRing:
 
     def close(self):
         if getattr(self, "_h", None):
+            if self._traced:
+                self.flush()
             self._lib.brt_present_destroy(self._h)
             self._h = None
 

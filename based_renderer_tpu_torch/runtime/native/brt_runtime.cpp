@@ -22,7 +22,8 @@
 //                  (the swapchain/present-queue analog, main.cpp:2173-2184):
 //                  submit never blocks while a slot is free; frames are
 //                  converted and written (or dropped for display-less runs)
-//                  off the Python thread.
+//                  off the Python thread; each frame's phases are stamped
+//                  on both threads (brt_present_records).
 //
 // Exposed as a C ABI for ctypes (no pybind11 in this image).
 
@@ -339,6 +340,28 @@ int32_t brt_write_ppm(const char* path, const uint8_t* rgb, int32_t w,
 // Present ring (swapchain/present-queue analog)
 // ---------------------------------------------------------------------------
 
+// Per-frame stamps of the ring, in ns on std::chrono::system_clock (the
+// clock torch.profiler stamps its host events on), kept in a fixed ring of
+// kPresentRecords records and read out by brt_present_records.  A stamp a
+// frame did not reach (written, without an out_dir) is 0.
+struct BrtPresentRecord {
+  uint64_t index;
+  uint64_t enter;      // submit entered
+  uint64_t room;       // a place in the ring was free
+  uint64_t copied;     // the frame's copy was made
+  uint64_t popped;     // the worker took the frame
+  uint64_t converted;  // f32 -> u8 done
+  uint64_t written;    // the PNG written
+  uint64_t freed;      // the frame's copy freed
+};
+static const uint64_t kPresentRecords = 4096;
+
+static uint64_t now_ns() {
+  return (uint64_t)std::chrono::duration_cast<std::chrono::nanoseconds>(
+             std::chrono::system_clock::now().time_since_epoch())
+      .count();
+}
+
 struct BrtPresent {
   struct Frame {
     std::vector<float> rgba;  // owned copy (h*w*4)
@@ -356,28 +379,42 @@ struct BrtPresent {
   // Atomic: flush() reads it without the mutex (submit() increments under
   // the lock, but nothing ties the flushing thread to the submitting one).
   std::atomic<uint64_t> submitted{0};
+  // records[i % kPresentRecords] is frame i's.  submit writes its stamps
+  // under mu before the frame is queued; the worker writes the rest before
+  // presented passes the frame.  A frame below presented is complete.
+  std::vector<BrtPresentRecord> records =
+      std::vector<BrtPresentRecord>(kPresentRecords);
+  uint64_t read = 0;  // the next record brt_present_records hands out (mu)
 };
 
 static void present_worker(BrtPresent* p) {
   std::vector<uint8_t> u8((size_t)p->w * p->h * 4);
   for (;;) {
     BrtPresent::Frame frame;
+    uint64_t popped;
     {
       std::unique_lock<std::mutex> lk(p->mu);
       p->cv_submit.wait(lk, [&] { return p->stop.load() || !p->ring.empty(); });
       if (p->ring.empty()) return;  // stop && drained
       frame = std::move(p->ring.front());
       p->ring.pop_front();
+      popped = now_ns();
       p->cv_done.notify_all();
     }
+    BrtPresentRecord& rec = p->records[frame.index % kPresentRecords];
+    rec.popped = popped;
     (p->srgb ? brt_f32_to_u8_srgb : brt_f32_to_u8)(
         frame.rgba.data(), u8.data(), (int64_t)p->w * p->h * 4);
+    rec.converted = now_ns();
     if (!p->out_dir.empty()) {
       char path[4096];
       snprintf(path, sizeof(path), "%s/frame_%06llu.png", p->out_dir.c_str(),
                (unsigned long long)frame.index);
       brt_write_png(path, u8.data(), p->w, p->h, 4);
+      rec.written = now_ns();
     }
+    std::vector<float>().swap(frame.rgba);
+    rec.freed = now_ns();
     p->presented.fetch_add(1);
   }
 }
@@ -399,14 +436,38 @@ BrtPresent* brt_present_create(int32_t w, int32_t h, int32_t depth,
 // Submit a frame (copies rgba f32 data). Blocks only when the ring is full
 // (the fence-wait analog). Returns the frame index.
 uint64_t brt_present_submit(BrtPresent* p, const float* rgba) {
+  uint64_t enter = now_ns();
   std::unique_lock<std::mutex> lk(p->mu);
   p->cv_done.wait(lk, [&] { return (int32_t)p->ring.size() < p->depth; });
+  uint64_t room = now_ns();
   BrtPresent::Frame f;
   f.rgba.assign(rgba, rgba + (size_t)p->w * p->h * 4);
   f.index = p->submitted++;
+  p->records[f.index % kPresentRecords] =
+      BrtPresentRecord{f.index, enter, room, now_ns(), 0, 0, 0, 0};
+  uint64_t index = f.index;
   p->ring.push_back(std::move(f));
   p->cv_submit.notify_one();
-  return f.index;
+  return index;
+}
+
+// Copy the records of presented frames not yet read, oldest first, into
+// out (max records of 8 uint64: index, enter, room, copied, popped,
+// converted, written, freed); returns how many.  Frames older than the
+// record ring holds are skipped.
+int32_t brt_present_records(BrtPresent* p, uint64_t* out, int32_t max) {
+  std::lock_guard<std::mutex> lk(p->mu);
+  uint64_t end = p->presented.load();
+  // the slots of frames still in flight (at most depth + 1) are not read
+  uint64_t keep = kPresentRecords - (uint64_t)p->depth - 1;
+  uint64_t start = std::max(p->read, end > keep ? end - keep : 0);
+  int32_t n = 0;
+  for (uint64_t i = start; i < end && n < max; ++i, ++n) {
+    memcpy(out + (size_t)n * 8, &p->records[i % kPresentRecords],
+           sizeof(BrtPresentRecord));
+  }
+  p->read = start + (uint64_t)n;
+  return n;
 }
 
 // Wait until all submitted frames are presented (vkDeviceWaitIdle analog).

@@ -1,1 +1,1 @@
-"""Utilities: error taxonomy, logging, image IO."""
+"""Utilities: error taxonomy, image IO, profiling and the build caches."""

@@ -39,7 +39,8 @@ def parse(argv=None):
     ap.add_argument("--backend", default="auto", choices=("auto", "xla", "pallas"))
     ap.add_argument("--profile", action="store_true", help="fence and time the render/present stages (StageTimer)")
     ap.add_argument("--trace", default=None, metavar="DIR",
-                    help="write a torch.profiler Chrome trace of the run into DIR (view in Perfetto)")
+                    help="write a torch.profiler Chrome trace of the run, with the program's brt.* spans and the "
+                         "present ring's thread, into DIR (view in Perfetto)")
     ap.add_argument("--cpu", action="store_true", help="render on the CPU instead of the CUDA device")
     return ap.parse_args(argv)
 
@@ -78,7 +79,7 @@ def run(args) -> dict:
         with trace_cm as trace_path:
             last, pacer = present.render_loop(r, demo, frames=args.frames, on_frame=on_frame, vsync=args.vsync,
                                               timer=timer)
-        ring.flush()
+            ring.flush()  # inside the trace: the ring's last frames join its track
         loop_s = time.perf_counter() - t0
         presented = ring.presented
     finally:
