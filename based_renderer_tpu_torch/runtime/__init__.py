@@ -34,7 +34,7 @@ from ..utils import profiling
 SRC = Path(__file__).resolve().parent / "native" / "brt_runtime.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_runtime"
 # -ffp-contract=off keeps f32_to_u8's v * 255 + 0.5 two roundings (no FMA),
-# as numpy computes it, on hosts whose baseline ISA has FMA.
+# as numpy computes it, in its SSE2 body and its scalar tail alike.
 CXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17", "-ffp-contract=off")
 LIBS = ("-lz", "-lpthread")
 
@@ -219,10 +219,12 @@ _ring_serials = itertools.count()
 class PresentRing:
     """Background present thread and bounded frame ring (swapchain analog).
 
-    Frames submitted as float32 (H, W, 4) numpy arrays are copied, then
-    converted and written as PNGs ``frame_%06d.png`` (or dropped, without
-    ``out_dir``) off the Python thread; submit blocks only while ``depth``
-    frames wait.
+    ``submit`` reads a float32 (H, W, 4) numpy array once, converting it
+    to u8 (``f32_to_u8``'s bytes, sRGB-encoded on an ``srgb`` ring) into
+    one of ``depth + 1`` slots pooled at creation, so the caller's array
+    is free again on return.  PNGs ``frame_%06d.png`` are written (or
+    frames dropped, without ``out_dir``) off the Python thread; submit
+    blocks only while ``depth`` frames wait.
 
     Each frame's phases are stamped on both threads.  A submit made while
     a torch profiler records drains the stamps of the frames presented so
