@@ -19,8 +19,8 @@ from .renderer import Renderer, RendererConfig
 def entry(width: int = 1920, height: int = 1080, device=None):
     """(fn, args): ``fn(*args)`` renders the cube demo's frame at t = 0.5
     (cleared to zero colour) and returns the frame's result tuple (color
-    (4, H, W), depth_q, tri_id, stencil, overflowed).  ``device`` as for
-    Renderer: the card unless the CPU is named."""
+    (4, H, W), depth_q, tri_id, stencil, overflowed, pair_budget_use).
+    ``device`` as for Renderer: the card unless the CPU is named."""
     r = Renderer(RendererConfig(width=width, height=height), device=device)
     pipe, mesh, uniforms, _ = demos.cube_demo(r)
     # Record one frame to get its draw list.

@@ -3,7 +3,9 @@
 Each demo returns (pipeline, mesh, uniforms_fn, instances) where
 ``uniforms_fn(t)`` produces the per-frame uniforms at animation time ``t``.
 Pipelines are copied field for field from the JAX package; see its
-demos.py for the measurements behind each budget and raster knob.
+demos.py for the measurements behind each budget and raster knob.  One
+departs: big_mesh's MSAA-4x pair budget (``big_mesh_budget``), sized
+from the port's own sweep.
 """
 
 from __future__ import annotations
@@ -140,12 +142,57 @@ def instanced_demo(r: Renderer, count: int = 10_000):
     return pipe, mesh, uniforms, instances
 
 
+#: The worst view of the 1M-triangle mesh over one turn of the model, as
+#: (extra tiles, true (tile, triangle) pairs) per triangle, at 3840x2160
+#: with coverage MSAA-4x and without it: the largest of the benchmark's
+#: mesh and the demo's generated mesh (the same procedural torus-knot tube,
+#: mesh_seed 0), over the period at dt 1/60 and dt 1/600 within 0.5 s of
+#: each worst view (sweep_pair_budget.py on an H100; PERF.md section 6).
+WORST_4K_MSAA4 = (0.400538, 0.877929)  # t = 9.435 s and 4.843 s
+WORST_4K = (0.347944, 0.816077)  # t = 9.443 s and 4.882 s
+#: Room each 4K tier keeps above its worst view, on the extras budget
+#: (raster_pairs_factor - 1) and on the slots: 10%, for views between the
+#: sampled times.  A view that needs more overflows visibly (overflowed,
+#: FrameResult.pair_budget_use > 1), never silently.
+HEADROOM = 1.10
+
+
+def big_mesh_budget(width: int, msaa: int, triangles: int) -> tuple:
+    """(raster_pairs_factor, raster_slots_factor) of the big_mesh demo.
+
+    - Below 100k triangles each triangle spans more tiles: the generous
+      defaults (4.0, no slot cut), as in the JAX package.
+    - MSAA-4x: the smallest factors, to 0.01, that hold WORST_4K_MSAA4 with
+      HEADROOM.  Coverage MSAA pads every bbox, so it crosses more tiles;
+      the JAX package's (1.4, 0.9) does not hold: the worst view needs
+      0.4005 extra tiles a triangle.
+    - Up to 2560 px wide without MSAA: the JAX package's tight tier
+      (1.15, 0.6), measured there for ~1M tiny triangles.
+    - Wider without MSAA: the JAX package's (1.4, 0.9), which holds
+      WORST_4K with HEADROOM (it needs 1.39 and 0.90).
+
+    The sweep behind the MSAA-4x tier covers one mesh, the procedural
+    stand-in for BASELINE config 5's scan, at 1M triangles and 3840x2160
+    with coverage MSAA.  Other sizes, triangle counts from 100k up (larger
+    triangles, more tiles each), a scanned mesh's spread of triangle
+    sizes, and 2x2 supersampling (``msaa_supersample``, which rasterizes
+    at twice the width and height) take the tier unswept: they overflow
+    visibly if it does not hold.  Sweep it again once the scan is in the
+    repository.
+    """
+    if triangles < 100_000:
+        return 4.0, None
+    if msaa == 4:
+        return 1.45, 0.97
+    if width <= 2560:
+        return 1.15, 0.6
+    return 1.4, 0.9
+
+
 def big_mesh_demo(r: Renderer, triangles: int = 1_000_000, generated: bool = False):
     """BASELINE config 5: ~1M-triangle mesh with Blinn-Phong shading.
 
-    The budget tiers follow the JAX package: tight pair/slot factors for
-    ~1M tiny triangles at up to 2560 px wide without MSAA, a wide tier at
-    4K (or under MSAA), and the generous defaults at toy triangle counts.
+    The pair and slot budgets are ``big_mesh_budget``'s tiers.
     ``generated=True`` makes the mesh on the device with
     geometry.procedural_mesh_device (Renderer.generated_mesh): a sequence
     then regenerates it once per call into buffers of its own instead of
@@ -156,15 +203,15 @@ def big_mesh_demo(r: Renderer, triangles: int = 1_000_000, generated: bool = Fal
     else:
         data = geometry.procedural_mesh_data(triangles)
         mesh = r.upload_mesh(data["positions"], indices=data["indices"], normal=data["normal"])
-    narrow = r.config.width <= 2560 and r.config.msaa == 1
+    pairs_factor, slots_factor = big_mesh_budget(r.config.width, r.config.msaa, triangles)
     pipe = Pipeline(
         shader="blinn_phong",
         depth=DepthState(test=True, write=True, compare="less"),
         cull_mode="back",
         front_face="ccw",
         near_clip=False,
-        raster_pairs_factor=(1.15 if narrow else 1.4) if triangles >= 100_000 else 4.0,
-        raster_slots_factor=(0.6 if narrow else 0.9) if triangles >= 100_000 else None,
+        raster_pairs_factor=pairs_factor,
+        raster_slots_factor=slots_factor,
         raster_sublane=True,
         raster_group=64,
         raster_tile=(128, 8),

@@ -73,6 +73,7 @@ class BinnedTriangles(NamedTuple):
     tile_count: torch.Tensor  # (num_tiles,) int32 records of the tile
     num_pairs: torch.Tensor  # () int32 true pair count (pre-truncation)
     overflowed: torch.Tensor  # () bool true pair count exceeded the budget
+    pair_budget_use: torch.Tensor  # () float64 share of the budget the true stream needs (> 1: overflowed)
 
 
 class PairStream(NamedTuple):
@@ -87,6 +88,22 @@ class PairStream(NamedTuple):
     tile_count: torch.Tensor  # (num_tiles,) int32
     num_pairs: torch.Tensor  # () int32
     overflowed: torch.Tensor  # () bool
+    pair_budget_use: torch.Tensor  # () float64
+
+
+def _budget_use(count: torch.Tensor, budget: int) -> torch.Tensor:
+    """``count / budget`` as a () float64 tensor, in one kernel; a zero
+    budget reads 0 when nothing wants it and inf when something does.
+
+    The budget goes in as a float64 host scalar, so the quotient is float64
+    in that one kernel.  It is above 1 exactly when ``count > budget`` for
+    every budget below about 2^50, whether computed as a division (the CPU)
+    or as a product with the reciprocal of ``budget`` (CUDA's division by a
+    host scalar): budget * fl(1 / budget) rounds to at most 1, and
+    (budget + 1) / budget lies more than an ulp above 1."""
+    if budget == 0:
+        return torch.where(count > 0, float("inf"), 0.0).to(torch.float64)
+    return count / torch.tensor(float(budget), dtype=torch.float64)
 
 
 def _check_modes(assemble: str, tmpl: str):
@@ -236,9 +253,12 @@ def pair_stream(
     eends = torch.cumsum(ke, 0)
     estarts = eends - ke
     total_extra = eends[-1]
-    overflowed = total_extra > extra_budget
     true_pairs = num_valid_pairs + total_extra
     total = num_valid_pairs + total_extra.clamp_max(extra_budget)
+    # The share of the budget the true stream needs: the extras' share,
+    # and below the slot cut that of the slots.  The overflow flag is read
+    # off it, so the count costs one kernel a draw.
+    use = _budget_use(total_extra, extra_budget)
 
     # The owning triangle of extra slot j is searchsorted(ends, j, right).
     extra_idx = torch.arange(extra_budget, dtype=i64, device=dev)
@@ -261,8 +281,9 @@ def pair_stream(
         slots = max(-(-slots // SEGMENT_ALIGN) * SEGMENT_ALIGN, SEGMENT_ALIGN)
         if slots < stream_len:
             key = key[:slots]
-            overflowed = overflowed | (true_pairs > slots)
+            use = torch.maximum(use, _budget_use(true_pairs, slots))
             total = total.clamp_max(slots)
+    overflowed = use > 1
     tile_sorted = key >> 32
     t_slot = key & 0xFFFFFFFF
 
@@ -297,6 +318,7 @@ def pair_stream(
         tile_count=(tile_end - tile_start).to(torch.int32),
         num_pairs=true_pairs.to(torch.int32),
         overflowed=overflowed,
+        pair_budget_use=use,
     )
 
 
@@ -333,6 +355,10 @@ def bin_triangles(
     tiles beyond ``max_pairs - T`` are dropped with ``overflowed`` set.
     ``slots`` cuts the sorted stream to a static budget (rounded up to a
     multiple of 128); a cut that drops live pairs sets ``overflowed`` too.
+    ``pair_budget_use`` is the largest share of either budget that the
+    true stream needs, max(extras / (max_pairs - T), true pairs / slots),
+    the second only where the cut applies: above 1 exactly when
+    ``overflowed``, and how close a draw came to it otherwise.
     ``channels`` are (T, 3, K) per-vertex varyings interpolated as planes
     (divided by w first when ``perspective``).  ``id_offset`` is an int
     added to each triangle's index, or a (T,) int32 tensor of per-triangle
@@ -374,6 +400,7 @@ def bin_triangles(
             tile_count=zeros_i.clone(),
             num_pairs=torch.zeros((), dtype=torch.int32, device=dev),
             overflowed=torch.zeros((), dtype=torch.bool, device=dev),
+            pair_budget_use=torch.zeros((), dtype=torch.float64, device=dev),
         )
 
     ps = pair_stream(
@@ -409,4 +436,5 @@ def bin_triangles(
         tile_count=ps.tile_count,
         num_pairs=ps.num_pairs,
         overflowed=ps.overflowed,
+        pair_budget_use=ps.pair_budget_use,
     )

@@ -833,7 +833,8 @@ def rasterize_vis(
     (the kernels simply skip pixels outside the extent).  ``channels``
     (T, 3, K) are interpolated in-raster; the result is then (vis, interp
     (K, H, W), invw (H, W)) instead of vis.  ``return_overflow`` appends
-    the binner's overflow flag.  ``bin_rows`` (sublane only) bins at
+    the binner's overflow flag and its ``pair_budget_use``
+    (bin_triangles).  ``bin_rows`` (sublane only) bins at
     (tile_w x bin_rows) bands with column-major bin ids over a height
     padded to the tile grid, each record anchored at its output tile, so
     every band of a tile reads only its own records.  ``msaa4`` bins
@@ -896,6 +897,5 @@ def rasterize_vis(
     )
     if not return_overflow:
         return out
-    if num_ch == 0:
-        return out, binned.overflowed
-    return (*out, binned.overflowed)
+    flags = (binned.overflowed, binned.pair_budget_use)
+    return (out, *flags) if num_ch == 0 else (*out, *flags)

@@ -10,7 +10,8 @@ one process (rank) per mesh position, the analog of a
     its own window of the framebuffer, binning the triangles against its
     local tile grid with records anchored at global tile origins
     (``Renderer._visibility`` with a ``renderer.Shard``).  No rank talks
-    to another during the frame; only the overflow flag is OR-ed.
+    to another during the frame; only the overflow flag is OR-ed (and
+    the pair budget's use max-reduced) after it.
   * geometry parallelism ("g", optional): each draw's triangle stream is
     cut into slices by the "g" coordinate, every rank rasterizes its slice
     over its window, and the slices' per-pixel winners are
@@ -153,6 +154,7 @@ class TiledRenderer:
         self._shard = Shard(origin=(coord["x"] * self._lw, coord["y"] * self._lh),
                             extent=(self._lw, self._lh), geometry=geometry)
         self.last_sequence_overflowed = None
+        self.last_sequence_pair_budget_use = None
         self._clock_merges, self.merge_ms, self.merge_calls = False, 0.0, 0
 
     @property
@@ -199,7 +201,8 @@ class TiledRenderer:
 
     def end_frame(self) -> FrameResult:
         """Render the recorded draws: this rank's window of the frame, with
-        the overflow flag OR-ed over every rank.  The frame runs through
+        the overflow flag OR-ed and ``pair_budget_use`` max-reduced over
+        every rank.  The frame runs through
         the inner renderer's program for its key, the shard in the key (JAX
         tiled.py:189): on CUDA a tile-only rank replays its captured
         graphs, and a geometry axis, which merges inside the frame, runs
@@ -207,19 +210,19 @@ class TiledRenderer:
         program.  In debug mode an overflow or a non-finite colour on any
         rank raises on every rank."""
         inner = self._inner
-        color, depth_q, tri_id, stencil, overflowed = inner._frame(*inner.close_frame(), self._shard)
-        flags = [overflowed]
+        color, depth_q, tri_id, stencil, overflowed, use = inner._frame(*inner.close_frame(), self._shard)
+        flags = [use, overflowed.to(use.dtype)]
         if self.config.debug:
-            flags.append(~torch.isfinite(color).all())
-        flags = _all_reduce(torch.stack(flags).to(torch.int32), dist.ReduceOp.MAX, None)
-        overflowed = flags[0] > 0
+            flags.append((~torch.isfinite(color).all()).to(use.dtype))
+        flags = _all_reduce(torch.stack(flags), dist.ReduceOp.MAX, None)
+        use, overflowed = flags[0], flags[1] > 0
         if self.config.debug:
             if bool(overflowed):
                 raise AllocationError(
                     "raster pair buffer overflow on a shard: a draw's (tile, triangle) pair count exceeded "
                     "its raster_pairs_factor budget; raise Pipeline.raster_pairs_factor"
                 )
-            if bool(flags[1]):
+            if bool(flags[2]):
                 raise FrameError("non-finite values in rendered color buffer")
         inner.frame_count += 1
         return FrameResult(
@@ -228,6 +231,7 @@ class TiledRenderer:
             tri_id=tri_id,
             stencil=stencil,
             overflowed=overflowed,
+            pair_budget_use=use,
             srgb=self.config.framebuffer_srgb,
         )
 
@@ -250,6 +254,7 @@ class TiledRenderer:
             tri_id=ints[0],
             stencil=ints[2] if len(ints) > 2 else None,
             overflowed=frame.overflowed,
+            pair_budget_use=frame.pair_budget_use,
             srgb=frame.srgb,
         )
 
@@ -288,10 +293,13 @@ class TiledRenderer:
         eagerly."""
         for sd in seq_draws:
             self._check_pipeline(sd["pipeline"])
-        sums, frames, overflowed = self._inner._sequence(seq_draws, num_frames, return_frames, t0, dt, self._shard)
+        sums, frames, overflowed, use = self._inner._sequence(seq_draws, num_frames, return_frames, t0, dt,
+                                                              self._shard)
         sums = self._reduce(sums, dist.ReduceOp.SUM, ("y", "x"))
-        overflowed = _all_reduce(overflowed.to(torch.int32), dist.ReduceOp.MAX, None) > 0
+        flags = _all_reduce(torch.stack([use, overflowed.to(use.dtype)]), dist.ReduceOp.MAX, None)
+        overflowed = flags[1] > 0
         self.last_sequence_overflowed = overflowed
+        self.last_sequence_pair_budget_use = flags[0]
         if self.config.debug and bool(overflowed):
             raise AllocationError(
                 "raster pair buffer overflow during render_sequence; raise Pipeline.raster_pairs_factor"

@@ -63,6 +63,15 @@ runs pass 1 and pass 2 up to the first compacted draw's covered-tile
 count; the host reads the count and replays the segment captured for the
 chosen budget (capturing it on first use), which runs to the next count
 or the end.  All segments of a program share one memory pool.
+
+Each frame counts, on the device, how full its fullest draw's pair budget
+was (``FrameResult.pair_budget_use``, the binner's ``pair_budget_use``
+folded over draws with a max); a sequence folds it over its frames
+(``last_sequence_pair_budget_use``).  It reads above 1 exactly when a
+draw's pair budget overflowed; an instance cull's overflow sets
+``overflowed`` alone.  Nothing reads it on the host unless
+the caller does; while a profiler records, each frame and each sequence
+hands it to ``profiling.keep_budget_use``.
 """
 
 from __future__ import annotations
@@ -71,6 +80,7 @@ import dataclasses
 import functools
 import gc
 import math
+import time
 import warnings
 from dataclasses import dataclass
 from typing import Any, NamedTuple, Optional
@@ -139,6 +149,9 @@ class FrameResult:
     # True when a draw's binned (tile, triangle) pair count exceeded its
     # raster_pairs_factor / raster_slots_factor budget (a () bool tensor).
     overflowed: Any = False
+    # The largest share of its pair budget a draw's true pair stream
+    # needed (a () float64 tensor, > 1 exactly where a pair budget overflowed).
+    pair_budget_use: Any = None
     srgb: bool = False
 
     @property
@@ -425,6 +438,7 @@ class _Visibility(NamedTuple):
     per_draw: list  # (var_tri, first id, logical triangle count, interp, invw, vis, uniforms) per draw
     vis: Any  # the last draw's VisBuffer, None without draws
     overflowed: torch.Tensor  # () bool
+    pair_budget_use: torch.Tensor  # () float64, the max over draws
     clear_depth: float
     shard: Optional[Shard] = None
 
@@ -670,8 +684,8 @@ class _SequenceProgram(_Program):
         super().__init__(r, bound, *r._frame_clear, shard)
 
     def run(self, stacks, n: int, return_frames: bool):
-        """N frames: (checksums (N,), colours (N, 4, H, W) or None, overflowed ()),
-        H and W the shard's extent when there is one."""
+        """N frames: (checksums (N,), colours (N, 4, H, W) or None, overflowed
+        (), pair_budget_use ()), H and W the shard's extent when there is one."""
         dev = self.r.device
         for bufs, gen in self.generated:
             for k, v in gen().items():
@@ -681,16 +695,18 @@ class _SequenceProgram(_Program):
         sums = torch.empty((n,), dtype=torch.float32, device=dev)
         frames = torch.empty((n, 4, h, w), dtype=torch.float32, device=dev) if return_frames else None
         overflowed = torch.zeros((), dtype=torch.bool, device=dev)
+        use = torch.zeros((), dtype=torch.float64, device=dev)
         for i in range(n):
             with profiling.span("brt.sequence.frame"):
                 for buf, stack in zip(self.inputs, stacks):
                     buf.copy_(stack[i])
-                color, _depth_q, _tri_id, _stencil, of = self.frame()
+                color, _depth_q, _tri_id, _stencil, of, frame_use = self.frame()
                 sums[i] = color.sum()
                 overflowed |= of
+                torch.maximum(use, frame_use, out=use)
                 if frames is not None:
                     frames[i].copy_(color)
-        return sums, frames, overflowed
+        return sums, frames, overflowed, use
 
 
 class Renderer:
@@ -713,6 +729,7 @@ class Renderer:
         self._programs: dict = {}  # frame programs by key
         self._sequences: dict = {}  # sequence programs by key
         self.last_sequence_overflowed = None
+        self.last_sequence_pair_budget_use = None
         self.frame_count = 0
 
     # -- resources ---------------------------------------------------------
@@ -824,7 +841,10 @@ class Renderer:
         return (draws, *self._frame_clear)
 
     def end_frame(self) -> FrameResult:
-        color, depth_q, tri_id, stencil, overflowed = self._frame(*self.close_frame())
+        called_ns = time.time_ns() if profiling.recording() else None
+        color, depth_q, tri_id, stencil, overflowed, use = self._frame(*self.close_frame())
+        if called_ns is not None:
+            profiling.keep_budget_use(called_ns, use)
         if self.config.debug:
             with profiling.span("brt.sync.debug"):
                 bad_pairs = bool(overflowed)
@@ -844,6 +864,7 @@ class Renderer:
             tri_id=tri_id,
             stencil=stencil,
             overflowed=overflowed,
+            pair_budget_use=use,
             srgb=self.config.framebuffer_srgb,
         )
 
@@ -914,9 +935,9 @@ class Renderer:
 
     def _run_frame(self, draws, clear_color, clear_depth: float, shard: Optional[Shard] = None):
         """The whole frame eagerly, on the caller's inputs: the result tuple
-        (color, depth_q, tri_id, stencil, overflowed), over the shard's
-        window if given.  ``clear_color`` is a 4-tuple, or a program's (4,)
-        buffer."""
+        (color, depth_q, tri_id, stencil, overflowed, pair_budget_use), over
+        the shard's window if given.  ``clear_color`` is a 4-tuple, or a
+        program's (4,) buffer."""
         state = self._frame_begin(draws, clear_color, clear_depth, shard)
         while isinstance(state, _Pending):
             state = self._frame_resume(state, self._tile_budget(state))
@@ -972,6 +993,7 @@ class Renderer:
         per_draw = []
         offset = 0
         overflowed = torch.zeros((), dtype=torch.bool, device=dev)
+        use = None  # the pair budget's use, folded over draws
         use_pallas = self._use_pallas()
         if geometry is not None and not use_pallas:
             raise FeatureNotPresentError(
@@ -1108,11 +1130,12 @@ class Renderer:
                 origin=(x0, y0),
             )
             if channels is None:
-                vis, of = out
+                vis, of, draw_use = out
                 interp = invw = None
             else:
-                vis, interp, invw, of = out
+                vis, interp, invw, of, draw_use = out
             overflowed = overflowed | of
+            use = draw_use if use is None else torch.maximum(use, draw_use)
             if vis.stencil is None and prev_stencil is not None:
                 vis = vis._replace(stencil=prev_stencil)  # a stencil-off draw leaves the attachment
             if window_scissor is not None:
@@ -1121,7 +1144,9 @@ class Renderer:
                 vis, interp, invw = geometry[2](vis, interp, invw, pipe.depth)
             per_draw.append((var_tri, offset, num_ids, interp, invw, vis, uniforms))
             offset += num_ids
-        return _Visibility(draws, per_draw, vis, overflowed, clear_depth, shard)
+        if use is None:
+            use = torch.zeros((), dtype=torch.float64, device=dev)
+        return _Visibility(draws, per_draw, vis, overflowed, use, clear_depth, shard)
 
     def _shade_from(self, fv: _Visibility, start: int, color, order=None, budget: int = 0):
         """Pass 2 from draw ``start``: gather-free shading and the blend
@@ -1166,8 +1191,9 @@ class Renderer:
             clear_q = int(round(fv.clear_depth * fp.DEPTH_ONE_Q))
             fbs = (4, eh, ew) if coverage_msaa else (eh, ew)
             depth_q = torch.full(fbs, clear_q, dtype=torch.int32, device=self.device)
-            return color.contiguous(), depth_q, torch.full_like(depth_q, -1), None, fv.overflowed
-        return color.contiguous(), fv.vis.depth_q, fv.vis.tri_id, fv.vis.stencil, fv.overflowed
+            return color.contiguous(), depth_q, torch.full_like(depth_q, -1), None, fv.overflowed, fv.pair_budget_use
+        return (color.contiguous(), fv.vis.depth_q, fv.vis.tri_id, fv.vis.stencil, fv.overflowed,
+                fv.pair_budget_use)
 
     # -- frame sequences -------------------------------------------------------
 
@@ -1236,11 +1262,16 @@ class Renderer:
         Returns:
           checksums (N,) f32, or (checksums, colours (N, 4, H, W)) if
           return_frames.  ``last_sequence_overflowed`` holds the () bool
-          overflow of all N frames; in debug mode an overflow raises
-          AllocationError.
+          overflow of all N frames, and ``last_sequence_pair_budget_use``
+          the () float64 max of their ``pair_budget_use``; in debug mode
+          an overflow raises AllocationError.
         """
-        sums, frames, overflowed = self._sequence(seq_draws, num_frames, return_frames, t0, dt)
+        called_ns = time.time_ns() if profiling.recording() else None
+        sums, frames, overflowed, use = self._sequence(seq_draws, num_frames, return_frames, t0, dt)
         self.last_sequence_overflowed = overflowed
+        self.last_sequence_pair_budget_use = use
+        if called_ns is not None:
+            profiling.keep_budget_use(called_ns, use)
         if self.config.debug:
             with profiling.span("brt.sync.debug"):
                 bad_pairs = bool(overflowed)
@@ -1253,7 +1284,8 @@ class Renderer:
     def _sequence(self, seq_draws, num_frames, return_frames: bool, t0: float, dt: float,
                   shard: Optional[Shard] = None):
         """render_sequence_multi's frames, over the shard's window if given:
-        (checksums (N,), colours (N, 4, H, W) or None, overflowed ())."""
+        (checksums (N,), colours (N, 4, H, W) or None, overflowed (),
+        pair_budget_use ())."""
         with profiling.span("brt.sequence"):
             self.begin_frame()
             specs = []  # (per-frame leaves, treedef, static uniforms) per draw

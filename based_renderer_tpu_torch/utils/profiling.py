@@ -14,6 +14,12 @@ system clock, the clock the profiler stamps host events on).  While a
 profiler records, a ``runtime.PresentRing`` drains those stamps here
 (``ring_records``), and again when it is flushed and closed.
 
+Each frame and each ``render_sequence`` call counts on the device how full
+its pair budget was (``FrameResult.pair_budget_use``).  While a profiler
+records, the renderer hands that () tensor here with the call's stamp
+(``keep_budget_use``), and nothing reads it on the host: a reader takes
+``budget_use_records`` after the traced window.
+
 ``trace`` wraps a block in ``torch.profiler`` and writes a Chrome trace
 (viewable in Perfetto or ``chrome://tracing``) into a directory, with the
 ring's stamps as a track of their own; ``StageTimer`` measures the wall
@@ -82,6 +88,28 @@ def keep_ring_records(ring: int, rows) -> None:
 def ring_records() -> list:
     """Every ring record kept, oldest first."""
     return list(_RING_RECORDS)
+
+
+class BudgetUse(NamedTuple):
+    """One frame's or one sequence call's pair budget use, as the renderer
+    returned it."""
+
+    called_ns: int  # the call entered, ns on the system clock
+    use: torch.Tensor  # () float64 on the device: > 1 where a pair budget overflowed
+
+
+#: The calls' budget use while a profiler recorded, oldest first; bounded.
+_BUDGET_USE: collections.deque = collections.deque(maxlen=1 << 12)
+
+
+def keep_budget_use(called_ns: int, use: torch.Tensor) -> None:
+    """Keep a call's () budget-use tensor as it is, with no host read."""
+    _BUDGET_USE.append(BudgetUse(called_ns, use))
+
+
+def budget_use_records() -> list:
+    """Every budget use kept, oldest first."""
+    return list(_BUDGET_USE)
 
 
 @contextlib.contextmanager

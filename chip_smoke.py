@@ -1932,13 +1932,13 @@ def main() -> int:
                 raise AssertionError(f"oracle {label}: {k} differs at {int((g != want[k]).sum())} pixels")
 
     for label, clip in (("cube", cube_clip), ("stress[:2048]", s_clip[:2048])):
-        got, overflowed = raster.rasterize_vis(
+        got, overflowed, _ = raster.rasterize_vis(
             setup_triangles(clip, W, H), W, H, max_pairs=max(16 * clip.shape[0], 4096), return_overflow=True
         )
         if bool(overflowed):
             raise AssertionError(f"oracle {label}: binner overflowed")
         oracle_equal(label, got, oracle.rasterize(clip.cpu().numpy(), W, H))
-    got, overflowed = raster.rasterize_vis(
+    got, overflowed, _ = raster.rasterize_vis(
         setup_triangles(cube_clip, W, H, bbox_pad_fp=fp.MSAA4_BBOX_PAD_FP), W, H, max_pairs=4096, msaa4=True,
         return_overflow=True,
     )
@@ -1972,8 +1972,9 @@ def main() -> int:
     for name, st, clear in stencil_cases:
         want = oracle.rasterize(s2k_np, W, H, stencil=st, stencil_clear=clear)
         for two_pass in (False, True):
-            got, overflowed = raster.rasterize_vis(setup_triangles(s2k, W, H), W, H, max_pairs=16 * 2048, stencil=st,
-                                                   stencil_clear=clear, two_pass=two_pass, return_overflow=True)
+            got, overflowed, _ = raster.rasterize_vis(setup_triangles(s2k, W, H), W, H, max_pairs=16 * 2048,
+                                                      stencil=st, stencil_clear=clear, two_pass=two_pass,
+                                                      return_overflow=True)
             if bool(overflowed):
                 raise AssertionError(f"oracle stencil {name}: binner overflowed")
             oracle_equal(f"stencil {name} two_pass={two_pass}", got, want)

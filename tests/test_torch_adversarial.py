@@ -97,7 +97,7 @@ def port_routes(clip, compare="less", cull="none", front="ccw", depth_test=True,
         })
     out = {}
     for name, (setup, extra) in runs.items():
-        vis, overflowed = traster.rasterize_vis(setup, W, H, **kw, **extra)
+        vis, overflowed, _ = traster.rasterize_vis(setup, W, H, **kw, **extra)
         assert not bool(overflowed), name
         out[name] = vis
     return out

@@ -132,7 +132,7 @@ def plain_routes(clip, *, scissor=None, bias=None, compare="less", depth_clip=Tr
                     runs[f"sublane bands {rows} {asm}"] = (ts, sub, dict(sublane=True, bin_rows=rows, **extra))
     out = {}
     for name, (setup, (tw, th), extra) in runs.items():
-        vis, overflowed = traster.rasterize_vis(setup, ew, eh, tile_w=tw, tile_h=th, **kw, **extra)
+        vis, overflowed, _ = traster.rasterize_vis(setup, ew, eh, tile_w=tw, tile_h=th, **kw, **extra)
         assert not bool(overflowed), name
         out[name] = vis
     return out
@@ -444,7 +444,7 @@ def _frame(r, clip, scissor=None, shard=None, compare="less", **pipe):
     r.begin_frame(clear_depth=_clear_q(compare) / ONE_Q)
     r.draw(pipe, mesh, u)
     if shard is not None:
-        return r._run_frame(*r.close_frame(), shard=shard)
+        return r._run_frame(*r.close_frame(), shard=shard)[:5]
     f = r.end_frame()
     return f.color_planar, f.depth_q, f.tri_id, f.stencil, f.overflowed
 

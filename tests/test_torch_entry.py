@@ -14,8 +14,9 @@ from based_renderer_tpu_torch.parallel import launch, workers
 
 def test_entry_frame_equals_render_frame():
     fn, args = entry.entry(width=128, height=96, device="cpu")
-    color, depth_q, tri_id, stencil, overflowed = fn(*args)
+    color, depth_q, tri_id, stencil, overflowed, pair_budget_use = fn(*args)
     assert tuple(color.shape) == (4, 96, 128) and stencil is None and not bool(overflowed)
+    assert 0 < float(pair_budget_use) <= 1
     r = tbrt.Renderer(tbrt.RendererConfig(128, 96), device="cpu")
     pipe, mesh, uniforms, _ = tbrt.demos.cube_demo(r)
     want = r.render_frame(pipe, mesh, uniforms(0.5), clear_color=(0.0, 0.0, 0.0, 0.0))

@@ -66,13 +66,14 @@ def _eager(r, draws, t, **clear):
 
 
 def _assert_bitwise(f, eager):
-    color, depth_q, tri_id, stencil, overflowed = eager
+    color, depth_q, tri_id, stencil, overflowed, pair_budget_use = eager
     assert torch.equal(f.color_planar, color)
     assert torch.equal(f.depth_q, depth_q) and torch.equal(f.tri_id, tri_id)
     assert (f.stencil is None) == (stencil is None)
     if stencil is not None:
         assert torch.equal(f.stencil, stencil)
     assert bool(f.overflowed) == bool(overflowed) and not bool(overflowed)
+    assert torch.equal(f.pair_budget_use, pair_budget_use) and 0 <= float(pair_budget_use) <= 1
 
 
 # ---- program counts against the JAX package ------------------------------
