@@ -210,3 +210,14 @@ def _declare(lib: ctypes.CDLL):
         i, i64, i,  # W8, T, out_width
         p,  # cudaStream_t
     ]
+    lib.brt_shade_blinn_phong.restype = i
+    lib.brt_shade_blinn_phong.argtypes = [
+        p, p, p,  # interp (K, S, H, W), invw (S, H, W), tri_id (S, H, W)
+        i64, i64,  # the draw's tri_id range [lo, hi)
+        p, i,  # colour so far (S, 4, H, W), or the (4,) clear colour when the flag is set
+        p, i, p, i, p, i,  # light_pos, eye_pos, base_color, each with its stride (0: one value)
+        p, p,  # shininess, ambient
+        p,  # out (4, H, W) when resolved, else (S, 4, H, W)
+        i, i64, i, i,  # samples, H * W, num_channels (6 or 9), resolve
+        p,  # cudaStream_t
+    ]

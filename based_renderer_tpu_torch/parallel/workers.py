@@ -39,7 +39,7 @@ import torch
 import torch.distributed as dist
 
 from ..models import demos, geometry
-from ..ops import binassem, raster
+from ..ops import binassem, raster, shade
 from ..pipeline import Pipeline
 from ..renderer import FrameResult, Renderer, RendererConfig, shard_tile
 from .launch import make_mesh
@@ -56,6 +56,7 @@ _COUNTERS = (
     (raster, "BATCH_LAUNCHES", "raster_batched"),
     (binassem, "TRANSPOSE_LAUNCHES", "transpose_templates"),
     (binassem, "ROWS_LAUNCHES", "assemble_records_rows"),
+    (shade, "LAUNCHES", "shade_blinn_phong"),
 )
 
 

@@ -14,7 +14,11 @@ coverage MSAA; the template transpose and the row-reading assembly under
 ``raster_tmpl="pallas"``), then per draw the gather-free shading from the
 interpolated planes (per covered tile under ``shade_compact``) and the
 blend composite against that draw's own visibility snapshot, and the MSAA
-resolve.  ``_run_frame`` is that frame, eagerly.
+resolve.  On CUDA an opaque draw whose shader has a fused body
+(``Shader.fused``: ``blinn_phong``'s, ops/shade.py) shades, composites
+and, as the frame's last draw, resolves in one kernel
+(``FUSED_SHADED_DRAWS`` counts such draws).  ``_run_frame`` is that
+frame, eagerly.
 
 ``RendererConfig.msaa=4`` is coverage-sample MSAA-4x: per-sample
 visibility at the four standard sample positions, attributes and shading
@@ -287,6 +291,28 @@ def _fragment_inputs(var_tri, interp, invw, depth, bary, tri_id) -> dict:
 #: Draws shaded per covered tile in this process (proof that compaction
 #: ran; a sequence counts only when it captures).
 COMPACTED_DRAWS = 0
+
+
+#: Draws shaded by their shader's fused body in this process (proof that
+#: the fused path ran; a sequence counts only when it captures).
+FUSED_SHADED_DRAWS = 0
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    """Whether ``t`` lies where fused bodies run: on a CUDA device."""
+    return t.is_cuda
+
+
+def _fused_body(shd: shader_lib.Shader, pipe: Pipeline, interp, compacted: bool):
+    """The draw's fused shading body (``Shader.fused``), or None for the
+    plain path: the shader has one, the draw has varyings on CUDA divided
+    by 1/w (``perspective_correct``), blending is off, every channel is
+    written and the draw is not shaded per covered tile."""
+    if shd.fused is None or interp is None or compacted or not _on_card(interp) or not pipe.perspective_correct:
+        return None
+    if pipe.blend.enable or set(pipe.blend.write_mask) != set("rgba"):
+        return None
+    return shd.fused
 
 
 def _tile_budgets(fractions, h: int, w: int) -> list[int]:
@@ -947,13 +973,9 @@ class Renderer:
         """Pass 1, then pass 2 up to the first compacted draw's tile count
         (a _Pending) or to the end (the result tuple)."""
         fv = self._visibility(draws, clear_depth, shard)
-        coverage_msaa = self._extent()[0]
-        _, _, w, h = self._window(shard)
         if not isinstance(clear_color, torch.Tensor):  # a program's clear colour is a buffer
             clear_color = fp.consts(clear_color, self.device)
-        clear = clear_color.reshape(4, 1, 1)
-        color = clear.expand(*((4,) if coverage_msaa else ()), 4, h, w)
-        return self._shade_from(fv, 0, color)
+        return self._shade_from(fv, 0, clear_color.reshape(4))
 
     def _frame_resume(self, pending: _Pending, budget: int):
         """Pass 2 from a pending compacted draw, shaded on ``budget`` tiles
@@ -1155,34 +1177,51 @@ class Renderer:
         resolve.  Under coverage MSAA every plane has a leading sample
         axis, which the fragment shader takes as a batch axis (one image
         per sample layer, as the JAX package's vmap over samples), and the
-        colour is (4, 4, H, W) until the resolve.  A compacted draw stops
+        colour is (4, 4, H, W) until the resolve.  ``color`` is the (4,)
+        clear colour until a draw writes it.  A draw whose shader has a
+        fused body (``_fused_body``) shades, composites and, as the frame's
+        last draw, resolves in that one call.  A compacted draw stops
         the pass with a _Pending until the host picks its budget; resumed
         with ``order`` and ``budget`` (0: full-screen), draw ``start``
         shades with them."""
+        global FUSED_SHADED_DRAWS
         coverage_msaa, scale, _, _ = self._extent()
         _, _, ew, eh = self._window(fv.shard)
+        planes = ((4,) if coverage_msaa else ()) + (4, eh, ew)
         compact_on = self._use_pallas() and compact.eligible(eh, ew)
+        resolved = False
         for i in range(start, len(fv.draws)):
             pipe = fv.draws[i].pipeline
             var_tri, off, ntri, interp, invw, vis_i, uniforms = fv.per_draw[i]
-            fragment = shader_lib.get(pipe.shader).fragment
+            shd = shader_lib.get(pipe.shader)
+            invw = invw if interp is not None and pipe.perspective_correct else None
+            compacted = compact_on and pipe.shade_compact is not None
+            fused = _fused_body(shd, pipe, interp, compacted)
+            if fused is not None:
+                resolved = coverage_msaa and i == len(fv.draws) - 1
+                color = fused(interp, invw, vis_i.tri_id, off, off + ntri, color, uniforms, resolved)
+                FUSED_SHADED_DRAWS += 1
+                continue
+            if color.dim() == 1:
+                color = color.reshape(4, 1, 1).expand(planes)
             mask = (vis_i.tri_id >= off) & (vis_i.tri_id < off + ntri)
             local = torch.where(mask, vis_i.tri_id - off, -1)
-            invw = invw if interp is not None and pipe.perspective_correct else None
-            if compact_on and pipe.shade_compact is not None:
+            if compacted:
                 if i != start or order is None:
                     # Under MSAA a tile covered in any sample layer is shaded.
                     tiles, count = compact.covered_tile_order(mask.any(dim=0) if coverage_msaa else mask, eh, ew)
                     return _Pending(fv, i, color, tiles, count)
                 if budget:
-                    color = _shade_tiles(var_tri, interp, invw, vis_i, local, fragment, uniforms, pipe.blend, color,
-                                         order, budget)
+                    color = _shade_tiles(var_tri, interp, invw, vis_i, local, shd.fragment, uniforms, pipe.blend,
+                                         color, order, budget)
                     continue
             bary = torch.stack([vis_i.b0, vis_i.b1, vis_i.b2])
             frag = _fragment_inputs(var_tri, interp, invw, vis_i.depth, bary, local)
-            rgba = fragment(frag, uniforms).movedim(-1, -3)  # ([4,] 4, rh, rw)
+            rgba = shd.fragment(frag, uniforms).movedim(-1, -3)  # ([4,] 4, rh, rw)
             color = torch.where(mask[:, None] if coverage_msaa else mask, _blend(rgba, color, pipe.blend), color)
-        if coverage_msaa:
+        if color.dim() == 1:  # no draw wrote it: a frame without draws
+            color = color.reshape(4, 1, 1).expand(planes)
+        if coverage_msaa and not resolved:
             color = color.mean(dim=0)  # coverage resolve: box-average the samples
         if scale == 2:  # supersample resolve: 2x2 box
             h, w = eh // 2, ew // 2

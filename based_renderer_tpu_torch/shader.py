@@ -13,6 +13,9 @@ screen-space differences (texture LOD) stay within it.  The dense-mesh
 demos' ``blinn_phong`` and ``instanced_color`` and the textured shaders
 (BASELINE config 3) are here, and ``load_file``/``load_module`` compile
 and register shader modules from Python source files at run time.
+``blinn_phong`` also carries a fused body (``Shader.fused``), ops/shade.py's
+one-pass shading, composite and resolve, which the renderer takes for
+eligible draws on CUDA (``Renderer._shade_from``).
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import torch
 
 from . import math3d
 from .ops import fixedpoint as fp
+from .ops import shade as shade_ops
 from .ops import texture as tex_ops
 from .ops.vertex import apply_instance_transform
 from .scene import Texture
@@ -38,6 +42,12 @@ class Shader:
     fragment: Callable
     # Names of the vertex attributes this shader consumes (besides position).
     attributes: tuple = ()
+    # Optional fused body: shades a draw from the raster's planes, composites
+    # it opaquely and can resolve MSAA in one pass (ops/shade.py), called as
+    # fused(interp, invw, tri_id, lo, hi, color, uniforms, resolve).  The
+    # renderer takes it for an opaque, perspective-correct draw that writes
+    # every channel.
+    fused: Callable | None = None
 
 
 _REGISTRY: dict[str, Shader] = {}
@@ -338,32 +348,38 @@ def _uniform(uniforms, key, default, like):
     return _as_f32(uniforms.get(key, default), like)
 
 
+#: Blinn-Phong's uniforms and their defaults.
+_BLINN_PHONG_DEFAULTS = {
+    "light_pos": [2.0, -2.0, -2.0],
+    "eye_pos": [0.0, 0.0, -3.0],
+    "base_color": [0.7, 0.7, 0.75],
+    "shininess": 32.0,
+    "ambient": 0.1,
+}
+
+
+def _blinn_phong_uniform(uniforms, key, like):
+    return _uniform(uniforms, key, _BLINN_PHONG_DEFAULTS[key], like)
+
+
 def _blinn_phong_fs(frag, uniforms):
     """Blinn-Phong: ambient + diffuse + specular (BASELINE config 5)."""
     n = frag["normal"]
-    n = n / torch.clamp_min(_norm(n), 1e-8)
-    pos = frag["pos_ws"]
-    light_pos = _uniform(uniforms, "light_pos", [2.0, -2.0, -2.0], n)
-    eye_pos = _uniform(uniforms, "eye_pos", [0.0, 0.0, -3.0], n)
     base = frag.get("color")
     if base is None:
-        base = _uniform(uniforms, "base_color", [0.7, 0.7, 0.75], n).expand(*n.shape[:-1], 3)
-    l = light_pos - pos  # noqa: E741
-    l = l / torch.clamp_min(_norm(l), 1e-8)  # noqa: E741
-    v = eye_pos - pos
-    v = v / torch.clamp_min(_norm(v), 1e-8)
-    h = l + v
-    h = h / torch.clamp_min(_norm(h), 1e-8)
-    ndotl = torch.clamp_min((n * l).sum(-1, keepdim=True), 0.0)
-    ndoth = torch.clamp_min((n * h).sum(-1, keepdim=True), 0.0)
-    shininess = _uniform(uniforms, "shininess", 32.0, n)
-    ambient = _uniform(uniforms, "ambient", 0.1, n)
-    spec = ndoth**shininess
-    rgb = base * (ambient + ndotl) + 0.3 * spec
-    return _opaque(rgb.clamp(0.0, 1.0))
+        base = _blinn_phong_uniform(uniforms, "base_color", n).expand(*n.shape[:-1], 3)
+    u = [_blinn_phong_uniform(uniforms, k, n) for k in ("light_pos", "eye_pos", "shininess", "ambient")]
+    return _opaque(shade_ops.blinn_phong(n, frag["pos_ws"], base, *u))
 
 
-register(Shader("blinn_phong", _blinn_phong_vs, _blinn_phong_fs, attributes=("normal",)))
+def _blinn_phong_fused(interp, invw, tri_id, lo, hi, color, uniforms, resolve):
+    """The fused body: ops/shade.py's kernel reads the raster's planes and
+    writes the composited (or resolved) colour."""
+    u = [_blinn_phong_uniform(uniforms, k, interp) for k in _BLINN_PHONG_DEFAULTS]
+    return shade_ops.shade_blinn_phong(interp, invw, tri_id, lo, hi, color, *u, resolve=resolve)
+
+
+register(Shader("blinn_phong", _blinn_phong_vs, _blinn_phong_fs, attributes=("normal",), fused=_blinn_phong_fused))
 """Blinn-Phong lit mesh (BASELINE config 5, the 1M-triangle demo)."""
 
 

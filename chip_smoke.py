@@ -48,6 +48,17 @@ result lines):
      four ordered compares: per-sample tri_id and depth_q exact, floats
      within 1e-6; B4 with per-sample stencil vs its plain version on the
      MSAA stress stream and the MSAA cube, stencil exact;
+ 6b. shade_blinn_phong (csrc/shade_blinn_phong.cu) vs its plain version
+     at 128x96 on random planes (MSAA-4x resolved and per sample, no
+     MSAA, the per-vertex colour, the clear colour or earlier draws'
+     colour), then through the renderer against its plain shading path: a
+     two-draw big_mesh frame at 128x96 MSAA-4x, one without MSAA, and one
+     1M-triangle big_mesh frame at 3840x2160 MSAA-4x eager and replayed;
+     tri_id and depth_q exact, colour within 1e-5, the share of
+     bitwise-equal pixels; the kernel launched once a fused draw (eager:
+     the wrapper's counter; replayed: its symbol under the profiler),
+     never on the plain route; the 4K draw's kernel timed (window and
+     kernel-only) beside its plain version and its bound;
   7. oracle: tri_id and depth_q equal the port's own copy of the numpy
      oracle (based_renderer_tpu_torch/reference/oracle.py) for the cube and
      the stress stream through raster_tile, for big_mesh (2000 triangles)
@@ -114,14 +125,15 @@ result lines):
      warm-up and its capture, a replay none; the eager frames of the same
      runs through Renderer._run_frame once a frame: dense frames
      assemble_records and raster_sublane once, MSAA
-     big_mesh assemble_records and raster_msaa4_sublane once, the MSAA cube
+     big_mesh assemble_records and raster_msaa4_sublane once, every
+     big_mesh frame (blinn_phong) shade_blinn_phong once, the MSAA cube
      raster_msaa4 once, cube, triangle and supersampled cube raster_tile
      once); the render-state frames at 1920x1080, plain and MSAA-4x (three
      draws: the cube stamping the stencil, the 10k instances drawn
      two-pass where the stencil is not the stamp, the cube again with depth
      bias and constant-alpha blending), and big_mesh with raster_batch 16;
-     big_mesh 1920x1080 with raster_tmpl="pallas" (B8, the rows entry and
-     B2 once a frame; its frame equals the default big_mesh frame), the
+     big_mesh 1920x1080 with raster_tmpl="pallas" (B8, the rows entry,
+     B2 and S1 once a frame; its frame equals the default big_mesh frame), the
      textured cube at 1920x1080 (BASELINE config 3: B1 once and one
      compacted draw a frame), the textured full-screen quad at 1920x1080
      (B1 once a frame, the separable sampler on every frame) and the
@@ -164,7 +176,7 @@ result lines):
      PNG count and PresentRing.presented equal the frame count, the last
      PNG (decoded with zlib) equals render_frame(t_last).color_u8() byte
      for byte, the counters see the first frame's warm-up and capture (B1
-     twice for the cube, B3 and B2 twice for big_mesh) and the profiler,
+     twice for the cube, B3, B2 and S1 twice for big_mesh) and the profiler,
      over the --srgb run, B1 once a frame and once for the warm-up, every
      presented image lay in page-locked staging; then a shader file (the
      cube's vertex-colour program as torch source, shader.load_file)
@@ -177,7 +189,7 @@ result lines):
  11. multi-device: parallel.TiledRenderer on 4 ranks (parallel/launch.py)
      sharing this card over gloo: (a) the cube at 1920x1080 over (y=1,
      x=4), B1; (b) big_mesh (1M triangles) at 3840x2160 over (y=2, x=2),
-     1920x1080 windows, B3 + B2; (c) big_mesh at 1920x1080 over (y=1, x=1,
+     1920x1080 windows, B3 + B2 + S1; (c) big_mesh at 1920x1080 over (y=1, x=1,
      g=4), a quarter of the triangles per rank, depth-composited per draw;
      (d) the dry run's MSAA-4x frame (scissored cube, stencil write,
      stencil-tested blend) at 1920x1080 over (y=1, x=4), B4 with stencil;
@@ -202,8 +214,9 @@ its count), which leaves out the wrapper's host work.  Then one JSON line
 of per-kernel numbers (ms, kernel_ms, and each kernel's bound: the larger
 of its bytes over 3.35 TB/s, the winning records' float rows included for
 the rasters, and its integer operations over the card's int32 rate; B8's
-library call; B3's two entries report the culled instanced stream), the
-nvidia-smi name/power line, and last the device line.
+library call; B3's two entries report the culled instanced stream; S1's
+the 4K MSAA-4x draw of phase 6b), the nvidia-smi name/power line, and
+last the device line.
 When main() ends, passed or failed, the script stops and reaps every
 process it started, multiprocessing's resource tracker and any orphan of
 a child included (it is their subreaper), and names each on stderr.
@@ -244,12 +257,14 @@ KERNELS = (
     "raster_batched",
     "transpose_templates",
     "assemble_records_rows",
+    "shade_blinn_phong",
 )
 # Per-frame counts: every kernel of KERNELS, then the draws shaded per
 # covered tile (renderer.COMPACTED_DRAWS: no kernel, the compaction proof).
 COUNTS = (*KERNELS, "compacted_draws")
 # The CUDA kernels' symbols, for their device-only times under the profiler.
 B1, B2, B4, B5 = "raster_tile_kernel", "raster_sublane_kernel", "raster_msaa4_kernel", "raster_msaa4_sublane_kernel"
+S1 = "shade_blinn_phong_kernel"
 
 
 # The cube's vertex-colour program as a shader file (shader.load_file).
@@ -1373,6 +1388,143 @@ def supersample_runs(dev, stats, tag, clip, width, height, want, engaged) -> Non
     stats["routes"].add("supersampled render_frame")
 
 
+def symbol_launches_of(fn, symbol: str, want: int) -> tuple:
+    """(fn()'s result, the launches of the CUDA kernel ``symbol`` that it
+    made on the card, a graph's replay included), under torch.profiler;
+    tried again while fewer than ``want`` are seen (the profiler may drop a
+    launch's record, it never adds one)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    cuda = torch.autograd.DeviceType.CUDA
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        n = sum(e.count for e in prof.key_averages() if e.device_type == cuda and symbol in e.key)
+        if n >= want:
+            break
+    return out, n
+
+
+def shade_phase(dev, card: str) -> dict:
+    """Phase 6b: the fused Blinn-Phong kernel (S1) against its plain
+    version, alone and through the renderer (the plain route: ``_on_card``
+    false), with its launches counted on each route; the 4K MSAA-4x draw's
+    times and bounds.  Prints the phase's line and returns S1's numbers for
+    the kernels line: the worst gap to its plain version, its times, the
+    plain version's and its bound."""
+    import based_renderer_tpu_torch as brt
+    from based_renderer_tpu_torch import renderer as renderer_mod
+    from based_renderer_tpu_torch import shader as shader_lib
+    from based_renderer_tpu_torch.ops import shade
+
+    worst = {"kernel": 0.0, "frames": 0.0}
+    g = torch.Generator().manual_seed(6)
+    u = [torch.tensor(v, device=dev) for v in ([3.0, -3.0, -3.0], [0.0, 0.0, -2.2], [0.55, 0.65, 0.8], 32.0, 0.1)]
+    # (samples, channels, from the clear colour, resolve)
+    for samples, k, clear, resolve in ((4, 6, True, True), (4, 6, False, False), (4, 9, False, True),
+                                       (1, 6, True, False), (1, 9, False, False)):
+        plane = (samples, 96, 128) if samples == 4 else (96, 128)
+        interp = (torch.randn((k, *plane), generator=g) * 2).to(dev)
+        invw = (torch.rand(plane, generator=g) + 0.1).to(dev)
+        invw[..., 3, 5:40] = 0
+        tri = torch.randint(-1, 60, plane, generator=g, dtype=torch.int32).to(dev)
+        color = (torch.rand(4, generator=g) if clear else torch.rand((*plane[:-2], 4, 96, 128), generator=g)).to(dev)
+        args = (interp, invw, tri, 10, 50, color, *u)
+        got = shade.shade_blinn_phong(*args, resolve=resolve)
+        want = shade.shade_blinn_phong_reference(*args, resolve=resolve)
+        worst["kernel"] = max(worst["kernel"], float((got - want).abs().max()))
+
+    class plain_route:
+        def __enter__(self):
+            self.on_card = renderer_mod._on_card
+            renderer_mod._on_card = lambda t: False
+
+        def __exit__(self, *exc):
+            renderer_mod._on_card = self.on_card
+
+    def eager(r, pipe, mesh, us):
+        r.begin_frame()
+        for x in us:
+            r.draw(pipe, mesh, x)
+        return r._run_frame(*r.close_frame())
+
+    def launched(label, fn, fused, kernel):
+        """fn()'s result; it must add ``fused`` fused draws and ``kernel``
+        calls of S1's wrapper."""
+        draws, calls = renderer_mod.FUSED_SHADED_DRAWS, shade.LAUNCHES
+        out = fn()
+        got = (renderer_mod.FUSED_SHADED_DRAWS - draws, shade.LAUNCHES - calls)
+        if got != (fused, kernel):
+            raise AssertionError(f"shade {label}: fused draws and S1 wrapper calls {got}, expected {(fused, kernel)}")
+        return out
+
+    def compare(label, got, want):
+        torch.cuda.synchronize()
+        if not (torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])):
+            raise AssertionError(f"shade {label}: tri_id or depth_q differ from the plain route's")
+        gap = float((got[0] - want[0]).abs().max())
+        worst["frames"] = max(worst["frames"], gap)
+        return gap, float((got[0] == want[0]).all(dim=0).float().mean())
+
+    small = []
+    for msaa, ts in ((4, (0.3, 2.1)), (1, (0.3,))):
+        r = brt.Renderer(brt.RendererConfig(128, 96, msaa=msaa), device=dev)
+        pipe, mesh, uf, _ = brt.demos.big_mesh_demo(r, triangles=2000)
+        label = f"128x96 msaa={msaa}"
+        got = launched(label, lambda: eager(r, pipe, mesh, [uf(t) for t in ts]), len(ts), len(ts))
+        with plain_route():
+            want = launched(f"{label} plain", lambda: eager(r, pipe, mesh, [uf(t) for t in ts]), 0, 0)
+        small.append(compare(label, got, want))
+
+    # The 4K frame: eager, the key's capture (its warm-up and the capture
+    # call the wrapper), a replay (no call; the graph launches S1 once).
+    r = brt.Renderer(brt.RendererConfig(W4K, H4K, msaa=4), device=dev)
+    pipe, mesh, uf, _ = brt.demos.big_mesh_demo(r)
+    got_eager = launched("4K eager", lambda: eager(r, pipe, mesh, [uf(0.3)]), 1, 1)
+    launched("4K capture", lambda: r.render_frame(pipe, mesh, uf(1.0)), 2, 2)
+    f, replay_s1 = symbol_launches_of(lambda: launched("4K replay", lambda: r.render_frame(pipe, mesh, uf(0.3)), 0, 0),
+                                      S1, 1)
+    got_replay = (f.color_planar, f.depth_q, f.tri_id)
+    with plain_route():
+        want, plain_s1 = symbol_launches_of(lambda: launched("4K plain", lambda: eager(r, pipe, mesh, [uf(0.3)]), 0, 0),
+                                            S1, 0)
+    if (replay_s1, plain_s1) != (1, 0):
+        raise AssertionError(f"shade 4K: the profiler saw S1 {replay_s1} times in a replay (1 expected) and "
+                             f"{plain_s1} on the plain route (0 expected)")
+    big = {"eager": compare("4K eager", got_eager, want), "replayed": compare("4K replayed", got_replay, want)}
+    if not max(worst.values()) <= COLOR_TOL:
+        raise AssertionError(f"shade: colour differs from the plain version by {worst}")
+
+    # The 4K draw's planes, shaded alone: the kernel, its plain version.
+    r.begin_frame()
+    r.draw(pipe, mesh, uf(0.3))
+    draws, clear, clear_depth = r.close_frame()
+    fv = r._visibility(draws, clear_depth)
+    _, off, ntri, interp, invw, vis, uniforms = fv.per_draw[0]
+    clear_t = torch.tensor(clear, dtype=torch.float32, device=dev)
+    uv = [shader_lib._blinn_phong_uniform(uniforms, key, interp) for key in shader_lib._BLINN_PHONG_DEFAULTS]
+    args = (interp, invw, vis.tri_id, off, off + ntri, clear_t, *uv)
+    t_kernel = timed(lambda: shade.shade_blinn_phong(*args, resolve=True), 10, S1)
+    t_plain = timed(lambda: shade.shade_blinn_phong_reference(*args, resolve=True))
+    samples = vis.tri_id.numel()
+    won = int(((vis.tri_id >= off) & (vis.tri_id < off + ntri)).sum())
+    k = interp.shape[0]
+    out_bytes = 4 * 4 * samples // 4
+    every = bound(samples * (4 + 4 + 4 * k) + out_bytes, 0)
+    needed = bound(samples * 4 + won * (4 + 4 * k) + out_bytes, 0)
+    line = (f"[shade_blinn_phong vs plain] random planes at 128x96 (MSAA-4x resolved and per sample, no MSAA, "
+            f"vertex colour, clear or earlier colour): max gap {worst['kernel']:.3g}; big_mesh frames vs the plain "
+            f"route, tri_id and depth_q exact: 128x96 two draws MSAA-4x gap {small[0][0]:.3g} (bitwise pixels "
+            f"{100 * small[0][1]:.3f}%), no MSAA {small[1][0]:.3g} ({100 * small[1][1]:.3f}%), {W4K}x{H4K} MSAA-4x "
+            f"eager {big['eager'][0]:.3g} ({100 * big['eager'][1]:.3f}%), replayed {big['replayed'][0]:.3g} "
+            f"({100 * big['replayed'][1]:.3f}%) (tol {COLOR_TOL}); S1 launched once a fused draw eagerly, twice at "
+            f"the capture, once from a replay's graph (profiler), never on the plain route | 4K draw "
+            f"({100 * won / samples:.2f}% of samples won) kernel {fmt(t_kernel)}, plain {fmt(t_plain)}, bound "
+            f"{needed[0]:.4f} ms for the samples it needs, {every[0]:.4f} ms reading every sample | {card}")
+    print(line, flush=True)
+    return {"worst": worst["kernel"], "kernel": t_kernel, "plain": t_plain, "bound": needed}
+
+
 def main() -> int:
     started = time.perf_counter()
     # ---- 1. device ------------------------------------------------------
@@ -1388,6 +1540,7 @@ def main() -> int:
     import based_renderer_tpu_torch as brt
     from based_renderer_tpu_torch import renderer as renderer_mod
     from based_renderer_tpu_torch.ops import _build, binassem, binning, raster
+    from based_renderer_tpu_torch.ops import shade as shade_ops
     from based_renderer_tpu_torch.ops import texture as tex_ops
     from based_renderer_tpu_torch.ops import fixedpoint as fp
     from based_renderer_tpu_torch.ops.binning import bin_triangles
@@ -1412,6 +1565,7 @@ def main() -> int:
         (raster, "BATCH_LAUNCHES"),
         (binassem, "TRANSPOSE_LAUNCHES"),
         (binassem, "ROWS_LAUNCHES"),
+        (shade_ops, "LAUNCHES"),
         (renderer_mod, "COMPACTED_DRAWS"),
     )
 
@@ -1922,6 +2076,12 @@ def main() -> int:
         flush=True,
     )
 
+    # ---- 6b. shade_blinn_phong vs plain ---------------------------------
+    s1 = shade_phase(dev, card)
+    times["shade_blinn_phong"], times["shade_blinn_phong_plain"] = s1["kernel"], s1["plain"]
+    bounds["shade_blinn_phong"] = s1["bound"]
+    check.worst["shade_blinn_phong"] = s1["worst"]
+
     # ---- 7. oracle (the port's own copy) --------------------------------
     def oracle_equal(label, got, want):
         for k in ("tri_id", "depth_q", "stencil"):
@@ -1961,9 +2121,11 @@ def main() -> int:
         clip, _ = brt.shader.get(pipe.shader).vertex(mesh.attributes, {k: v.to(dev) for k, v in u.items()})
         return frame, clip.reshape(-1, 3, 4).cpu().numpy()
 
-    frame, clip = toy_big_mesh(brt.RendererConfig(W, H), per_frame(raster_sublane=1, assemble_records=1))
+    frame, clip = toy_big_mesh(brt.RendererConfig(W, H),
+                               per_frame(raster_sublane=1, assemble_records=1, shade_blinn_phong=1))
     oracle_equal("big_mesh 2000", frame, oracle.rasterize(clip, W, H, cull_mode="back"))
-    frame, clip = toy_big_mesh(brt.RendererConfig(W, H, msaa=4), per_frame(assemble_records=1, raster_msaa4_sublane=1))
+    frame, clip = toy_big_mesh(brt.RendererConfig(W, H, msaa=4),
+                               per_frame(assemble_records=1, raster_msaa4_sublane=1, shade_blinn_phong=1))
     oracle_equal("MSAA big_mesh 2000", frame, oracle.rasterize_msaa4(clip, W, H, cull_mode="back"))
     # Stencil through B1 and the two-pass route, per sample through B4, and
     # a depth-biased stream through the port's setup and B1.
@@ -2039,7 +2201,7 @@ def main() -> int:
     symbols = {B1: ("raster_tile", "raster_two_pass"), B2: ("raster_sublane", "raster_batched"),
                B4: ("raster_msaa4",), B5: ("raster_msaa4_sublane",), "assemble_records_kernel": ("assemble_records",),
                "assemble_records_rows_kernel": ("assemble_records_rows",),
-               "transpose_templates_kernel": ("transpose_templates",)}
+               "transpose_templates_kernel": ("transpose_templates",), S1: ("shade_blinn_phong",)}
 
     def symbol_launches(per, frames=1):
         """The kernel launches by symbol of ``frames`` frames of per-frame counts ``per``."""
@@ -2143,6 +2305,7 @@ def main() -> int:
             (binassem, "assemble_records", binassem.assemble_records_reference),
             (binassem, "transpose_templates", binassem.transpose_templates_reference),
             (binassem, "assemble_records_rows", binassem.assemble_records_rows_reference),
+            (shade_ops, "shade_blinn_phong", shade_ops.shade_blinn_phong_reference),
         )
 
         def __enter__(self):
@@ -2235,23 +2398,26 @@ def main() -> int:
     # label, renderer, draws, kernel frames, plain frames, counts per frame (COUNTS order)
     dense = per_frame(raster_sublane=1, assemble_records=1)
     dense_msaa = per_frame(assemble_records=1, raster_msaa4_sublane=1)
+    # big_mesh's blinn_phong draws shade through S1 (its fused body)
+    big = per_frame(raster_sublane=1, assemble_records=1, shade_blinn_phong=1)
     runs = [
-        ("big_mesh 1920x1080", big_r, [big_demo], 10, 2, dense),
-        ("big_mesh 3840x2160", big4k_r, [brt.demos.big_mesh_demo(big4k_r)], 5, 1, dense),
+        ("big_mesh 1920x1080", big_r, [big_demo], 10, 2, big),
+        ("big_mesh 3840x2160", big4k_r, [brt.demos.big_mesh_demo(big4k_r)], 5, 1, big),
         ("instanced 1920x1080", inst_r, [inst_demo], 10, 2, dense),
         ("cube 1920x1080", cube_r, [brt.demos.cube_demo(cube_r)], 20, 5, per_frame(raster_tile=1)),
         ("triangle 800x600", tri_r, [brt.demos.triangle_demo(tri_r)], 20, 5, per_frame(raster_tile=1)),
         ("big_mesh 3840x2160 MSAA-4x", big4m_r, [big4m_demo], 5, 1,
-         per_frame(assemble_records=1, raster_msaa4_sublane=1)),
+         per_frame(assemble_records=1, raster_msaa4_sublane=1, shade_blinn_phong=1)),
         ("cube 1920x1080 MSAA-4x", cube_m_r, [brt.demos.cube_demo(cube_m_r)], 20, 5, per_frame(raster_msaa4=1)),
         ("cube 1920x1080 supersampled", cube_ss_r, [ss_demo], 10, 3, per_frame(raster_tile=1)),
         ("render-state 1920x1080", rs_r, render_state_draws(rs_r), 10, 2,
          per_frame(raster_tile=2, assemble_records=1, raster_two_pass=1)),
         ("render-state 1920x1080 MSAA-4x", rs_m_r, render_state_draws(rs_m_r), 5, 1,
          per_frame(assemble_records=1, raster_msaa4=3)),
-        ("big_mesh 1920x1080 batched", big_r, [batch_demo], 10, 1, per_frame(assemble_records=1, raster_batched=1)),
+        ("big_mesh 1920x1080 batched", big_r, [batch_demo], 10, 1,
+         per_frame(assemble_records=1, raster_batched=1, shade_blinn_phong=1)),
         ("big_mesh 1920x1080 tmpl", big_r, [tmpl_demo], 10, 1,
-         per_frame(transpose_templates=1, assemble_records_rows=1, raster_sublane=1)),
+         per_frame(transpose_templates=1, assemble_records_rows=1, raster_sublane=1, shade_blinn_phong=1)),
         ("textured_cube 1920x1080", tex_r, [brt.demos.textured_cube_demo(tex_r)], 20, 3,
          per_frame(raster_tile=1, compacted_draws=1)),
         ("textured_fullscreen 1920x1080", full_r, [brt.demos.textured_fullscreen_demo(full_r)], 20, 3,
@@ -2459,7 +2625,7 @@ def main() -> int:
         return worst, (t20 - t4) / 16 * 1e3, t4 * 1e3, t20 * 1e3
 
     gen_demo = brt.demos.big_mesh_demo(big_r, generated=True)
-    eager_gen = run_frames("big_mesh 1920x1080 generated", big_r, [gen_demo], 5, dense, replayed=False)["ms"]
+    eager_gen = run_frames("big_mesh 1920x1080 generated", big_r, [gen_demo], 5, big, replayed=False)["ms"]
     by_label = {label: (r, draws, per) for label, r, draws, _, _, per in runs}
     seq_labels = ("cube 1920x1080", "textured_cube 1920x1080", "instanced 1920x1080", "instanced 1920x1080 culled",
                   "big_mesh 1920x1080", "big_mesh 3840x2160 MSAA-4x", "render-state 1920x1080")
@@ -2468,7 +2634,7 @@ def main() -> int:
         r, draws, per = by_label[label]
         seq_results[label] = sequence_run(label, r, draws, per) + (eager_ms[label],)
     seq_results["big_mesh 1920x1080 generated"] = sequence_run("big_mesh 1920x1080 generated", big_r, [gen_demo],
-                                                               dense) + (eager_gen,)
+                                                               big) + (eager_gen,)
     print(
         "[sequences] render_sequence_multi replaying captured CUDA graphs (render-state: three draws), 4 frames "
         f"with return_frames equal to eager _run_frame (colour tol {COLOR_TOL}), checksums sum(color), frames "
@@ -2539,8 +2705,8 @@ def main() -> int:
         "cube": drive("cube", "cube", 60, cube_tile),
         "cube --out --srgb": drive("cube --out --srgb", "cube", 10, cube_tile, out="cube_srgb", srgb=True,
                                    symbols_too=True),
-        "big_mesh --out": drive("big_mesh --out", "big_mesh", 20, dense, out="big_mesh"),
-        "big_mesh": drive("big_mesh", "big_mesh", 20, dense),
+        "big_mesh --out": drive("big_mesh --out", "big_mesh", 20, big, out="big_mesh"),
+        "big_mesh": drive("big_mesh", "big_mesh", 20, big),
     }
     # A shader file: the cube's vertex-colour program as torch source,
     # loaded at run time, renders the cube through B1 bitwise as the
@@ -2608,7 +2774,7 @@ def main() -> int:
         f"[demo-driver] examples/render_demo_torch.py main() in this process at {W}x{H} (native runtime "
         f"{runtime.library_path().name}, g++ {rt_s:.2f} s, zlib.h present): PNG count = frames = "
         "PresentRing.presented, last PNG (zlib-decoded) = render_frame(t_last).color_u8() byte for byte (linear and "
-        "sRGB), the counters B1 / B3 + B2 twice (the first frame's warm-up and capture, then replays), the profiler "
+        "sRGB), the counters B1 / B3 + B2 + S1 twice (the first frame's warm-up and capture, then replays), the profiler "
         "B1 x (frames + 1) over --srgb (the warm-up and one replay a frame), staging page-locked; fps over the whole "
         "loop (pacer's last window): "
         + "; ".join(f"{label} {res['frames']} frames {res['loop_fps']:.2f} ({res['fps']:.2f})"
@@ -2653,10 +2819,10 @@ def main() -> int:
             per_frame(raster_tile=1)),
         "(b) big_mesh 3840x2160 over (y=2, x=2)": (
             before({"mesh": (2, 2), "config": {"width": W4K, "height": H4K}, "draws": [big_spec], "timing": 5}),
-            dense),
+            big),
         "(c) big_mesh 1920x1080 over (y=1, x=1, g=4)": (
             before({"mesh": (1, 1, 4), "geometry_axis": "g", "config": {"width": W, "height": H},
-                    "draws": [big_spec], "timing": 5}), dense),
+                    "draws": [big_spec], "timing": 5}), big),
         "(d) MSAA-4x stencil + blend 1920x1080 over (y=1, x=4)": (
             before({**with_pairs(workers.dryrun_msaa_spec(W, H, (1, 4)), 4096.0), "timing": 10}),
             per_frame(raster_msaa4=3)),
@@ -2744,9 +2910,11 @@ def main() -> int:
         "raster_batched": ("raster_sublane.cu", "based_renderer_tpu/ops/raster_pallas.py:504"),
         "transpose_templates": ("transpose_templates.cu", "based_renderer_tpu/ops/binassem.py:49"),
         "assemble_records_rows": ("assemble_records.cu", "based_renderer_tpu/ops/binassem.py:97"),
+        "shade_blinn_phong": ("shade_blinn_phong.cu", "none: the JAX package shades with array code, fused by XLA"),
     }
     # B8's function is one PyTorch copy into a zeroed buffer; no single
-    # PyTorch call computes a per-tile raster or the record assembly.
+    # PyTorch call computes a per-tile raster, the record assembly or the
+    # shading.
     library = {"transpose_templates": t_b8_lib["ms"]}
     print(json.dumps({"kernels": [
         {

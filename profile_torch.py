@@ -20,8 +20,9 @@ For ``--frames`` frames it prints:
     busy share (that device time over the profiled call's wall time) and
     launches per frame;
   * per-stage medians of the eager frame (a replay calls no stage
-    function): each stage function (instancing, the
-    vertex and fragment shaders, triangle gather, near clip, setup,
+    function): each stage function (instancing, the vertex and fragment
+    shaders, a shader's fused body counted as the fragment stage,
+    triangle gather, near clip, setup,
     binning with the record assembly inside it, the record assembly alone
     (either entry) and the template transpose, the raster kernel, the
     texture taps inside the fragment shader, the covered-tile order and
@@ -82,9 +83,12 @@ def install(timer: StageTimer, shader_name: str):
         for n in names:
             setattr(mod, n, timer.wrap(n, getattr(mod, n), fence=card_fence))
     shd = shader_lib.get(shader_name)
+    # A fused body (shading, composite and resolve in one kernel) is the
+    # frame's fragment shading stage too.
+    fused = shd.fused and timer.wrap("fragment", shd.fused, fence=card_fence)
     shader_lib.register(
         dataclasses.replace(shd, vertex=timer.wrap("vertex", shd.vertex, fence=card_fence),
-                            fragment=timer.wrap("fragment", shd.fragment, fence=card_fence))
+                            fragment=timer.wrap("fragment", shd.fragment, fence=card_fence), fused=fused)
     )
 
 
