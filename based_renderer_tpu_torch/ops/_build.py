@@ -5,8 +5,13 @@ process, all started together, and the objects are linked into one shared
 library with a plain C interface, loaded with ``ctypes``.  The library
 lands in ``build/torch_kernels/`` at the root of the checkout, named by a
 hash of the sources and flags, so an edit rebuilds and an unchanged tree
-reuses the earlier build.  The kernel wrappers check their operands and
-pass pointers and the current stream through the helpers here.  Nothing
+reuses the earlier build.
+
+``ROUTES`` is the one table of the hand-written kernel routes: each name
+maps to its C entry and the device kernel it launches (two routes may
+share one kernel).  The kernel wrappers check their operands and launch
+through ``launch``, which appends the current stream, raises on a failed
+launch and counts the route in ``utils.profiling.ROUTES_TAKEN``.  Nothing
 here runs at import.
 """
 
@@ -20,6 +25,9 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
+from typing import NamedTuple
+
+from ..utils import profiling
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -32,6 +40,28 @@ NVCC_FLAGS = (
     "-Xptxas",
     "-v",
 )
+
+
+class Route(NamedTuple):
+    entry: str  # the C entry point in csrc/*.cu
+    symbol: str  # the __global__ kernel it launches
+
+
+#: Every hand-written kernel route, by the name it is counted and reported
+#: under.  The two-pass and batched routes schedule the sequential and the
+#: sublane raster's computation on the TPU and map onto their kernels.
+ROUTES = {
+    "raster_tile": Route("brt_raster_tile", "raster_tile_kernel"),
+    "raster_sublane": Route("brt_raster_sublane", "raster_sublane_kernel"),
+    "assemble_records": Route("brt_assemble_records", "assemble_records_kernel"),
+    "raster_msaa4": Route("brt_raster_msaa4", "raster_msaa4_kernel"),
+    "raster_msaa4_sublane": Route("brt_raster_msaa4_sublane", "raster_msaa4_sublane_kernel"),
+    "raster_two_pass": Route("brt_raster_tile", "raster_tile_kernel"),
+    "raster_batched": Route("brt_raster_sublane", "raster_sublane_kernel"),
+    "transpose_templates": Route("brt_transpose_templates", "transpose_templates_kernel"),
+    "assemble_records_rows": Route("brt_assemble_records_rows", "assemble_records_rows_kernel"),
+    "shade_blinn_phong": Route("brt_shade_blinn_phong", "shade_blinn_phong_kernel"),
+}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -90,6 +120,17 @@ def stream(dev) -> ctypes.c_void_p:
     import torch
 
     return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+def launch(route: str, *args, dev):
+    """Launch ``route``'s kernel: its C entry with ``args`` and the current
+    stream on ``dev``.  A failed launch raises and counts nothing; else the
+    route counts one in ``profiling.ROUTES_TAKEN`` (eager frames and graph
+    captures: a replay calls no wrapper)."""
+    rc = getattr(load(), ROUTES[route].entry)(*args, stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"{route} kernel launch failed: cudaError {rc}")
+    profiling.ROUTES_TAKEN[route] += 1
 
 
 def check_operand(name, t, dtype, shape, dev):

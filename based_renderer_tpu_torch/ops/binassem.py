@@ -56,16 +56,6 @@ INVALID_EDGE = -(1 << 30)  # edge value that no pixel of a tile can reach
 N_TI = 19  # int columns
 TEMPLATE_COLUMNS = N_TI + 2  # + the float columns before the planes
 
-# The *LAUNCHES counters count calls of a kernel's wrapper in this
-# process: eager frames and graph captures, never a graph's replay.
-
-#: Wrapper calls of the CUDA assembly kernel, per-field entry (main-path proof).
-LAUNCHES = 0
-#: Wrapper calls of the CUDA assembly kernel, template-row entry.
-ROWS_LAUNCHES = 0
-#: Wrapper calls of the CUDA template transpose.
-TRANSPOSE_LAUNCHES = 0
-
 
 class Templates(NamedTuple):
     """Per-triangle inputs of the record assembly (all leading dim T)."""
@@ -201,7 +191,6 @@ def _assemble_reference(f: _SlotFields, ox, oy, total, fw: int, msaa4: bool):
 
 def _assemble_kernel(tmpl: Templates, t_slot, ox, oy, total, fw: int, msaa4: bool = False):
     """Launch csrc/assemble_records.cu, per-field entry."""
-    global LAUNCHES
     dev = t_slot.device
     n = t_slot.shape[0]
     t = tmpl.a.shape[0]
@@ -234,7 +223,8 @@ def _assemble_kernel(tmpl: Templates, t_slot, ox, oy, total, fw: int, msaa4: boo
     records = torch.empty((rw, n), dtype=i32, device=dev)
     frecords = torch.empty((fw, n), dtype=f32, device=dev)
     p = _build.ptr
-    rc = _build.load().brt_assemble_records(
+    _build.launch(
+        "assemble_records",
         p(tmpl.a), p(tmpl.b), p(tmpl.e),
         p(tmpl.dzdx), p(tmpl.dzdy), p(tmpl.zshift),
         p(tmpl.zq), p(tmpl.xf), p(tmpl.yf),
@@ -243,11 +233,8 @@ def _assemble_kernel(tmpl: Templates, t_slot, ox, oy, total, fw: int, msaa4: boo
         p(t_slot), p(ox), p(oy), p(total),
         p(tmpl.id_offset) if per_tri_ids else None, 0 if per_tri_ids else int(tmpl.id_offset),
         p(records), p(frecords), n, rw, fw,
-        _build.stream(dev),
+        dev=dev,
     )
-    if rc != 0:
-        raise RuntimeError(f"assemble_records kernel launch failed: cudaError {rc}")
-    LAUNCHES += 1
     return records, frecords
 
 
@@ -290,18 +277,12 @@ def transpose_templates_reference(fused_t: torch.Tensor, out_width: int) -> torc
 
 def _transpose_kernel(fused_t: torch.Tensor, out_width: int) -> torch.Tensor:
     """Launch csrc/transpose_templates.cu."""
-    global TRANSPOSE_LAUNCHES
     dev = fused_t.device
     w8, t = fused_t.shape
     _check_transpose_shape(w8, out_width)
     _build.check_operand("fused_t", fused_t, torch.int32, (w8, t), dev)
     out = torch.empty((t, out_width), dtype=torch.int32, device=dev)
-    rc = _build.load().brt_transpose_templates(
-        _build.ptr(fused_t), _build.ptr(out), w8, t, out_width, _build.stream(dev)
-    )
-    if rc != 0:
-        raise RuntimeError(f"transpose_templates kernel launch failed: cudaError {rc}")
-    TRANSPOSE_LAUNCHES += 1
+    _build.launch("transpose_templates", _build.ptr(fused_t), _build.ptr(out), w8, t, out_width, dev=dev)
     return out
 
 
@@ -364,7 +345,6 @@ def assemble_records_rows_reference(fused, t_slot, ox, oy, total, fw: int, num_c
 
 def _assemble_rows_kernel(fused, t_slot, ox, oy, total, fw: int, num_channels: int, msaa4: bool):
     """Launch csrc/assemble_records.cu, template-row entry."""
-    global ROWS_LAUNCHES
     dev = t_slot.device
     n = t_slot.shape[0]
     num_planes = _num_planes(fused, fw, num_channels)
@@ -380,8 +360,7 @@ def _assemble_rows_kernel(fused, t_slot, ox, oy, total, fw: int, num_channels: i
     # The kernel copies rows in 16-byte chunks through shared memory.
     if fused.data_ptr() % 16:
         raise ValueError("template rows must start 16-byte aligned")
-    lib = _build.load()
-    smem = lib.brt_assemble_records_rows_smem(num_planes)
+    smem = _build.load().brt_assemble_records_rows_smem(num_planes)
     limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
     if smem > limit:
         raise ValueError(f"{num_channels} channels need {smem} bytes of shared memory a block, over {limit}")
@@ -389,13 +368,11 @@ def _assemble_rows_kernel(fused, t_slot, ox, oy, total, fw: int, num_channels: i
     records = torch.empty((rw, n), dtype=torch.int32, device=dev)
     frecords = torch.empty((fw, n), dtype=torch.float32, device=dev)
     p = _build.ptr
-    rc = lib.brt_assemble_records_rows(
+    _build.launch(
+        "assemble_records_rows",
         p(fused), fused.shape[1], num_planes,
         p(t_slot), p(ox), p(oy), p(total),
         p(records), p(frecords), n, rw, fw,
-        _build.stream(dev),
+        dev=dev,
     )
-    if rc != 0:
-        raise RuntimeError(f"assemble_records rows kernel launch failed: cudaError {rc}")
-    ROWS_LAUNCHES += 1
     return records, frecords

@@ -25,7 +25,9 @@ The PyTorch counterpart of ``based_renderer_tpu/ops/raster_pallas.py``
     raster with a sample axis) and ``rasterize_binned_msaa4_sublane_reference``
     (the per-(pixel, sample) key reduction).
 Two more TPU kernels schedule one of these computations differently and
-map onto its CUDA kernel, with their own launch counts:
+map onto its CUDA kernel, each a route of its own in ``_build.ROUTES``
+(``raster_two_pass`` and ``raster_batched``), counted apart in
+``utils.profiling.ROUTES_TAKEN``:
   * the two-pass raster (``_raster_kernel_two_pass``, ``two_pass``) keeps
     the last passing record per pixel and evaluates its planes once,
     which is what csrc/raster_tile.cu does: the same output bit for bit;
@@ -56,23 +58,6 @@ from . import fixedpoint as fp
 from .binning import bin_triangles
 from .setup import TriSetup
 
-# The *_LAUNCHES counters count calls of a kernel's wrapper in this
-# process: eager frames and graph captures, never a graph's replay.  They
-# tell which route a frame took, not how often a kernel ran.
-
-#: Wrapper calls of the sequential raster kernel (csrc/raster_tile.cu)
-#: (main-path proof).
-KERNEL_LAUNCHES = 0
-#: Wrapper calls of csrc/raster_tile.cu for the two-pass route (``two_pass``).
-TWO_PASS_LAUNCHES = 0
-#: Wrapper calls of the sublane raster kernel (csrc/raster_sublane.cu).
-SUBLANE_LAUNCHES = 0
-#: Wrapper calls of csrc/raster_sublane.cu for the batched route (``batch``).
-BATCH_LAUNCHES = 0
-#: Wrapper calls of the coverage MSAA-4x raster kernel (csrc/raster_msaa4.cu).
-MSAA_LAUNCHES = 0
-#: Wrapper calls of the MSAA-4x sublane raster kernel (csrc/raster_msaa4_sublane.cu).
-MSAA_SUBLANE_LAUNCHES = 0
 NUM_SAMPLES = 4
 
 _COMPARE_OPS = (
@@ -435,10 +420,6 @@ def _stencil_args(stencil, stencil_clear):
     )
 
 
-def _count(counter: str):
-    globals()[counter] += 1
-
-
 def _sample_offsets(msaa4):
     """The MSAA kernels' trailing argument: fp.MSAA4_OFFSETS as 8 int32s."""
     if not msaa4:
@@ -464,11 +445,11 @@ def _raster_planes_kernel(
     stencil=None,
     stencil_clear=0,
     *,
-    counter,
+    route,
 ):
-    """Launch csrc/raster_tile.cu, or csrc/raster_msaa4.cu under ``msaa4``,
-    and add one to the module count named ``counter``; returns (ints (2,
-    or 3 with the stencil, [4,] H, W), floats (4 + K, [4,] H, W))."""
+    """Launch ``route``: csrc/raster_tile.cu, or csrc/raster_msaa4.cu
+    under ``msaa4``; returns (ints (2, or 3 with the stencil, [4,] H, W),
+    floats (4 + K, [4,] H, W))."""
     dev = binned.records.device
     num_tx = -(-width // tile_w)
     num_tiles = num_tx * -(-height // tile_h)
@@ -476,8 +457,8 @@ def _raster_planes_kernel(
     init_t = _kernel_operands(binned, width, height, num_tiles, num_channels, init, msaa4, use_stencil)
     ints, floats = _outputs(width, height, num_channels, dev, msaa4, 3 if use_stencil else 2)
     sc = (0, 0, 0, 0) if scissor is None else tuple(int(v) for v in scissor)
-    lib = _build.load()
-    rc = (lib.brt_raster_msaa4 if msaa4 else lib.brt_raster_tile)(
+    _build.launch(
+        route,
         _build.ptr(binned.records),
         _build.ptr(binned.frecords),
         binned.records.shape[1],
@@ -502,22 +483,18 @@ def _raster_planes_kernel(
         *sc,
         *_stencil_args(stencil, stencil_clear),
         *_sample_offsets(msaa4),
-        _build.stream(dev),
+        dev=dev,
     )
-    if rc != 0:
-        raise RuntimeError(f"{'raster_msaa4' if msaa4 else 'raster_tile'} kernel launch failed: cudaError {rc}")
-    _count(counter)
     return ints, floats
 
 
 def _sublane_planes_kernel(
     binned, width, height, tile_w, tile_h, depth_compare, clip_mode, clear_q, init, num_channels,
-    scissor, bin_rows, msaa4=False, *, counter,
+    scissor, bin_rows, msaa4=False, *, route,
 ):
-    """Launch csrc/raster_sublane.cu, or csrc/raster_msaa4_sublane.cu under
-    ``msaa4`` (which has no band binning), and add one to the module count
-    named ``counter``; returns (ints (2, [4,] H, W), floats (4 + K, [4,]
-    H, W))."""
+    """Launch ``route``: csrc/raster_sublane.cu, or
+    csrc/raster_msaa4_sublane.cu under ``msaa4`` (which has no band
+    binning); returns (ints (2, [4,] H, W), floats (4 + K, [4,] H, W))."""
     dev = binned.records.device
     num_tx = -(-width // tile_w)
     num_ty = -(-height // tile_h)
@@ -526,9 +503,9 @@ def _sublane_planes_kernel(
     init_t = _kernel_operands(binned, width, height, num_bins, num_channels, init, msaa4)
     ints, floats = _outputs(width, height, num_channels, dev, msaa4)
     sc = (0, 0, 0, 0) if scissor is None else tuple(int(v) for v in scissor)
-    lib = _build.load()
     band = () if msaa4 else (int(bin_rows is not None), band_rows)
-    rc = (lib.brt_raster_msaa4_sublane if msaa4 else lib.brt_raster_sublane)(
+    _build.launch(
+        route,
         _build.ptr(binned.records),
         _build.ptr(binned.frecords),
         binned.records.shape[1],
@@ -551,12 +528,8 @@ def _sublane_planes_kernel(
         int(scissor is not None),
         *sc,
         *_sample_offsets(msaa4),
-        _build.stream(dev),
+        dev=dev,
     )
-    if rc != 0:
-        name = "raster_msaa4_sublane" if msaa4 else "raster_sublane"
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
-    _count(counter)
     return ints, floats
 
 
@@ -727,18 +700,18 @@ def _rasterize(
     args = (binned, width, height, tile_w, tile_h)
     if sublane or batch > 0:
         # The batched route is the sublane raster without band bins.
-        counter = "MSAA_SUBLANE_LAUNCHES" if msaa4 else "SUBLANE_LAUNCHES" if sublane else "BATCH_LAUNCHES"
+        route = "raster_msaa4_sublane" if msaa4 else "raster_sublane" if sublane else "raster_batched"
         args += (depth_compare, clip_mode, clear_q, init, num_channels, scissor, bin_rows)
         kw = dict(msaa4=msaa4)
         kernel, plain = _sublane_planes_kernel, _sublane_planes_reference
     else:
         # The JAX package takes the MSAA kernel before two_pass
         # (raster_pallas.py:2025-2028); two_pass maps onto raster_tile.cu.
-        counter = "MSAA_LAUNCHES" if msaa4 else "TWO_PASS_LAUNCHES" if two_pass else "KERNEL_LAUNCHES"
+        route = "raster_msaa4" if msaa4 else "raster_two_pass" if two_pass else "raster_tile"
         args += (depth_test, depth_compare, depth_write, clip_mode, clear_q, init, num_channels, scissor)
         kw = dict(msaa4=msaa4, stencil=stencil, stencil_clear=stencil_clear)
         kernel, plain = _raster_planes_kernel, _raster_planes_reference
-    ints, floats = kernel(*args, counter=counter, **kw) if use_kernel else plain(*args, **kw)
+    ints, floats = kernel(*args, route=route, **kw) if use_kernel else plain(*args, **kw)
     return _package(ints, floats, num_channels)
 
 
@@ -757,9 +730,9 @@ def rasterize_binned(binned, *args, **kwargs):
     leading sample axis of 4.  ``stencil`` (a StencilState) runs the
     stencil test and update in the sequential rasters, starting from
     ``init.stencil`` or ``stencil_clear``; the VisBuffer then carries the
-    stencil plane.  ``two_pass`` takes the sequential raster (counted in
-    TWO_PASS_LAUNCHES), and ``batch`` the sublane raster at any tile that
-    divides 128 (BATCH_LAUNCHES), with the JAX package's ValueErrors on
+    stencil plane.  ``two_pass`` takes the sequential raster (the route
+    ``raster_two_pass``), and ``batch`` the sublane raster at any tile that
+    divides 128 (``raster_batched``), with the JAX package's ValueErrors on
     ineligible modes.  CUDA tensors launch the Hopper kernels; CPU tensors
     take the plain PyTorch versions.  Returns a VisBuffer when
     ``num_channels`` is 0, else (vis, interp (K, [4,] H, W), invw

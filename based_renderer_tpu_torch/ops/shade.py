@@ -22,11 +22,6 @@ import torch
 from ..utils.errors import FeatureNotPresentError
 from . import _build
 
-#: Wrapper calls of csrc/shade_blinn_phong.cu in this process: eager frames
-#: and graph captures, never a graph's replay.
-LAUNCHES = 0
-
-
 def _norm(x: torch.Tensor) -> torch.Tensor:
     return torch.linalg.vector_norm(x, dim=-1, keepdim=True)
 
@@ -79,8 +74,7 @@ def _uniform_operand(name, u, dev, sizes):
 
 def _shade_kernel(interp, invw, tri_id, lo, hi, color, light_pos, eye_pos, base_color, shininess, ambient,
                   resolve):
-    """Launch csrc/shade_blinn_phong.cu and add one to LAUNCHES."""
-    global LAUNCHES
+    """Launch csrc/shade_blinn_phong.cu."""
     interp, invw, tri_id, color = interp.contiguous(), invw.contiguous(), tri_id.contiguous(), color.contiguous()
     dev = tri_id.device
     plane = tuple(tri_id.shape)
@@ -99,17 +93,14 @@ def _shade_kernel(interp, invw, tri_id, lo, hi, color, light_pos, eye_pos, base_
     scalars = [_uniform_operand(n, u, dev, (1,))[0] for n, u in (("shininess", shininess), ("ambient", ambient))]
     resolve = resolve and samples == 4
     out = torch.empty((4, h, w) if resolve or samples == 1 else (samples, 4, h, w), dtype=torch.float32, device=dev)
-    lib = _build.load()
-    rc = lib.brt_shade_blinn_phong(
+    _build.launch(
+        "shade_blinn_phong",
         _build.ptr(interp), _build.ptr(invw), _build.ptr(tri_id), lo, hi,
         _build.ptr(color), int(clear),
         *[a for t, s in vecs for a in (_build.ptr(t), s)],
         *[_build.ptr(t) for t in scalars],
-        _build.ptr(out), samples, h * w, k, int(resolve), _build.stream(dev),
+        _build.ptr(out), samples, h * w, k, int(resolve), dev=dev,
     )
-    if rc != 0:
-        raise RuntimeError(f"shade_blinn_phong kernel launch failed: cudaError {rc}")
-    LAUNCHES += 1
     return out
 
 

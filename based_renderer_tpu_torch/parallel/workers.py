@@ -39,30 +39,12 @@ import torch
 import torch.distributed as dist
 
 from ..models import demos, geometry
-from ..ops import binassem, raster, shade
+from ..ops import _build
 from ..pipeline import Pipeline
 from ..renderer import FrameResult, Renderer, RendererConfig, shard_tile
+from ..utils import profiling
 from .launch import make_mesh
 from .tiled import TiledRenderer
-
-#: The kernel launch counters a rank reports: (module, counter, kernel).
-_COUNTERS = (
-    (raster, "KERNEL_LAUNCHES", "raster_tile"),
-    (raster, "SUBLANE_LAUNCHES", "raster_sublane"),
-    (binassem, "LAUNCHES", "assemble_records"),
-    (raster, "MSAA_LAUNCHES", "raster_msaa4"),
-    (raster, "MSAA_SUBLANE_LAUNCHES", "raster_msaa4_sublane"),
-    (raster, "TWO_PASS_LAUNCHES", "raster_two_pass"),
-    (raster, "BATCH_LAUNCHES", "raster_batched"),
-    (binassem, "TRANSPOSE_LAUNCHES", "transpose_templates"),
-    (binassem, "ROWS_LAUNCHES", "assemble_records_rows"),
-    (shade, "LAUNCHES", "shade_blinn_phong"),
-)
-
-
-def _launch_counts() -> dict:
-    return {name: getattr(mod, attr) for mod, attr, name in _COUNTERS}
-
 
 def override(obj, changes: dict):
     """``obj`` (a dataclass of either package) with ``changes``; a dict value
@@ -185,13 +167,13 @@ def run_spec(world_mesh, spec) -> dict:
     mesh = make_mesh(spec["mesh"], world_mesh.device_type)
     cfg = RendererConfig(**spec.get("config", {}))
     is_seq = bool(spec.get("sequence"))
-    before = _launch_counts()
+    before = profiling.ROUTES_TAKEN.copy()
     try:
         tr = TiledRenderer(cfg, mesh, spec.get("geometry_axis"))
         for draws in spec.get("before", []):
             _prepare(tr, {**spec, "draws": draws})()
         render = _prepare(tr, spec)
-        mid = _launch_counts()
+        mid = profiling.ROUTES_TAKEN.copy()
         got = render()
     except Exception as e:  # an expected rejection is the result; anything else fails the run
         if type(e).__name__ != spec.get("expect"):
@@ -199,10 +181,10 @@ def run_spec(world_mesh, spec) -> dict:
         return {"raised": type(e).__name__, "message": str(e)}
     if spec.get("expect"):
         raise AssertionError(f"expected {spec['expect']}, nothing was raised")
-    after = _launch_counts()
+    after = profiling.ROUTES_TAKEN
     dev = tr.device
-    res = {"launches": {k: after[k] - before[k] for k in after},
-           "frame_launches": {k: after[k] - mid[k] for k in after}, "shard": tuple(tr.shard[:2]),
+    res = {"launches": {k: after[k] - before[k] for k in _build.ROUTES},
+           "frame_launches": {k: after[k] - mid[k] for k in _build.ROUTES}, "shard": tuple(tr.shard[:2]),
            "programs": tr.num_cached_programs}
     if is_seq:
         sums, frames = got

@@ -11,7 +11,7 @@ On CUDA, ``submit`` interleaves the frame's planar colour to (H, W, 4) on
 the device, starts a ``non_blocking`` device-to-host copy into a
 page-locked staging slot and records a CUDA event after it; the drain
 waits on the oldest frame's event only (the fence).  The slots are one
-block of the native runtime's arena, registered with CUDA
+page-aligned block of anonymous memory (``mmap``), registered with CUDA
 (``cudaHostRegister``) so that the copy is asynchronous.  On the CPU the
 drain reads the frame's ``color_np()`` into the slot.  ``FramePacer``
 supplies fixed-dt pacing and an FPS counter.
@@ -21,32 +21,31 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import mmap
 import time
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
-from . import runtime
 from .utils import profiling
 from .utils.errors import PresentError
 
-_BLOCK_ALIGN = 1 << 16  # the staging block's alignment and size multiple: whole pages
+_BLOCK_ALIGN = 1 << 16  # the staging block's size multiple: whole pages
 
 
 class _Staging:
-    """``slots`` (H, W, 4) float32 slots in one arena block, page-locked
-    with ``cudaHostRegister`` when ``pin``; ``close`` unregisters it
-    before the arena can free it."""
+    """``slots`` (H, W, 4) float32 slots in one anonymous ``mmap`` block,
+    page-locked with ``cudaHostRegister`` when ``pin``; ``close``
+    unregisters it.  The block is freed when its last view goes."""
 
     def __init__(self, extent, slots: int, pin: bool):
         w, h = extent
         slot_bytes = h * w * 4 * 4
         total = -(-slots * slot_bytes // _BLOCK_ALIGN) * _BLOCK_ALIGN
-        self.arena = runtime.Arena()
-        idx = self.arena.request(total, _BLOCK_ALIGN)
-        self.arena.finalize()
-        block = self.arena.view(idx, (total,))
+        # Private anonymous memory, as malloc maps a block this size (the
+        # default MAP_SHARED would be shmem, another kind of page).
+        block = np.frombuffer(mmap.mmap(-1, total, flags=mmap.MAP_PRIVATE | mmap.MAP_ANONYMOUS), np.uint8)
         self.views = [block[i * slot_bytes:(i + 1) * slot_bytes].view(np.float32).reshape(h, w, 4)
                       for i in range(slots)]
         self.tensors = None
@@ -79,11 +78,10 @@ class Swapchain:
     """Ring of in-flight frames.
 
     depth=2 mirrors the reference's double buffering.  With ``extent``
-    given (and the native runtime available), presented frames land in a
-    fixed pool of ``2 * depth`` arena staging slots instead of fresh
-    numpy arrays.  CUDA frames always do: their pool is page-locked, made
-    from the frame's extent when none was given, and needs the native
-    runtime.  The pool is made at the first submit.  A presented image is
+    given, presented frames land in a fixed pool of ``2 * depth`` staging
+    slots instead of fresh numpy arrays.  CUDA frames always do: their
+    pool is page-locked, made from the frame's extent when none was
+    given.  The pool is made at the first submit.  A presented image is
     valid for ``depth`` further presents, until its slot cycles: copy it
     to keep it.
     """
@@ -102,8 +100,7 @@ class Swapchain:
         """Build the staging pool (the swapchain-recreation analog)."""
         self.close()
         self.extent = tuple(extent)
-        if pin or runtime.available():
-            self._staging = _Staging(self.extent, 2 * self.depth, pin)
+        self._staging = _Staging(self.extent, 2 * self.depth, pin)
 
     def resize(self, extent):
         """Recreate staging for a new extent; in-flight frames are drained

@@ -17,8 +17,8 @@ blend composite against that draw's own visibility snapshot, and the MSAA
 resolve.  On CUDA an opaque draw whose shader has a fused body
 (``Shader.fused``: ``blinn_phong``'s, ops/shade.py) shades, composites
 and, as the frame's last draw, resolves in one kernel
-(``FUSED_SHADED_DRAWS`` counts such draws).  ``_run_frame`` is that
-frame, eagerly.
+(``profiling.ROUTES_TAKEN["fused_shading"]`` counts such draws).
+``_run_frame`` is that frame, eagerly.
 
 ``RendererConfig.msaa=4`` is coverage-sample MSAA-4x: per-sample
 visibility at the four standard sample positions, attributes and shading
@@ -288,16 +288,6 @@ def _fragment_inputs(var_tri, interp, invw, depth, bary, tri_id) -> dict:
     return frag
 
 
-#: Draws shaded per covered tile in this process (proof that compaction
-#: ran; a sequence counts only when it captures).
-COMPACTED_DRAWS = 0
-
-
-#: Draws shaded by their shader's fused body in this process (proof that
-#: the fused path ran; a sequence counts only when it captures).
-FUSED_SHADED_DRAWS = 0
-
-
 def _on_card(t: torch.Tensor) -> bool:
     """Whether ``t`` lies where fused bodies run: on a CUDA device."""
     return t.is_cuda
@@ -331,8 +321,8 @@ def _shade_tiles(var_tri, interp, invw, vis, tri_id, fragment, uniforms, blend_s
     ([S,] H, W) draw-local (-1 where the draw lost), ``color`` ([S,] 4, H,
     W).  Sample layers fold into the tile-row channel axis, so compaction
     is one row gather and one scatter per plane set; the fragment shader
-    sees (budget * S, 8, 128) images, each one tile of one sample layer."""
-    global COMPACTED_DRAWS
+    sees (budget * S, 8, 128) images, each one tile of one sample layer.
+    Counts one ``compacted_draws`` in ``profiling.ROUTES_TAKEN``."""
     parts = [] if interp is None else [interp]
     if invw is not None:
         parts.append(invw[None])
@@ -353,7 +343,7 @@ def _shade_tiles(var_tri, interp, invw, vis, tri_id, fragment, uniforms, blend_s
     cur = compact.gather_tiles(rows, sel, s * 4).reshape(budget * s, 4, th, tw)
     out = torch.where((g_id >= 0)[:, None], _blend(rgba, cur, blend_state), cur)
     rows = compact.scatter_tiles(rows, sel, out.reshape(budget, s * 4, th, tw))
-    COMPACTED_DRAWS += 1
+    profiling.ROUTES_TAKEN["compacted_draws"] += 1
     return compact.untile_rows(rows, s * 4, h, w).reshape(color.shape)
 
 
@@ -1184,7 +1174,6 @@ class Renderer:
         the pass with a _Pending until the host picks its budget; resumed
         with ``order`` and ``budget`` (0: full-screen), draw ``start``
         shades with them."""
-        global FUSED_SHADED_DRAWS
         coverage_msaa, scale, _, _ = self._extent()
         _, _, ew, eh = self._window(fv.shard)
         planes = ((4,) if coverage_msaa else ()) + (4, eh, ew)
@@ -1200,7 +1189,7 @@ class Renderer:
             if fused is not None:
                 resolved = coverage_msaa and i == len(fv.draws) - 1
                 color = fused(interp, invw, vis_i.tri_id, off, off + ntri, color, uniforms, resolved)
-                FUSED_SHADED_DRAWS += 1
+                profiling.ROUTES_TAKEN["fused_shading"] += 1
                 continue
             if color.dim() == 1:
                 color = color.reshape(4, 1, 1).expand(planes)

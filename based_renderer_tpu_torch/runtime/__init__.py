@@ -1,9 +1,11 @@
 """Native host runtime bindings (ctypes over the C++ brt_runtime library).
 
 The compute path is PyTorch and CUDA; the host-side runtime around it (the
-batched staging allocator, frame pacer, image encoders and the background
-present ring) is C++ (``runtime/native/brt_runtime.cpp``, this package's
-own copy of the JAX package's runtime, with the same C ABI).
+f32 -> u8 converters, the PNG encoder and the background present ring) is
+C++ (``runtime/native/brt_runtime.cpp``, this package's own copy of those
+parts of the JAX package's runtime, with the same C ABI).  The swapchain's
+staging, one page-locked block, and the frame pacer are Python, in
+``present.py``.
 
 The library is built with g++ at first use (no pybind11: a plain C ABI and
 ctypes) into ``build/torch_runtime/`` at the root of the checkout, named
@@ -70,28 +72,6 @@ def build() -> Path:
 
 def _declare(lib):
     c = ctypes
-    lib.brt_arena_create.restype = c.c_void_p
-    lib.brt_arena_request_ex.restype = c.c_int32
-    lib.brt_arena_request_ex.argtypes = [c.c_void_p, c.c_uint64, c.c_uint64, c.c_int32]
-    lib.brt_arena_set_dedicated_threshold.argtypes = [c.c_void_p, c.c_uint64]
-    lib.brt_arena_num_dedicated.restype = c.c_int32
-    lib.brt_arena_num_dedicated.argtypes = [c.c_void_p]
-    lib.brt_arena_finalize.restype = c.c_int32
-    lib.brt_arena_finalize.argtypes = [c.c_void_p]
-    lib.brt_arena_ptr.restype = c.c_void_p
-    lib.brt_arena_ptr.argtypes = [c.c_void_p, c.c_int32]
-    lib.brt_arena_total_bytes.restype = c.c_uint64
-    lib.brt_arena_total_bytes.argtypes = [c.c_void_p]
-    lib.brt_arena_num_groups.restype = c.c_int32
-    lib.brt_arena_num_groups.argtypes = [c.c_void_p]
-    lib.brt_arena_destroy.argtypes = [c.c_void_p]
-    lib.brt_pacer_create.restype = c.c_void_p
-    lib.brt_pacer_create.argtypes = [c.c_double, c.c_int32]
-    lib.brt_pacer_tick.restype = c.c_double
-    lib.brt_pacer_tick.argtypes = [c.c_void_p]
-    lib.brt_pacer_fps.restype = c.c_double
-    lib.brt_pacer_fps.argtypes = [c.c_void_p]
-    lib.brt_pacer_destroy.argtypes = [c.c_void_p]
     lib.brt_f32_to_u8.argtypes = [c.c_void_p, c.c_void_p, c.c_int64]
     lib.brt_f32_to_u8_srgb.argtypes = [c.c_void_p, c.c_void_p, c.c_int64]
     lib.brt_write_png.restype = c.c_int32
@@ -133,82 +113,6 @@ def require():
     if lib is None:
         raise RuntimeError(f"native runtime unavailable: {_error}")
     return lib
-
-
-class Arena:
-    """Batched, alignment-grouped host buffer allocator (the
-    vulkan_allocate analog: request everything, finalize once).  Views of
-    its buffers keep the arena alive."""
-
-    def __init__(self):
-        self._lib = require()
-        self._h = self._lib.brt_arena_create()
-
-    def request(self, size: int, alignment: int = 64, dedicated: bool = False) -> int:
-        """Request a buffer.  ``dedicated`` forces the request onto its
-        own backing block; requests at or above the arena's dedicated
-        threshold (default 32 MiB) are promoted automatically."""
-        idx = self._lib.brt_arena_request_ex(self._h, size, alignment, 1 if dedicated else 0)
-        if idx < 0:
-            raise ValueError("bad arena request (finalized? non-pow2 alignment?)")
-        return idx
-
-    def set_dedicated_threshold(self, bytes_: int):
-        """Auto-promotion size threshold; 0 disables auto-promotion."""
-        self._lib.brt_arena_set_dedicated_threshold(self._h, bytes_)
-
-    def finalize(self):
-        if self._lib.brt_arena_finalize(self._h) != 0:
-            raise MemoryError("arena finalize failed")
-
-    def view(self, index: int, shape, dtype=np.uint8) -> np.ndarray:
-        """numpy view of a bound buffer (zero copy)."""
-        ptr = self._lib.brt_arena_ptr(self._h, index)
-        if not ptr:
-            raise ValueError("unbound buffer (finalize first)")
-        nbytes = int(np.prod(shape)) * np.dtype(dtype).itemsize
-        buf = (ctypes.c_uint8 * nbytes).from_address(ptr)
-        buf._arena = self  # the view's base holds the arena
-        return np.frombuffer(buf, dtype=dtype).reshape(shape)
-
-    @property
-    def total_bytes(self) -> int:
-        return self._lib.brt_arena_total_bytes(self._h)
-
-    @property
-    def num_groups(self) -> int:
-        return self._lib.brt_arena_num_groups(self._h)
-
-    @property
-    def num_dedicated(self) -> int:
-        return self._lib.brt_arena_num_dedicated(self._h)
-
-    def __del__(self):
-        if getattr(self, "_h", None):
-            self._lib.brt_arena_destroy(self._h)
-            self._h = None
-
-
-class NativePacer:
-    """C++ frame pacer (fixed dt and FPS), the native twin of
-    present.FramePacer."""
-
-    def __init__(self, fixed_dt: float = 1 / 60, vsync: bool = False):
-        self._lib = require()
-        self._h = self._lib.brt_pacer_create(fixed_dt, 1 if vsync else 0)
-        self.fixed_dt = fixed_dt
-
-    def tick(self) -> float:
-        return self._lib.brt_pacer_tick(self._h)
-
-    @property
-    def fps(self) -> float:
-        return self._lib.brt_pacer_fps(self._h)
-
-    def __del__(self):
-        if getattr(self, "_h", None):
-            self._lib.brt_pacer_destroy(self._h)
-            self._h = None
 
 
 #: Records the native ring keeps per ring (kPresentRecords), and read at once.

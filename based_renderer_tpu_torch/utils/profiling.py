@@ -20,6 +20,13 @@ records, the renderer hands that () tensor here with the call's stamp
 (``keep_budget_use``), and nothing reads it on the host: a reader takes
 ``budget_use_records`` after the traced window.
 
+``ROUTES_TAKEN`` counts the routes a frame took, by name: each kernel
+route of ``ops._build.ROUTES`` at its wrapper's launch, and the
+renderer's ``compacted_draws`` (a draw shaded per covered tile) and
+``fused_shading`` (a draw shaded by its shader's fused body).  It counts
+eager frames and graph captures, never a replay: it tells which route a
+frame took, not how often a kernel ran.
+
 ``trace`` wraps a block in ``torch.profiler`` and writes a Chrome trace
 (viewable in Perfetto or ``chrome://tracing``) into a directory, with the
 ring's stamps as a track of their own; ``StageTimer`` measures the wall
@@ -44,6 +51,9 @@ from torch.autograd import profiler as _autograd_profiler
 
 #: The context a span returns while no profiler records.
 OFF = contextlib.nullcontext()
+
+#: The routes taken in this process, by name (see the module docstring).
+ROUTES_TAKEN: collections.Counter = collections.Counter()
 
 
 def recording() -> bool:

@@ -247,24 +247,29 @@ WINDOWS = 7
 KERNEL_ITERS = 10  # launches under the profiler for a kernel's device-only time
 W, H = 1920, 1080
 W4K, H4K = 3840, 2160
-KERNELS = (
-    "raster_tile",
-    "raster_sublane",
-    "assemble_records",
-    "raster_msaa4",
-    "raster_msaa4_sublane",
-    "raster_two_pass",
-    "raster_batched",
-    "transpose_templates",
-    "assemble_records_rows",
-    "shade_blinn_phong",
-)
-# Per-frame counts: every kernel of KERNELS, then the draws shaded per
-# covered tile (renderer.COMPACTED_DRAWS: no kernel, the compaction proof).
-COUNTS = (*KERNELS, "compacted_draws")
-# The CUDA kernels' symbols, for their device-only times under the profiler.
-B1, B2, B4, B5 = "raster_tile_kernel", "raster_sublane_kernel", "raster_msaa4_kernel", "raster_msaa4_sublane_kernel"
-S1 = "shade_blinn_phong_kernel"
+
+
+def route_table() -> dict:
+    """The package's one table of kernel routes (``ops/_build.py``
+    ``ROUTES``): name -> (C entry, device kernel symbol).  Imported at the
+    call, so that the script starts, and fails without a card, from a
+    directory that holds it alone."""
+    from based_renderer_tpu_torch.ops._build import ROUTES
+
+    return ROUTES
+
+
+def counted() -> tuple:
+    """The names of a per-frame count tuple, in order: every kernel route of
+    the table, then the draws shaded per covered tile (``compacted_draws``:
+    no kernel, the compaction proof)."""
+    return (*route_table(), "compacted_draws")
+
+
+def symbol(route: str) -> str:
+    """The device kernel symbol that ``route``'s launches run, for its
+    device-only times under the profiler."""
+    return route_table()[route].symbol
 
 
 # The cube's vertex-colour program as a shader file (shader.load_file).
@@ -341,11 +346,12 @@ def culled_setup(r, t, frac, dev):
 
 
 def per_frame(**n) -> tuple:
-    """A per-frame count tuple in COUNTS order from names (0 elsewhere)."""
-    unknown = set(n) - set(COUNTS)
+    """A per-frame count tuple in ``counted()`` order from names (0 elsewhere)."""
+    names = counted()
+    unknown = set(n) - set(names)
     if unknown:
         raise ValueError(f"unknown counters {sorted(unknown)}")
-    return tuple(n.get(k, 0) for k in COUNTS)
+    return tuple(n.get(k, 0) for k in names)
 COLOR_TOL = 1e-5
 # The least time for a kernel's work: bytes over the H100 SXM's HBM3 rate
 # (3.35 TB/s), or its integer instructions over the int32 issue rate of 132
@@ -1416,7 +1422,9 @@ def shade_phase(dev, card: str) -> dict:
     from based_renderer_tpu_torch import renderer as renderer_mod
     from based_renderer_tpu_torch import shader as shader_lib
     from based_renderer_tpu_torch.ops import shade
+    from based_renderer_tpu_torch.utils.profiling import ROUTES_TAKEN
 
+    s1 = symbol("shade_blinn_phong")
     worst = {"kernel": 0.0, "frames": 0.0}
     g = torch.Generator().manual_seed(6)
     u = [torch.tensor(v, device=dev) for v in ([3.0, -3.0, -3.0], [0.0, 0.0, -2.2], [0.55, 0.65, 0.8], 32.0, 0.1)]
@@ -1451,9 +1459,9 @@ def shade_phase(dev, card: str) -> dict:
     def launched(label, fn, fused, kernel):
         """fn()'s result; it must add ``fused`` fused draws and ``kernel``
         calls of S1's wrapper."""
-        draws, calls = renderer_mod.FUSED_SHADED_DRAWS, shade.LAUNCHES
+        draws, calls = ROUTES_TAKEN["fused_shading"], ROUTES_TAKEN["shade_blinn_phong"]
         out = fn()
-        got = (renderer_mod.FUSED_SHADED_DRAWS - draws, shade.LAUNCHES - calls)
+        got = (ROUTES_TAKEN["fused_shading"] - draws, ROUTES_TAKEN["shade_blinn_phong"] - calls)
         if got != (fused, kernel):
             raise AssertionError(f"shade {label}: fused draws and S1 wrapper calls {got}, expected {(fused, kernel)}")
         return out
@@ -1483,11 +1491,11 @@ def shade_phase(dev, card: str) -> dict:
     got_eager = launched("4K eager", lambda: eager(r, pipe, mesh, [uf(0.3)]), 1, 1)
     launched("4K capture", lambda: r.render_frame(pipe, mesh, uf(1.0)), 2, 2)
     f, replay_s1 = symbol_launches_of(lambda: launched("4K replay", lambda: r.render_frame(pipe, mesh, uf(0.3)), 0, 0),
-                                      S1, 1)
+                                      s1, 1)
     got_replay = (f.color_planar, f.depth_q, f.tri_id)
     with plain_route():
         want, plain_s1 = symbol_launches_of(lambda: launched("4K plain", lambda: eager(r, pipe, mesh, [uf(0.3)]), 0, 0),
-                                            S1, 0)
+                                            s1, 0)
     if (replay_s1, plain_s1) != (1, 0):
         raise AssertionError(f"shade 4K: the profiler saw S1 {replay_s1} times in a replay (1 expected) and "
                              f"{plain_s1} on the plain route (0 expected)")
@@ -1504,7 +1512,7 @@ def shade_phase(dev, card: str) -> dict:
     clear_t = torch.tensor(clear, dtype=torch.float32, device=dev)
     uv = [shader_lib._blinn_phong_uniform(uniforms, key, interp) for key in shader_lib._BLINN_PHONG_DEFAULTS]
     args = (interp, invw, vis.tri_id, off, off + ntri, clear_t, *uv)
-    t_kernel = timed(lambda: shade.shade_blinn_phong(*args, resolve=True), 10, S1)
+    t_kernel = timed(lambda: shade.shade_blinn_phong(*args, resolve=True), 10, s1)
     t_plain = timed(lambda: shade.shade_blinn_phong_reference(*args, resolve=True))
     samples = vis.tri_id.numel()
     won = int(((vis.tri_id >= off) & (vis.tri_id < off + ntri)).sum())
@@ -1549,32 +1557,23 @@ def main() -> int:
     from based_renderer_tpu_torch.ops.setup import setup_triangles
     from based_renderer_tpu_torch.ops.vertex import gather_triangles
     from based_renderer_tpu_torch.reference import adversarial, oracle
+    from based_renderer_tpu_torch.utils.profiling import ROUTES_TAKEN
 
     dev = torch.device("cuda")
     check = Checker()
     times = {}
     bounds = {}
-    # Each kernel's launch counter, in COUNTS order, then the compaction count.
-    counters = (
-        (raster, "KERNEL_LAUNCHES"),
-        (raster, "SUBLANE_LAUNCHES"),
-        (binassem, "LAUNCHES"),
-        (raster, "MSAA_LAUNCHES"),
-        (raster, "MSAA_SUBLANE_LAUNCHES"),
-        (raster, "TWO_PASS_LAUNCHES"),
-        (raster, "BATCH_LAUNCHES"),
-        (binassem, "TRANSPOSE_LAUNCHES"),
-        (binassem, "ROWS_LAUNCHES"),
-        (shade_ops, "LAUNCHES"),
-        (renderer_mod, "COMPACTED_DRAWS"),
-    )
+    kernels = tuple(route_table())
+    names = counted()
+    B1, B2, B4, B5 = map(symbol, ("raster_tile", "raster_sublane", "raster_msaa4", "raster_msaa4_sublane"))
 
     def counts():
-        return tuple(getattr(m, a) for m, a in counters)
+        """The routes taken so far, in ``names`` order."""
+        return tuple(ROUTES_TAKEN[k] for k in names)
 
     def reset_counts():
-        for m, a in counters:
-            setattr(m, a, 0)
+        for k in names:
+            ROUTES_TAKEN[k] = 0
 
     # ---- 2. build -------------------------------------------------------
     t0 = time.perf_counter()
@@ -1708,7 +1707,7 @@ def main() -> int:
         if not torch.equal(frec_k.view(torch.int32), frec_p.view(torch.int32)):
             raise AssertionError(f"assemble_records {label}: float records differ by {float((frec_k - frec_p).abs().max())}")
         check.worst["assemble_records"] = max(check.worst.get("assemble_records", 0.0), float((frec_k - frec_p).abs().max()))
-        t_k = timed(lambda: binassem.assemble_records(*args), 10, "assemble_records_kernel")
+        t_k = timed(lambda: binassem.assemble_records(*args), 10, symbol("assemble_records"))
         t_p = timed(lambda: binassem.assemble_records_reference(*args))
         # Bytes: the slot inputs (t_slot, ox, oy), the per-triangle fields of
         # each triangle some slot names read once (culled and empty
@@ -1768,7 +1767,7 @@ def main() -> int:
         torch.cuda.synchronize()
         if not torch.equal(got, want) or not torch.equal(lib, want):
             raise AssertionError(f"transpose_templates {label}: differs from the plain version or the library call")
-        t_k = timed(lambda: binassem.transpose_templates(fused_t, row_width), 10, "transpose_templates_kernel")
+        t_k = timed(lambda: binassem.transpose_templates(fused_t, row_width), 10, symbol("transpose_templates"))
         t_p = timed(lambda: binassem.transpose_templates_reference(fused_t, row_width), 10)
         t_l = timed(lambda: lib[:, :w8].copy_(fused_t.T), 10)
         return got, (w8, t, row_width), t_k, t_p, t_l, bound(4 * (w8 * t + t * row_width), 0)
@@ -1786,7 +1785,7 @@ def main() -> int:
                 raise AssertionError(f"assemble_records_rows {label}: records differ from the {name}")
         check.worst["assemble_records_rows"] = max(check.worst.get("assemble_records_rows", 0.0),
                                                    float((frec_k - frec_p).abs().max()))
-        t_k = timed(lambda: binassem.assemble_records_rows(*args), 10, "assemble_records_rows_kernel")
+        t_k = timed(lambda: binassem.assemble_records_rows(*args), 10, symbol("assemble_records_rows"))
         t_p = timed(lambda: binassem.assemble_records_rows_reference(*args))
         return t_k, t_p, rows_bound(args[1], rec_k.shape[0], fw, num_channels)
 
@@ -2160,7 +2159,7 @@ def main() -> int:
     # ---- 7b. the spec's adversarial streams ------------------------------
     adv = adversarial_phase(dev, check, card)
     t0 = time.perf_counter()
-    empty_launches = empty_and_culled_draws(dev, counts, reset_counts, COUNTS)
+    empty_launches = empty_and_culled_draws(dev, counts, reset_counts, names)
     empty_s = time.perf_counter() - t0
     print(
         f"[adversarial] streams {', '.join(adversarial.STREAMS)} and the mixed fuzz (seeds "
@@ -2196,16 +2195,15 @@ def main() -> int:
     )
 
     # ---- 8. end to end --------------------------------------------------
-    nk = len(KERNELS)
-    # symbol -> the COUNTS names whose launches run it
-    symbols = {B1: ("raster_tile", "raster_two_pass"), B2: ("raster_sublane", "raster_batched"),
-               B4: ("raster_msaa4",), B5: ("raster_msaa4_sublane",), "assemble_records_kernel": ("assemble_records",),
-               "assemble_records_rows_kernel": ("assemble_records_rows",),
-               "transpose_templates_kernel": ("transpose_templates",), S1: ("shade_blinn_phong",)}
+    nk = len(kernels)
+    # symbol -> the routes whose launches run it
+    symbols = {}
+    for route, (_, sym) in route_table().items():
+        symbols.setdefault(sym, []).append(route)
 
     def symbol_launches(per, frames=1):
         """The kernel launches by symbol of ``frames`` frames of per-frame counts ``per``."""
-        return {sym: frames * sum(per[COUNTS.index(c)] for c in names) for sym, names in symbols.items()}
+        return {sym: frames * sum(per[names.index(c)] for c in routes) for sym, routes in symbols.items()}
 
     def profiled(fn, want=None):
         """(fn()'s result, its kernel launches by symbol under torch.profiler).
@@ -2244,12 +2242,12 @@ def main() -> int:
         """Median event-timed ms/frame over ``frames`` frames, the least
         covered count, the counts launched, and the reserved memory (MiB)
         a new program took.  Eager (``replayed`` False: _run_frame), each
-        frame must add ``per`` to the counts (COUNTS order).  Through
+        frame must add ``per`` to the counts (``names`` order).  Through
         render_frame, a frame that makes its key's program adds twice the
         kernels of ``per`` (the eager warm-up and the capture) and is left
         out of the median; a replay adds none."""
         times_, overflow, finite, covered, mib = [], None, None, None, None
-        launched = (0,) * len(COUNTS)
+        launched = (0,) * len(names)
         for i in range(frames):
             us = [d[2](0.05 * i) for d in draws]
             programs = r.num_cached_programs
@@ -2395,7 +2393,7 @@ def main() -> int:
     # culled stream has fewer triangles to budget them by.
     msaa_budgets = dict(raster_pairs_factor=1.3, raster_slots_factor=0.7)
 
-    # label, renderer, draws, kernel frames, plain frames, counts per frame (COUNTS order)
+    # label, renderer, draws, kernel frames, plain frames, counts per frame (``names`` order)
     dense = per_frame(raster_sublane=1, assemble_records=1)
     dense_msaa = per_frame(assemble_records=1, raster_msaa4_sublane=1)
     # big_mesh's blinn_phong draws shade through S1 (its fused body)
@@ -2441,9 +2439,9 @@ def main() -> int:
     # others replays (launches under the profiler, below).
     reset_counts()
     results = {label: run_frames(label, r, draws, n, per) for label, r, draws, n, _, per in runs}
-    main_launches = dict(zip(COUNTS, counts()))
-    expected = dict(zip(COUNTS, (sum(x) for x in zip(*(res["launched"] for res in results.values())))))
-    if main_launches != expected or not all(main_launches[k] for k in KERNELS):
+    main_launches = dict(zip(names, counts()))
+    expected = dict(zip(names, (sum(x) for x in zip(*(res["launched"] for res in results.values())))))
+    if main_launches != expected or not all(main_launches[k] for k in kernels):
         raise AssertionError(f"main path launches {main_launches}, expected {expected}, every kernel at least once")
     if separable[0] != 2:  # the textured_fullscreen key's warm-up and capture
         raise AssertionError(f"the separable sampler ran {separable[0]} times on the main path, expected 2")
@@ -2843,11 +2841,11 @@ def main() -> int:
         # the compared frame replays (no eager launch).  The geometry axis:
         # two eager frames.  The sequence: its own warm-up and capture.
         if "sequence" in spec:
-            want, want_frame = dict(zip(KERNELS, per)), dict(zip(KERNELS, per))
+            want, want_frame = dict(zip(kernels, per)), dict(zip(kernels, per))
         elif spec.get("geometry_axis"):
-            want, want_frame = dict(zip(KERNELS, (2 * x for x in per))), dict(zip(KERNELS, per))
+            want, want_frame = dict(zip(kernels, (2 * x for x in per))), dict(zip(kernels, per))
         else:
-            want, want_frame = dict(zip(KERNELS, (2 * x for x in per))), dict.fromkeys(KERNELS, 0)
+            want, want_frame = dict(zip(kernels, (2 * x for x in per))), dict.fromkeys(kernels, 0)
         for rank, r in enumerate(res):
             if r["launches"] != want or r["frame_launches"] != want_frame or r["programs"] != 1:
                 raise AssertionError(f"{label}: rank {rank} launched {r['launches']} ({r['frame_launches']} in the "

@@ -27,6 +27,7 @@ from based_renderer_tpu.pipeline import StencilState as JStencilState
 from based_renderer_tpu_torch.ops import raster as traster
 from based_renderer_tpu_torch.ops import setup as tsetup
 from based_renderer_tpu_torch.utils import errors as terrors
+from based_renderer_tpu_torch.utils import profiling
 
 W, H = 96, 64
 ATOL = 2e-4
@@ -122,10 +123,10 @@ def test_plain_batched_equals_plain_sequential(tile_h):
     ts = tsetup.setup_triangles(torch.from_numpy(clip), 100, 70)
     b = traster.bin_triangles(ts, 100, 70, 32, tile_h, channels=torch.from_numpy(ch))
     kw = dict(tile_w=32, tile_h=tile_h, num_channels=2)
-    before = traster.BATCH_LAUNCHES
+    before = profiling.ROUTES_TAKEN["raster_batched"]
     bat = traster.rasterize_binned(b, 100, 70, batch=16, **kw)
     seq = traster.rasterize_binned_reference(b, 100, 70, **kw)
-    assert traster.BATCH_LAUNCHES == before
+    assert profiling.ROUTES_TAKEN["raster_batched"] == before
     for x, y in zip(list(bat[0][:5]) + list(bat[1:]), list(seq[0][:5]) + list(seq[1:])):
         if x.is_floating_point():
             x, y = x.view(torch.int32), y.view(torch.int32)

@@ -22,6 +22,7 @@ from based_renderer_tpu.ops import setup as jsetup
 from based_renderer_tpu_torch.ops import binassem as tasm
 from based_renderer_tpu_torch.ops import binning as tbin
 from based_renderer_tpu_torch.ops import setup as tsetup
+from based_renderer_tpu_torch.utils import profiling
 
 W, H = 128, 96
 _jax_setup = jax.jit(jsetup.setup_triangles, static_argnums=(1, 2))
@@ -155,8 +156,8 @@ def test_cpu_tensors_take_the_plain_version():
     ts = tsetup.setup_triangles(torch.from_numpy(random_clip(11, 30)), W, H)
     ps = tbin.pair_stream(ts, W, H, 128, 8)
     args = (ps.tmpl, *tbin.padded_slots(ps), ps.total, tbin.frecord_width(0))
-    before = tasm.LAUNCHES
+    before = profiling.ROUTES_TAKEN["assemble_records"]
     a = tasm.assemble_records(*args)
     b = tasm.assemble_records_reference(*args)
-    assert tasm.LAUNCHES == before
+    assert profiling.ROUTES_TAKEN["assemble_records"] == before
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])

@@ -25,10 +25,10 @@ import based_renderer_tpu as jbrt
 import based_renderer_tpu_torch as tbrt
 from based_renderer_tpu.models import demos as jdemos
 from based_renderer_tpu.ops import compact as jcp
-from based_renderer_tpu_torch import renderer as trenderer
 from based_renderer_tpu_torch.models import demos as tdemos
 from based_renderer_tpu_torch.models import geometry as tgeom
 from based_renderer_tpu_torch.ops import compact as cp
+from based_renderer_tpu_torch.utils import profiling
 
 W, H = 256, 96  # 2 x 12 = 24 tiles of (8, 128)
 
@@ -39,9 +39,9 @@ def cfg(**kw):
 
 def _compacted(fn):
     """fn()'s result and how many draws it shaded per covered tile."""
-    before = trenderer.COMPACTED_DRAWS
+    before = profiling.ROUTES_TAKEN["compacted_draws"]
     out = fn()
-    return out, trenderer.COMPACTED_DRAWS - before
+    return out, profiling.ROUTES_TAKEN["compacted_draws"] - before
 
 
 def test_tile_layout_matches_jax():

@@ -28,6 +28,7 @@ import based_renderer_tpu_torch as tbrt
 from based_renderer_tpu.models import demos as jdemos
 from based_renderer_tpu_torch.models import demos as tdemos
 from based_renderer_tpu_torch.models import geometry
+from based_renderer_tpu_torch.utils import profiling
 
 W, H = 128, 96
 INSTANCES = 16
@@ -182,13 +183,13 @@ def test_program_frames_match_eager_and_jax(case):
 
     r = _port(raster_backend="pallas")
     draws = _scene(case, tbrt, tdemos, r)
-    compacted = renderer_mod.COMPACTED_DRAWS
+    compacted = profiling.ROUTES_TAKEN["compacted_draws"]
     for t in (0.3, 0.9):  # the key's first call, then the cached program
         f = _frame(r, draws, t)
         _assert_bitwise(f, _eager(r, draws, t))
     assert r.num_cached_programs == 1
     if case in ("textured_cube", "compacted_cube"):  # compaction ran, in the program's frames too
-        assert renderer_mod.COMPACTED_DRAWS >= compacted + 4
+        assert profiling.ROUTES_TAKEN["compacted_draws"] >= compacted + 4
     if case == "render_state":
         assert bool((f.stencil == 1).any()) and bool((f.tri_id >= 24 + 12 * INSTANCES).any())
 

@@ -24,6 +24,7 @@ from based_renderer_tpu_torch.ops import fixedpoint as fp
 from based_renderer_tpu_torch.ops import raster as traster
 from based_renderer_tpu_torch.ops import setup as tsetup
 from based_renderer_tpu_torch.reference import oracle
+from based_renderer_tpu_torch.utils import profiling
 
 W, H = 96, 64
 ATOL = 2e-4
@@ -186,10 +187,10 @@ def test_records_are_24_rows_and_checked():
 def test_cpu_tensors_take_the_plain_version():
     ts = tsetup.setup_triangles(torch.from_numpy(random_clip(12, 16)), W, H, bbox_pad_fp=PAD)
     b = traster.bin_triangles(ts, W, H, 32, 16, msaa4=True)
-    before = traster.MSAA_LAUNCHES
+    before = profiling.ROUTES_TAKEN["raster_msaa4"]
     a = traster.rasterize_binned(b, W, H, 32, 16, msaa4=True)
     c = traster.rasterize_binned_msaa4_reference(b, W, H, 32, 16)
-    assert traster.MSAA_LAUNCHES == before
+    assert profiling.ROUTES_TAKEN["raster_msaa4"] == before
     for x, y in zip(a[:5], c[:5]):
         assert torch.equal(x, y)
 

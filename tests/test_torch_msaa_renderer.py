@@ -23,8 +23,8 @@ from based_renderer_tpu.models import demos as jdemos
 from based_renderer_tpu_torch import renderer as trenderer
 from based_renderer_tpu_torch import shader as tshader
 from based_renderer_tpu_torch.models import demos as tdemos
-from based_renderer_tpu_torch.ops import binassem, raster
 from based_renderer_tpu_torch.utils import errors as terrors
+from based_renderer_tpu_torch.utils import profiling
 
 W, H = 128, 96
 
@@ -62,9 +62,9 @@ def _cube_frames(t, backend="pallas", **cfg):
 @pytest.mark.parametrize("t", [0.5, 1.7])
 def test_shared_clip_space_cube_msaa4(t):
     """The MSAA cube runs the MSAA raster (B4) and matches JAX per sample."""
-    before = raster.MSAA_LAUNCHES
+    before = profiling.ROUTES_TAKEN["raster_msaa4"]
     tf, jf = _cube_frames(t, msaa=4)
-    assert raster.MSAA_LAUNCHES == before  # CPU tensors: the plain version
+    assert profiling.ROUTES_TAKEN["raster_msaa4"] == before  # CPU tensors: the plain version
     assert (tf.tri_id >= 0).sum() > 0 and not bool(tf.overflowed)
     _assert_frames_equal(tf, jf, (4, H, W))
     tid = tf.tri_id.numpy()
@@ -205,7 +205,8 @@ def test_cleared_frame_shapes():
 def test_cpu_frame_launches_no_kernel():
     r = tbrt.Renderer(tbrt.RendererConfig(W, H, msaa=4), device="cpu")
     pipe, mesh, u, _ = tdemos.big_mesh_demo(r, triangles=2000)
-    before = (raster.MSAA_LAUNCHES, raster.MSAA_SUBLANE_LAUNCHES, binassem.LAUNCHES)
+    routes = ("raster_msaa4", "raster_msaa4_sublane", "assemble_records")
+    before = [profiling.ROUTES_TAKEN[k] for k in routes]
     f = r.render_frame(pipe, mesh, u(0.2))
-    assert (raster.MSAA_LAUNCHES, raster.MSAA_SUBLANE_LAUNCHES, binassem.LAUNCHES) == before
+    assert [profiling.ROUTES_TAKEN[k] for k in routes] == before
     assert f.tri_id.shape == (4, H, W) and np.isfinite(f.color_np()).all() and (f.tri_id >= 0).any()

@@ -22,6 +22,7 @@ from based_renderer_tpu_torch.ops import fixedpoint as fp
 from based_renderer_tpu_torch.ops import raster as traster
 from based_renderer_tpu_torch.ops import setup as tsetup
 from based_renderer_tpu_torch.reference import oracle
+from based_renderer_tpu_torch.utils import profiling
 
 W, H = 96, 64
 ATOL = 2e-4
@@ -174,8 +175,8 @@ def test_bin_rows_with_msaa4_raises():
 def test_cpu_tensors_take_the_plain_version():
     ts = tsetup.setup_triangles(torch.from_numpy(random_clip(11, 16)), W, H, bbox_pad_fp=PAD)
     b = traster.bin_triangles(ts, W, H, 128, 8, msaa4=True)
-    before = traster.MSAA_SUBLANE_LAUNCHES
+    before = profiling.ROUTES_TAKEN["raster_msaa4_sublane"]
     a = traster.rasterize_binned(b, W, H, 128, 8, sublane=True, msaa4=True)
     c = traster.rasterize_binned_msaa4_sublane_reference(b, W, H, 128, 8)
-    assert traster.MSAA_SUBLANE_LAUNCHES == before
+    assert profiling.ROUTES_TAKEN["raster_msaa4_sublane"] == before
     _bits_equal(a, c)

@@ -82,8 +82,6 @@ def test_frame_pacer_fixed_dt():
     pacer = present.FramePacer(fixed_dt=0.25)
     ts = [pacer.tick() for _ in range(4)]
     np.testing.assert_allclose(ts, [0.25, 0.5, 0.75, 1.0])
-    native = runtime.NativePacer(fixed_dt=0.25)
-    np.testing.assert_allclose([native.tick() for _ in range(4)], ts)
 
 
 def test_render_loop_end_to_end():
@@ -136,14 +134,14 @@ def test_persistent_cache_util(tmp_path, monkeypatch):
     assert runtime.library_path().parent == tmp_path / "kernels" / "torch_runtime"
 
 
-def test_swapchain_arena_staging_and_resize():
-    """Presented frames land in the native arena staging pool; resize
+def test_swapchain_staging_and_resize():
+    """Presented frames land in the swapchain's one staging block; resize
     rebuilds it (the swapchain-recreation analog)."""
     chain = present.Swapchain(depth=2, extent=(16, 8))
     assert chain.submit(FakeFrame(16, 8, 0.1)) is None
     img = chain.submit(FakeFrame(16, 8, 0.2))
     assert img is not None and img.shape == (8, 16, 4) and float(img[0, 0, 0]) == np.float32(0.1)
-    assert chain._staging is not None  # arena pool actually in use
+    assert chain._staging is not None  # the staging pool actually in use
     assert chain._staging.tensors is None  # CPU frames: nothing registered with CUDA
     with pytest.raises(PresentError):
         chain.submit(FakeFrame(4, 4, 0.3))
@@ -153,6 +151,7 @@ def test_swapchain_arena_staging_and_resize():
     chain.submit(FakeFrame(16, 8, 0.3))
     drained = chain.resize((4, 4))
     assert [d.shape for d in drained] == [(8, 16, 4)] and chain._staging is None
+    assert float(drained[0][0, 0, 0]) == np.float32(0.3)  # a view keeps the released block alive
     chain.submit(FakeFrame(4, 4, 0.4))
     out = chain.flush()
     assert out[-1].shape == (4, 4, 4) and chain._staging.shape == (4, 4, 4)

@@ -20,6 +20,7 @@ from based_renderer_tpu_torch import StencilState
 from based_renderer_tpu_torch.ops import fixedpoint as fp
 from based_renderer_tpu_torch.ops import raster as traster
 from based_renderer_tpu_torch.ops import setup as tsetup
+from based_renderer_tpu_torch.utils import profiling
 
 ATOL = 2e-4
 _jax_setup = jax.jit(jsetup.setup_triangles, static_argnums=(1, 2), static_argnames=("scissor",))
@@ -138,10 +139,10 @@ def test_plain_version_is_the_cpu_path():
     clip = random_clip(11, 16)
     ts = tsetup.setup_triangles(torch.from_numpy(clip), 64, 64)
     binned = traster.bin_triangles(ts, 64, 64, 64, 32)
-    before = traster.KERNEL_LAUNCHES
+    before = profiling.ROUTES_TAKEN["raster_tile"]
     a = traster.rasterize_binned(binned, 64, 64, 64, 32)
     b = traster.rasterize_binned_reference(binned, 64, 64, 64, 32)
-    assert traster.KERNEL_LAUNCHES == before  # no kernel on CPU tensors
+    assert profiling.ROUTES_TAKEN["raster_tile"] == before  # no kernel on CPU tensors
     for x, y in zip(a[:5], b[:5]):
         assert torch.equal(x, y)
 

@@ -1,5 +1,5 @@
-"""The port's native C++ runtime (its own copy of brt_runtime.cpp): arena
-allocator, pacer, image IO and present ring, mirroring
+"""The port's native C++ runtime (its own copy of brt_runtime.cpp's present
+path): the f32 -> u8 converters, image IO and the present ring, mirroring
 tests/test_runtime.py, and its build.
 
 Tolerances: none; every comparison is exact.  f32_to_u8 (linear and sRGB)
@@ -31,86 +31,6 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def gxx():
     if shutil.which("g++") is None:
         pytest.skip("g++ not found: the native runtime cannot build here")
-
-
-def test_arena_batched_layout():
-    a = runtime.Arena()
-    i0 = a.request(100, alignment=64)
-    i1 = a.request(1000, alignment=64)
-    i2 = a.request(17, alignment=4096)
-    a.finalize()
-    # Two alignment classes -> two backing groups (the memory-type
-    # grouping of vulkan_allocate).
-    assert a.num_groups == 2
-    v0 = a.view(i0, (100,))
-    v1 = a.view(i1, (1000,))
-    v2 = a.view(i2, (17,))
-    v0[:] = 1
-    v1[:] = 2
-    v2[:] = 3
-    # Distinct, non-overlapping buffers with requested alignment.
-    assert v0.ctypes.data % 64 == 0
-    assert v2.ctypes.data % 4096 == 0
-    assert (v0 == 1).all() and (v1 == 2).all() and (v2 == 3).all()
-    assert a.total_bytes >= 1117
-
-
-def test_arena_dedicated_allocations():
-    """Explicit or size-promoted requests get their own backing block
-    instead of a slot in an alignment group."""
-    a = runtime.Arena()
-    a.set_dedicated_threshold(1 << 20)  # 1 MiB for the test
-    i_small = a.request(100, alignment=64)
-    i_flag = a.request(200, alignment=64, dedicated=True)
-    i_big = a.request((1 << 20) + 5, alignment=64)  # auto-promoted
-    a.finalize()
-    assert a.num_groups == 1  # only the small request shares a group
-    assert a.num_dedicated == 2
-    vs = a.view(i_small, (100,))
-    vf = a.view(i_flag, (200,))
-    vb = a.view(i_big, ((1 << 20) + 5,))
-    vs[:] = 1
-    vf[:] = 2
-    vb[:] = 3
-    assert (vs == 1).all() and (vf == 2).all() and (vb == 3).all()
-    assert vf.ctypes.data % 64 == 0 and vb.ctypes.data % 64 == 0
-    assert a.total_bytes >= (1 << 20) + 305
-
-    # Threshold 0 disables auto-promotion; explicit still honored.
-    b = runtime.Arena()
-    b.set_dedicated_threshold(0)
-    b.request(64 << 20, alignment=64)
-    b.request(10, alignment=64, dedicated=True)
-    b.finalize()
-    assert b.num_groups == 1 and b.num_dedicated == 1
-
-
-def test_arena_rejects_bad_requests():
-    a = runtime.Arena()
-    with pytest.raises(ValueError):
-        a.request(10, alignment=48)  # not a power of two
-    a.request(10)
-    a.finalize()
-    with pytest.raises(ValueError):
-        a.request(10)  # after finalize
-
-
-def test_arena_views_keep_it_alive():
-    a = runtime.Arena()
-    i = a.request(4096, alignment=64)
-    a.finalize()
-    v = a.view(i, (1024,), np.float32)
-    del a
-    v[:] = 7.0  # the arena is not destroyed while a view of it lives
-    assert (v == 7.0).all()
-
-
-def test_pacer_ticks():
-    p = runtime.NativePacer(fixed_dt=0.001, vsync=True)
-    t = 0.0
-    for _ in range(5):
-        t = p.tick()
-    assert abs(t - 0.005) < 1e-9
 
 
 def test_f32_to_u8_matches_numpy():
@@ -407,8 +327,8 @@ def test_library_is_named_by_source_and_flags(monkeypatch):
 
 
 def test_build_error_is_raised_not_hidden(tmp_path, monkeypatch):
-    """A runtime that fails to build leaves available() false, and every
-    class raises with g++'s diagnostic: no silent fallback."""
+    """A runtime that fails to build leaves available() false, and the
+    present ring raises with g++'s diagnostic: no silent fallback."""
     bad = tmp_path / "brt_runtime.cpp"
     bad.write_text("this is not C++\n")
     monkeypatch.setattr(runtime, "SRC", bad)
@@ -416,9 +336,8 @@ def test_build_error_is_raised_not_hidden(tmp_path, monkeypatch):
     monkeypatch.setattr(runtime, "_lib", None)
     monkeypatch.setattr(runtime, "_error", None)
     assert not runtime.available()
-    for make in (runtime.Arena, lambda: runtime.PresentRing(8, 8), runtime.NativePacer):
-        with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
-            make()
+    with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
+        runtime.PresentRing(8, 8)
     assert not any((tmp_path / "build").glob("*.so"))  # nothing half-built left in place
 
 

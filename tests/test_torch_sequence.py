@@ -23,8 +23,8 @@ import based_renderer_tpu as jbrt
 import based_renderer_tpu_torch as tbrt
 from based_renderer_tpu.models import demos as jdemos
 from based_renderer_tpu_torch import math3d
-from based_renderer_tpu_torch import renderer as renderer_mod
 from based_renderer_tpu_torch.models import demos, geometry
+from based_renderer_tpu_torch.utils import profiling
 from based_renderer_tpu_torch.utils.errors import AllocationError, FrameError
 
 
@@ -184,9 +184,9 @@ def test_textured_compacted_sequence_equals_frames():
               for i, z in enumerate((2.5, 3.0, 6.0, 3.0))]
     static = {"texture": frames[0]["texture"]}
     useq = _stack([{k: v for k, v in f.items() if k != "texture"} for f in frames])
-    before = renderer_mod.COMPACTED_DRAWS
+    before = profiling.ROUTES_TAKEN["compacted_draws"]
     sums, colors = r.render_sequence(pipe, mesh, useq, static_uniforms=static, return_frames=True)
-    assert renderer_mod.COMPACTED_DRAWS > before
+    assert profiling.ROUTES_TAKEN["compacted_draws"] > before
     _assert_frames(r, sums, colors, [r.render_frame(pipe, mesh, f) for f in frames])
     (program,) = r._sequences.values()
     assert set(program.root.children) == {0, 8, 16}  # 0: full-screen

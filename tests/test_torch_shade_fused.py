@@ -26,6 +26,7 @@ from based_renderer_tpu_torch import renderer as rmod
 from based_renderer_tpu_torch import shader
 from based_renderer_tpu_torch.ops import shade
 from based_renderer_tpu_torch.ops.raster import VisBuffer
+from based_renderer_tpu_torch.utils import profiling
 
 W, H = 128, 96
 COLOR_TOL = 1e-5  # the kernel against its plain version on the card
@@ -49,9 +50,9 @@ def cuda_device():
 
 def _fused_draws(fn):
     """fn()'s result and how many draws it shaded through a fused body."""
-    before = rmod.FUSED_SHADED_DRAWS
+    before = profiling.ROUTES_TAKEN["fused_shading"]
     out = fn()
-    return out, rmod.FUSED_SHADED_DRAWS - before
+    return out, profiling.ROUTES_TAKEN["fused_shading"] - before
 
 
 def _synthetic(r, draws=1, k=6, seed=0):
@@ -171,10 +172,10 @@ def test_ineligible_draws_take_the_plain_path(case, monkeypatch):
     r = brt.Renderer(brt.RendererConfig(W, H, msaa=4, raster_backend="pallas"), device="cpu")
     pipe, mesh, u, _ = brt.demos.big_mesh_demo(r, triangles=2000)
     pipe = INELIGIBLE[case](pipe)
-    compacted = rmod.COMPACTED_DRAWS
+    compacted = profiling.ROUTES_TAKEN["compacted_draws"]
     f, n = _fused_draws(lambda: r.render_frame(pipe, mesh, u(0.3)))
     assert n == 0 and bool((f.tri_id >= 0).any())
-    assert (rmod.COMPACTED_DRAWS - compacted == 1) == (case == "compacted")
+    assert (profiling.ROUTES_TAKEN["compacted_draws"] - compacted == 1) == (case == "compacted")
     eligible = dataclasses.replace(pipe, blend=brt.BlendState(), shade_compact=None, perspective_correct=True)
     want_fused = case != "cpu_tensors" and case != "no_varyings"
     assert _fused_draws(lambda: r.render_frame(eligible, mesh, u(0.3)))[1] == int(want_fused)
@@ -199,11 +200,11 @@ def test_fused_draws_count_wrapper_calls(fused_route):
     frame of a sequence on the CPU (where every frame runs eagerly); the
     plain version launches no kernel."""
     r = brt.Renderer(brt.RendererConfig(W, H, msaa=4), device="cpu")
-    launches = shade.LAUNCHES
+    launches = profiling.ROUTES_TAKEN["shade_blinn_phong"]
     assert _fused_draws(lambda: _demo_frame(r, (0.3, 1.1, 2.0)))[1] == 3
     pipe, mesh, u, _ = brt.demos.big_mesh_demo(r, triangles=2000)
     _, n = _fused_draws(lambda: r.render_sequence(pipe, mesh, uniforms_fn=u, num_frames=3))
-    assert n == 3 and shade.LAUNCHES == launches
+    assert n == 3 and profiling.ROUTES_TAKEN["shade_blinn_phong"] == launches
 
 
 @pytest.mark.parametrize("name, value, sizes, stride", [
@@ -261,11 +262,11 @@ def test_kernel_matches_plain_version(cuda_device, samples, k, clear, resolve):
          torch.tensor(32.0), torch.tensor(0.1)]
     args = [x.to(cuda_device) for x in (interp, invw, tri)]
     rest = [x.to(cuda_device) for x in (color, *u)]
-    launches = shade.LAUNCHES
+    launches = profiling.ROUTES_TAKEN["shade_blinn_phong"]
     got = shade.shade_blinn_phong(*args, 10, 50, *rest, resolve=resolve)
     want = shade.shade_blinn_phong_reference(*args, 10, 50, *rest, resolve=resolve)
     torch.cuda.synchronize()
-    assert shade.LAUNCHES == launches + 1
+    assert profiling.ROUTES_TAKEN["shade_blinn_phong"] == launches + 1
     assert got.shape == want.shape and _gap(got, want) <= COLOR_TOL
 
 
@@ -316,17 +317,17 @@ def test_big_mesh_4k_msaa4_frame_eager_and_replayed(cuda_device, monkeypatch):
     cfg = brt.RendererConfig(3840, 2160, msaa=4)
     r = brt.Renderer(cfg, device=cuda_device)
     pipe, mesh, u, _ = brt.demos.big_mesh_demo(r)
-    launches = shade.LAUNCHES
+    launches = profiling.ROUTES_TAKEN["shade_blinn_phong"]
     eager = _eager(r, pipe, mesh, u(0.3))
-    assert shade.LAUNCHES == launches + 1
+    assert profiling.ROUTES_TAKEN["shade_blinn_phong"] == launches + 1
     r.render_frame(pipe, mesh, u(1.0))  # the key's first call captures
-    assert shade.LAUNCHES == launches + 3
+    assert profiling.ROUTES_TAKEN["shade_blinn_phong"] == launches + 3
     replayed, n = _fused_draws(lambda: r.render_frame(pipe, mesh, u(0.3)))
-    assert n == 0 and shade.LAUNCHES == launches + 3  # a replay calls no wrapper
+    assert n == 0 and profiling.ROUTES_TAKEN["shade_blinn_phong"] == launches + 3  # a replay calls no wrapper
     assert _kernel_launches(lambda: r.render_frame(pipe, mesh, u(0.3))) == 1
     monkeypatch.setattr(rmod, "_on_card", lambda t: False)
     plain = _eager(r, pipe, mesh, u(0.3))
-    assert shade.LAUNCHES == launches + 3
+    assert profiling.ROUTES_TAKEN["shade_blinn_phong"] == launches + 3
     assert _kernel_launches(lambda: _eager(r, pipe, mesh, u(0.3))) == 0
     torch.cuda.synchronize()
     for label, got in (("eager", eager), ("replayed", replayed)):

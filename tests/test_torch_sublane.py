@@ -18,6 +18,7 @@ from based_renderer_tpu.ops import setup as jsetup
 from based_renderer_tpu.ops.raster_pallas import rasterize_vis_pallas
 from based_renderer_tpu_torch.ops import raster as traster
 from based_renderer_tpu_torch.ops import setup as tsetup
+from based_renderer_tpu_torch.utils import profiling
 
 ATOL = 2e-4
 _jax_setup = jax.jit(jsetup.setup_triangles, static_argnums=(1, 2), static_argnames=("scissor",))
@@ -198,10 +199,10 @@ def test_plain_sublane_equals_plain_sequential(compare, tile_h):
 def test_cpu_tensors_take_the_plain_version():
     ts = tsetup.setup_triangles(torch.from_numpy(random_clip(11, 16)), 64, 64)
     b = traster.bin_triangles(ts, 64, 64, 128, 8)
-    before = traster.SUBLANE_LAUNCHES
+    before = profiling.ROUTES_TAKEN["raster_sublane"]
     a = traster.rasterize_binned(b, 64, 64, 128, 8, sublane=True)
     c = traster.rasterize_binned_sublane_reference(b, 64, 64, 128, 8)
-    assert traster.SUBLANE_LAUNCHES == before
+    assert profiling.ROUTES_TAKEN["raster_sublane"] == before
     _bits_equal(list(a[:5]), list(c[:5]))
 
 

@@ -30,6 +30,7 @@ from based_renderer_tpu_torch.models import demos as tdemos
 from based_renderer_tpu_torch.ops import binassem as tasm
 from based_renderer_tpu_torch.ops import binning as tbin
 from based_renderer_tpu_torch.ops import setup as tsetup
+from based_renderer_tpu_torch.utils import profiling
 
 W, H = 256, 96
 UNFUSED = {"xla_disable_hlo_passes": "fusion"}
@@ -79,9 +80,9 @@ def test_field_major_templates_and_transpose_match_jax(k, w8, width):
     np.testing.assert_array_equal(rows.numpy(), j_rows[:150])
     assert not rows[:, w8:].any()
     # The CPU wrapper takes the plain version and launches nothing.
-    before = tasm.TRANSPOSE_LAUNCHES
+    before = profiling.ROUTES_TAKEN["transpose_templates"]
     assert torch.equal(tasm.transpose_templates(fused_t, row_width), rows)
-    assert tasm.TRANSPOSE_LAUNCHES == before
+    assert profiling.ROUTES_TAKEN["transpose_templates"] == before
 
 
 @pytest.mark.parametrize("w8, width", [(12, 64), (72, 64), (32, 96), (0, 64)])
@@ -143,10 +144,11 @@ def test_rows_plain_version_equals_the_per_field_one(msaa4, k, width):
     fused = tasm.transpose_templates(fused_t, row_width)
     fw = tbin.frecord_width(k)
     slots = tbin.padded_slots(ps)
-    before = (tasm.LAUNCHES, tasm.ROWS_LAUNCHES)
+    routes = ("assemble_records", "assemble_records_rows")
+    before = [profiling.ROUTES_TAKEN[k] for k in routes]
     rec, frec = tasm.assemble_records_rows(fused, *slots, ps.total, fw, k, msaa4)
     want_rec, want_frec = tasm.assemble_records_reference(ps.tmpl, *slots, ps.total, fw, msaa4)
-    assert (tasm.LAUNCHES, tasm.ROWS_LAUNCHES) == before
+    assert [profiling.ROUTES_TAKEN[k] for k in routes] == before
     assert torch.equal(rec, want_rec)
     assert torch.equal(frec.view(torch.int32), want_frec.view(torch.int32))
     assert (rec[:3, int(ps.total):] == tasm.INVALID_EDGE).all()

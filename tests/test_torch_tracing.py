@@ -131,11 +131,11 @@ def test_frame_spans_nest_under_render_frame():
 def test_compacted_textured_frame_reads_its_tile_count():
     r = _renderer(128, 96, raster_backend="pallas")
     _textured(r, 0.1)
-    compacted = renderer_mod.COMPACTED_DRAWS
+    compacted = profiling.ROUTES_TAKEN["compacted_draws"]
     with _profile() as prof:
         for k in range(2):
             _textured(r, 0.3 + k / 10)
-    assert renderer_mod.COMPACTED_DRAWS == compacted + 2
+    assert profiling.ROUTES_TAKEN["compacted_draws"] == compacted + 2
     s = _spans(prof)
     assert _count(s, "brt.render_frame", None) == 2
     assert _count(s, "brt.sync.tile_count", "brt.render_frame") == _count(s, "brt.sync.tile_count") == 2
