@@ -61,6 +61,7 @@ ROUTES = {
     "transpose_templates": Route("brt_transpose_templates", "transpose_templates_kernel"),
     "assemble_records_rows": Route("brt_assemble_records_rows", "assemble_records_rows_kernel"),
     "shade_blinn_phong": Route("brt_shade_blinn_phong", "shade_blinn_phong_kernel"),
+    "triangle_templates": Route("brt_triangle_templates", "triangle_templates_kernel"),
 }
 
 _lock = threading.Lock()
@@ -260,5 +261,13 @@ def _declare(lib: ctypes.CDLL):
         p, p,  # shininess, ambient
         p,  # out (4, H, W) when resolved, else (S, 4, H, W)
         i, i64, i, i,  # samples, H * W, num_channels (6 or 9), resolve
+        p,  # cudaStream_t
+    ]
+    lib.brt_triangle_templates.restype = i
+    lib.brt_triangle_templates.argtypes = [
+        p, p, p,  # e (T, 3) int64, a, b (T, 3) int32
+        p, p, p,  # inv_area (T,), inv_w (T, 3), channels (T, 3, K) (or null)
+        i, i,  # num_channels, perspective
+        p, i64,  # out planes (T, 3 * (3 + K)), T
         p,  # cudaStream_t
     ]

@@ -38,6 +38,7 @@ import torch
 from . import binassem
 from . import fixedpoint as fp
 from .binassem import RECORD_WIDTH, Templates, record_width  # noqa: F401 (RECORD_WIDTH re-exported)
+from .templates import template_planes
 
 FRECORD_BASE = 9  # b0 plane, b1 plane, invw plane
 SEGMENT_ALIGN = 128  # zero tail appended to both record arrays
@@ -127,25 +128,6 @@ def _templates(ts, id_offset, channels, perspective) -> Templates:
     # Exact biased edge values at the pixel-(0, 0) center.
     e = fp.edge_at_point_exact(ts.xf, ts.yf, ts.a, ts.b, origin, origin) + ts.bias.to(i64)
 
-    # Barycentric planes from the exact origin edge values.
-    inv_area = ts.inv_area
-    ef = fp.i64_to_f32(e)
-    af = ts.a.to(torch.float32)
-    bf = ts.b.to(torch.float32)
-    sc = fp.f32(fp.SUBPIXEL_SCALE, inv_area)
-    b0p = (ef[:, 1] * inv_area, af[:, 1] * sc * inv_area, bf[:, 1] * sc * inv_area)
-    b1p = (ef[:, 2] * inv_area, af[:, 2] * sc * inv_area, bf[:, 2] * sc * inv_area)
-    b2p = (1.0 - (b0p[0] + b1p[0]), -(b0p[1] + b1p[1]), -(b0p[2] + b1p[2]))
-
-    def plane_of(q):  # (T, 3) per-vertex values -> plane triple
-        return [q[:, 0] * b0p[i] + q[:, 1] * b1p[i] + q[:, 2] * b2p[i] for i in range(3)]
-
-    iw = ts.inv_w
-    planes = list(b0p) + list(b1p) + plane_of(iw)
-    if channels is not None:
-        ch = channels * iw[:, :, None] if perspective else channels
-        for kk in range(channels.shape[-1]):
-            planes += plane_of(ch[:, :, kk])
     return Templates(
         a=ts.a.contiguous(),
         b=ts.b.contiguous(),
@@ -158,7 +140,7 @@ def _templates(ts, id_offset, channels, perspective) -> Templates:
         yf=ts.yf.contiguous(),
         gx=ts.gx.contiguous(),
         gy=ts.gy.contiguous(),
-        planes=torch.stack(planes, dim=1),
+        planes=template_planes(e, ts.a, ts.b, ts.inv_area, ts.inv_w, channels, perspective),
         id_offset=id_offset.to(torch.int32).contiguous() if isinstance(id_offset, torch.Tensor) else int(id_offset),
     )
 

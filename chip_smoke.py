@@ -59,6 +59,13 @@ result lines):
      the wrapper's counter; replayed: its symbol under the profiler),
      never on the plain route; the 4K draw's kernel timed (window and
      kernel-only) beside its plain version and its bound;
+ 6c. triangle_templates (csrc/triangle_templates.cu, S2) vs its plain
+     version, bit for bit: the binner's float template planes of the
+     1M-triangle big_mesh draw at 3840x2160 MSAA-4x (K = 6, with and
+     without the perspective divide; K = 0) and of the guard-band fuzz at
+     1920x1080, whose edge values pass 2^31 (K = 3); the 4K draw's kernel
+     timed beside its plain version and its bound; every CUDA draw below
+     builds its planes with it (its route once a draw);
   7. oracle: tri_id and depth_q equal the port's own copy of the numpy
      oracle (based_renderer_tpu_torch/reference/oracle.py) for the cube and
      the stress stream through raster_tile, for big_mesh (2000 triangles)
@@ -215,7 +222,8 @@ of per-kernel numbers (ms, kernel_ms, and each kernel's bound: the larger
 of its bytes over 3.35 TB/s, the winning records' float rows included for
 the rasters, and its integer operations over the card's int32 rate; B8's
 library call; B3's two entries report the culled instanced stream; S1's
-the 4K MSAA-4x draw of phase 6b), the nvidia-smi name/power line, and
+the 4K MSAA-4x draw of phase 6b; S2's that of phase 6c), the nvidia-smi
+name/power line, and
 last the device line.
 When main() ends, passed or failed, the script stops and reaps every
 process it started, multiprocessing's resource tracker and any orphan of
@@ -1533,6 +1541,50 @@ def shade_phase(dev, card: str) -> dict:
     return {"worst": worst["kernel"], "kernel": t_kernel, "plain": t_plain, "bound": needed}
 
 
+def templates_phase(dev, card: str) -> dict:
+    """Phase 6c: the template planes kernel (S2) against its plain version,
+    bit for bit: the 1M-triangle big_mesh draw at 3840x2160 MSAA-4x (K = 6,
+    with and without the perspective divide, and its channels dropped, K =
+    0) and the guard-band fuzz at 1920x1080, whose edge values pass 2^31
+    (K = 3); the 4K draw's times beside its plain version and its bound.
+    Prints the phase's line and returns S2's numbers for the kernels line."""
+    import based_renderer_tpu_torch as brt
+    from based_renderer_tpu_torch.ops import binning, templates
+    from based_renderer_tpu_torch.ops import fixedpoint as fp
+    from based_renderer_tpu_torch.ops.setup import setup_triangles
+    from based_renderer_tpu_torch.reference import adversarial as adv
+
+    def operands(ts):
+        return binning._templates(ts, 0, None, True).e, ts.a, ts.b, ts.inv_area, ts.inv_w
+
+    r = brt.Renderer(brt.RendererConfig(W4K, H4K, msaa=4), device=dev)
+    _, ts, budget = dense_setup(r, "big_mesh_demo", 0.3, dev)
+    big, ch = operands(ts), budget["channels"]
+    fuzz = setup_triangles(torch.from_numpy(adv.guard_band_fuzz(W, H, 7, 256)).to(dev), W, H)
+    g = torch.Generator().manual_seed(21)
+    fuzz_ch = (torch.randn((fuzz.valid.shape[0], 3, 3), generator=g) * 4).to(dev)
+    cases = {"big_mesh 4K K=6": (big, ch, True), "big_mesh 4K K=6 without the divide": (big, ch, False),
+             "big_mesh 4K K=0": (big, None, True), "guard-band fuzz K=3": (operands(fuzz), fuzz_ch, True)}
+    for label, (ops, c, persp) in cases.items():
+        got = templates.template_planes(*ops, c, persp)
+        want = templates.template_planes_reference(*ops, c, persp)
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"triangle_templates {label}: planes differ from the plain version's")
+    e = cases["guard-band fuzz K=3"][0][0][:, 1:]
+    if not bool((fp.i64_to_f32(e) != e.to(torch.float32)).any()):
+        raise AssertionError("triangle_templates: the guard-band fuzz never takes the double rounding")
+    t_kernel = timed(lambda: templates.template_planes(*big, ch, True), 10, symbol("triangle_templates"))
+    t_plain = timed(lambda: templates.template_planes_reference(*big, ch, True))
+    n, k = ch.shape[0], ch.shape[-1]
+    # e, a, b, 1/area, 1/w and the channels read once, the planes written once
+    b = bound(n * (24 + 12 + 12 + 4 + 12 + 12 * k + 12 * (3 + k)), 0)
+    print(f"[triangle_templates vs plain] {', '.join(cases)}: planes bitwise; the fuzz takes the two-step rule's "
+          f"double rounding | 4K draw (T={n}, K={k}) kernel {fmt(t_kernel)}, plain {fmt(t_plain)}, bound "
+          f"{b[0]:.4f} ms ({b[1]}) | {card}", flush=True)
+    return {"worst": 0.0, "kernel": t_kernel, "plain": t_plain, "bound": b}
+
+
 def main() -> int:
     started = time.perf_counter()
     # ---- 1. device ------------------------------------------------------
@@ -1549,6 +1601,7 @@ def main() -> int:
     from based_renderer_tpu_torch import renderer as renderer_mod
     from based_renderer_tpu_torch.ops import _build, binassem, binning, raster
     from based_renderer_tpu_torch.ops import shade as shade_ops
+    from based_renderer_tpu_torch.ops import templates as templates_ops
     from based_renderer_tpu_torch.ops import texture as tex_ops
     from based_renderer_tpu_torch.ops import fixedpoint as fp
     from based_renderer_tpu_torch.ops.binning import bin_triangles
@@ -2081,6 +2134,12 @@ def main() -> int:
     bounds["shade_blinn_phong"] = s1["bound"]
     check.worst["shade_blinn_phong"] = s1["worst"]
 
+    # ---- 6c. triangle_templates vs plain --------------------------------
+    s2 = templates_phase(dev, card)
+    times["triangle_templates"], times["triangle_templates_plain"] = s2["kernel"], s2["plain"]
+    bounds["triangle_templates"] = s2["bound"]
+    check.worst["triangle_templates"] = s2["worst"]
+
     # ---- 7. oracle (the port's own copy) --------------------------------
     def oracle_equal(label, got, want):
         for k in ("tri_id", "depth_q", "stencil"):
@@ -2120,11 +2179,11 @@ def main() -> int:
         clip, _ = brt.shader.get(pipe.shader).vertex(mesh.attributes, {k: v.to(dev) for k, v in u.items()})
         return frame, clip.reshape(-1, 3, 4).cpu().numpy()
 
-    frame, clip = toy_big_mesh(brt.RendererConfig(W, H),
-                               per_frame(raster_sublane=1, assemble_records=1, shade_blinn_phong=1))
+    frame, clip = toy_big_mesh(brt.RendererConfig(W, H), per_frame(raster_sublane=1, assemble_records=1,
+                                                                    shade_blinn_phong=1, triangle_templates=1))
     oracle_equal("big_mesh 2000", frame, oracle.rasterize(clip, W, H, cull_mode="back"))
-    frame, clip = toy_big_mesh(brt.RendererConfig(W, H, msaa=4),
-                               per_frame(assemble_records=1, raster_msaa4_sublane=1, shade_blinn_phong=1))
+    frame, clip = toy_big_mesh(brt.RendererConfig(W, H, msaa=4), per_frame(assemble_records=1, raster_msaa4_sublane=1,
+                                                                            shade_blinn_phong=1, triangle_templates=1))
     oracle_equal("MSAA big_mesh 2000", frame, oracle.rasterize_msaa4(clip, W, H, cull_mode="back"))
     # Stencil through B1 and the two-pass route, per sample through B4, and
     # a depth-biased stream through the port's setup and B1.
@@ -2304,6 +2363,7 @@ def main() -> int:
             (binassem, "transpose_templates", binassem.transpose_templates_reference),
             (binassem, "assemble_records_rows", binassem.assemble_records_rows_reference),
             (shade_ops, "shade_blinn_phong", shade_ops.shade_blinn_phong_reference),
+            (binning, "template_planes", templates_ops.template_planes_reference),
         )
 
         def __enter__(self):
@@ -2394,34 +2454,36 @@ def main() -> int:
     msaa_budgets = dict(raster_pairs_factor=1.3, raster_slots_factor=0.7)
 
     # label, renderer, draws, kernel frames, plain frames, counts per frame (``names`` order)
-    dense = per_frame(raster_sublane=1, assemble_records=1)
-    dense_msaa = per_frame(assemble_records=1, raster_msaa4_sublane=1)
+    dense = per_frame(raster_sublane=1, assemble_records=1, triangle_templates=1)
+    dense_msaa = per_frame(assemble_records=1, raster_msaa4_sublane=1, triangle_templates=1)
     # big_mesh's blinn_phong draws shade through S1 (its fused body)
-    big = per_frame(raster_sublane=1, assemble_records=1, shade_blinn_phong=1)
+    big = per_frame(raster_sublane=1, assemble_records=1, shade_blinn_phong=1, triangle_templates=1)
+    tile = per_frame(raster_tile=1, triangle_templates=1)
     runs = [
         ("big_mesh 1920x1080", big_r, [big_demo], 10, 2, big),
         ("big_mesh 3840x2160", big4k_r, [brt.demos.big_mesh_demo(big4k_r)], 5, 1, big),
         ("instanced 1920x1080", inst_r, [inst_demo], 10, 2, dense),
-        ("cube 1920x1080", cube_r, [brt.demos.cube_demo(cube_r)], 20, 5, per_frame(raster_tile=1)),
-        ("triangle 800x600", tri_r, [brt.demos.triangle_demo(tri_r)], 20, 5, per_frame(raster_tile=1)),
+        ("cube 1920x1080", cube_r, [brt.demos.cube_demo(cube_r)], 20, 5, tile),
+        ("triangle 800x600", tri_r, [brt.demos.triangle_demo(tri_r)], 20, 5, tile),
         ("big_mesh 3840x2160 MSAA-4x", big4m_r, [big4m_demo], 5, 1,
-         per_frame(assemble_records=1, raster_msaa4_sublane=1, shade_blinn_phong=1)),
-        ("cube 1920x1080 MSAA-4x", cube_m_r, [brt.demos.cube_demo(cube_m_r)], 20, 5, per_frame(raster_msaa4=1)),
-        ("cube 1920x1080 supersampled", cube_ss_r, [ss_demo], 10, 3, per_frame(raster_tile=1)),
+         per_frame(assemble_records=1, raster_msaa4_sublane=1, shade_blinn_phong=1, triangle_templates=1)),
+        ("cube 1920x1080 MSAA-4x", cube_m_r, [brt.demos.cube_demo(cube_m_r)], 20, 5,
+         per_frame(raster_msaa4=1, triangle_templates=1)),
+        ("cube 1920x1080 supersampled", cube_ss_r, [ss_demo], 10, 3, tile),
         ("render-state 1920x1080", rs_r, render_state_draws(rs_r), 10, 2,
-         per_frame(raster_tile=2, assemble_records=1, raster_two_pass=1)),
+         per_frame(raster_tile=2, assemble_records=1, raster_two_pass=1, triangle_templates=3)),
         ("render-state 1920x1080 MSAA-4x", rs_m_r, render_state_draws(rs_m_r), 5, 1,
-         per_frame(assemble_records=1, raster_msaa4=3)),
+         per_frame(assemble_records=1, raster_msaa4=3, triangle_templates=3)),
         ("big_mesh 1920x1080 batched", big_r, [batch_demo], 10, 1,
-         per_frame(assemble_records=1, raster_batched=1, shade_blinn_phong=1)),
+         per_frame(assemble_records=1, raster_batched=1, shade_blinn_phong=1, triangle_templates=1)),
         ("big_mesh 1920x1080 tmpl", big_r, [tmpl_demo], 10, 1,
-         per_frame(transpose_templates=1, assemble_records_rows=1, raster_sublane=1, shade_blinn_phong=1)),
+         per_frame(transpose_templates=1, assemble_records_rows=1, raster_sublane=1, shade_blinn_phong=1,
+                   triangle_templates=1)),
         ("textured_cube 1920x1080", tex_r, [brt.demos.textured_cube_demo(tex_r)], 20, 3,
-         per_frame(raster_tile=1, compacted_draws=1)),
-        ("textured_fullscreen 1920x1080", full_r, [brt.demos.textured_fullscreen_demo(full_r)], 20, 3,
-         per_frame(raster_tile=1)),
+         per_frame(raster_tile=1, compacted_draws=1, triangle_templates=1)),
+        ("textured_fullscreen 1920x1080", full_r, [brt.demos.textured_fullscreen_demo(full_r)], 20, 3, tile),
         ("textured_cube 1920x1080 MSAA-4x", tex_m_r, [brt.demos.textured_cube_demo(tex_m_r)], 10, 2,
-         per_frame(raster_msaa4=1, compacted_draws=1)),
+         per_frame(raster_msaa4=1, compacted_draws=1, triangle_templates=1)),
         ("instanced 1920x1080 culled", inst_r, [culled(inst_demo)], 10, 2, dense),
         ("instanced 1920x1080 MSAA-4x", inst_m_r, [inst_m_demo], 5, 1, dense_msaa),
         ("instanced 1920x1080 MSAA-4x culled", inst_m_r, [culled(inst_m_demo, **msaa_budgets)], 5, 1, dense_msaa),
@@ -2696,7 +2758,7 @@ def main() -> int:
                 raise AssertionError(f"{label}: the last PNG differs from render_frame's color_u8")
         return res
 
-    cube_tile = per_frame(raster_tile=1)
+    cube_tile = per_frame(raster_tile=1, triangle_templates=1)
     demo_runs = {
         "cube --out --profile": drive("cube --out --profile", "cube", 60, cube_tile, out="cube", profile=True),
         "cube --out": drive("cube --out", "cube", 60, cube_tile, out="cube_again"),
@@ -2814,7 +2876,7 @@ def main() -> int:
     tiled_runs = {
         "(a) cube 1920x1080 over (y=1, x=4)": (
             before({"mesh": (1, 4), "config": {"width": W, "height": H}, "draws": [cube_spec], "timing": 20}),
-            per_frame(raster_tile=1)),
+            per_frame(raster_tile=1, triangle_templates=1)),
         "(b) big_mesh 3840x2160 over (y=2, x=2)": (
             before({"mesh": (2, 2), "config": {"width": W4K, "height": H4K}, "draws": [big_spec], "timing": 5}),
             big),
@@ -2823,13 +2885,13 @@ def main() -> int:
                     "draws": [big_spec], "timing": 5}), big),
         "(d) MSAA-4x stencil + blend 1920x1080 over (y=1, x=4)": (
             before({**with_pairs(workers.dryrun_msaa_spec(W, H, (1, 4)), 4096.0), "timing": 10}),
-            per_frame(raster_msaa4=3)),
+            per_frame(raster_msaa4=3, triangle_templates=3)),
         # The first call of a sequence runs its frame eagerly once and
         # captures it once: twice the frame's launches, whatever N is.
         "(e) cube sequence of 8 frames 1920x1080 over (y=1, x=4)": (
             {"mesh": (1, 4), "config": {"width": W, "height": H}, "draws": [cube_spec],
              "sequence": {"times": [0.05 * i for i in range(8)]}, "return_frames": True, "timing": 5},
-            per_frame(raster_tile=2)),
+            per_frame(raster_tile=2, triangle_templates=2)),
     }
     t0 = time.perf_counter()
     ranks = launch.run(workers.run_specs, (1, 4), ([spec for spec, _ in tiled_runs.values()],), backend="gloo",
@@ -2909,6 +2971,8 @@ def main() -> int:
         "transpose_templates": ("transpose_templates.cu", "based_renderer_tpu/ops/binassem.py:49"),
         "assemble_records_rows": ("assemble_records.cu", "based_renderer_tpu/ops/binassem.py:97"),
         "shade_blinn_phong": ("shade_blinn_phong.cu", "none: the JAX package shades with array code, fused by XLA"),
+        "triangle_templates": ("triangle_templates.cu",
+                               "none: the JAX package builds the planes with array code, fused by XLA"),
     }
     # B8's function is one PyTorch copy into a zeroed buffer; no single
     # PyTorch call computes a per-tile raster, the record assembly or the

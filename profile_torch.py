@@ -23,7 +23,9 @@ For ``--frames`` frames it prints:
     function): each stage function (instancing, the vertex and fragment
     shaders, a shader's fused body counted as the fragment stage,
     triangle gather, near clip, setup,
-    binning with the record assembly inside it, the record assembly alone
+    binning with the record assembly inside it, the binner's per-triangle
+    templates alone (``binning._templates``: the edge values and the float
+    planes, S2 on the card), the record assembly alone
     (either entry) and the template transpose, the raster kernel, the
     texture taps inside the fragment shader, the covered-tile order and
     the compacted shading pass around the fragment shader) is wrapped with
@@ -54,7 +56,7 @@ import torch
 import based_renderer_tpu_torch as brt
 from based_renderer_tpu_torch import renderer as renderer_mod
 from based_renderer_tpu_torch import shader as shader_lib
-from based_renderer_tpu_torch.ops import binassem, compact, raster
+from based_renderer_tpu_torch.ops import binassem, binning, compact, raster
 from based_renderer_tpu_torch.ops import texture as tex_ops
 from based_renderer_tpu_torch.utils.profiling import StageTimer
 
@@ -77,6 +79,7 @@ def install(timer: StageTimer, shader_name: str):
         (renderer_mod, ("expand_instances", "gather_triangles", "clip_near", "setup_triangles", "_shade_tiles")),
         (compact, ("covered_tile_order",)),
         (raster, ("bin_triangles", "rasterize_binned")),
+        (binning, ("_templates",)),
         (binassem, ("assemble_records", "assemble_records_rows", "transpose_templates")),
         (tex_ops, ("sample_texture", "sample_separable")),
     ):
