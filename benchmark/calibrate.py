@@ -57,14 +57,15 @@ def main(argv=None) -> int:
     for seed in a.seeds:
         meas = core.measure(bench, a.workload, seed, a.seconds, False, a.device, time.perf_counter())
         cfg, w, h = meas.cfg, meas.cfg["width"], meas.cfg["height"]
-        ref = compare.reference_for(cfg, meas.scene, meas.attrs, w / h)
+        ref = compare.reference_for(cfg, meas.scene, meas.attrs, w / h, instances=meas.instances)
         sound = compare.numbers(meas.m.frames, ref)
         for k, v in sound.items():
             lower[k] = max(lower.get(k, v), v)
         print(json.dumps({"seed": seed, "kind": "program", "frames": len(meas.m.frames),
                           "failed": meas.m.failed, "numbers": sound}), flush=True)
         if seed in a.control_seeds:
-            ctl = compare.reference_for(cfg, meas.scene, meas.attrs, w / h, precision="tf32")
+            ctl = compare.reference_for(cfg, meas.scene, meas.attrs, w / h, precision="tf32",
+                                        instances=meas.instances)
             control = compare.numbers(control_frames(meas.m.frames, ctl), ref)
             for k, v in control.items():
                 upper[k] = min(upper.get(k, v), v)

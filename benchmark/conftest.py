@@ -6,6 +6,8 @@ decision is made when the test runs, never while a module is imported.
 Run them on the card with ``python3 -m pytest benchmark/tests -m chip``.
 """
 
+from pathlib import Path
+
 import pytest
 
 #: Small sizes at which a whole run fits in a CPU test: 128x96, 2000
@@ -31,18 +33,6 @@ def cuda_device():
     return torch.device("cuda")
 
 
-#: The 4K MSAA-4x mesh's configuration and cell, held out of BENCHMARK.json
-#: while the demo's pair budget overflows in one view (PERF.md, Open
-#: questions).  The CPU tests keep its yardstick working.
-HELD_OUT = {
-    "configs": [{"name": "big_mesh_4k_msaa4", "source": "BASELINE.json config 5",
-                 "file": "benchmark/configs/big_mesh_4k_msaa4.json", "reduced": [],
-                 "why": "1M-triangle Blinn-Phong mesh at 4K MSAA-4x"}],
-    "workloads": [{"name": "big_mesh_4k_msaa4.sequence", "config": "big_mesh_4k_msaa4", "traffic": "sequence",
-                   "chips": 1, "why": "1M triangles at 4K MSAA-4x through render_sequence"}],
-}
-
-
 @pytest.fixture(scope="module")
 def bench():
     from benchmark.harness import spec
@@ -50,11 +40,34 @@ def bench():
     return spec.load()
 
 
-@pytest.fixture(scope="module")
-def bench_all(bench):
-    """BENCHMARK.json with the held-out configuration and cell added."""
-    out = {k: (list(v) if isinstance(v, list) else v) for k, v in bench.items()}
-    for key, entries in HELD_OUT.items():
-        names = {e["name"] for e in out[key]}
-        out[key] += [e for e in entries if e["name"] not in names]
-    return out
+#: A small instanced configuration as the new files a checkout would gain
+#: (``configs/``, ``limits/``, ``reference/scenes/``, ``reference/shaders/``
+#: under ``benchmark/``) and its ``BENCHMARK.json`` entries (``entries.json``).
+INSTANCED_CELL = Path(__file__).parent / "tests" / "instanced_cell"
+
+
+@pytest.fixture
+def lay_reference(monkeypatch):
+    """``lay(*bench_dirs)``: the scene and shader modules under each
+    ``bench_dir/reference/`` are found by name, in that order and ahead of
+    the benchmark's own, as files of the checkout would be; for this test
+    only."""
+    import importlib
+    import sys
+
+    laid = []
+
+    def lay(*bench_dirs: Path):
+        for kind in ("scenes", "shaders"):
+            pkg = importlib.import_module(f"benchmark.reference.{kind}")
+            wheres = [d / "reference" / kind for d in bench_dirs]
+            monkeypatch.setattr(pkg, "__path__", [*map(str, wheres), *pkg.__path__])
+            for f in (f for where in wheres for f in where.glob("*.py")):
+                name = f"{pkg.__name__}.{f.stem}"
+                monkeypatch.delitem(sys.modules, name, raising=False)
+                laid.append(name)
+        importlib.invalidate_caches()
+
+    yield lay
+    for name in laid:
+        sys.modules.pop(name, None)

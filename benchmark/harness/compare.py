@@ -53,12 +53,14 @@ def judge(values: dict, limits: dict) -> tuple[bool, dict]:
     return all(v <= limits[k] for k, v in values.items()), checks
 
 
-def reference_for(cfg: dict, scene, attrs: dict, aspect: float, precision: str = "float32"):
-    """The function from animation time to the reference Frame of ``cfg``."""
+def reference_for(cfg: dict, scene, attrs: dict, aspect: float, precision: str = "float32",
+                  instances: dict | None = None):
+    """The function from animation time to the reference Frame of ``cfg``,
+    drawing ``attrs`` once per instance of ``instances`` (the scene's)."""
     args = cfg.get("scene_args", {})
 
     def frame(t):
         return ref_render.render(cfg["reference"], attrs, scene.uniforms(t, aspect, args), cfg["width"],
-                                 cfg["height"], cfg["msaa"], precision)
+                                 cfg["height"], cfg["msaa"], precision, instances=instances)
 
     return frame

@@ -64,13 +64,15 @@ def merge(base: dict, overrides: dict | None) -> dict:
 
 def check_pipeline(pipe, stated: dict) -> None:
     """The demo's pipeline has the state the configuration states and the
-    reference implements."""
+    reference implements.  ``depth_clip`` is true where the configuration
+    does not state it; the other depth fields are the reference's own."""
     got = {"shader": pipe.shader, "cull_mode": pipe.cull_mode, "front_face": pipe.front_face,
            "near_clip": pipe.near_clip, "perspective_correct": pipe.perspective_correct,
            "depth": [pipe.depth.test, pipe.depth.write, pipe.depth.compare, pipe.depth.clip],
            "blend": pipe.blend.enable, "stencil": pipe.stencil.enable, "depth_bias": pipe.depth.bias_enable}
     want = {"shader": stated["shader"], "cull_mode": stated["cull_mode"], "front_face": stated["front_face"],
-            "near_clip": stated["near_clip"], "perspective_correct": True, "depth": [True, True, "less", True],
+            "near_clip": stated["near_clip"], "perspective_correct": True,
+            "depth": [True, True, "less", stated.get("depth_clip", True)],
             "blend": False, "stencil": False, "depth_bias": False}
     if got != want:
         raise spec.SpecError(f"the demo's pipeline {got} is not the one the configuration states {want}")
@@ -91,6 +93,7 @@ class Readings:
     """What a per-layer metric's reader reads (``benchmark/metrics/``)."""
 
     def __init__(self, m: Measured, raster_work):
+        self.e2e = m.e2e
         self.spans = m.spans
         self.capture_s = m.capture_s
         self.trace = m.trace
@@ -117,6 +120,7 @@ class Measurement:
     traffic: dict
     scene: object
     attrs: dict  # the benchmark's mesh attributes, on the device
+    instances: dict | None  # the scene's instance table, on the device
     device: torch.device
     stamps: dict  # set-up phases, seconds since process start
 
@@ -152,13 +156,14 @@ def measure(bench: dict, workload: str, seed: int, seconds: float, trace: bool, 
     pipeline = demos.DEMOS[cfg["demo"]](renderer, **cfg.get("demo_args", {}))[0]
     check_pipeline(pipeline, cfg["reference"])
     attrs = scene.mesh(seed, args, dev)
+    instances = ref_render.scene_instances(scene, seed, args, dev)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     stamps["scene"] = time.perf_counter() - t_process
     c = Cell(workload=workload, traffic=traffic, seed=seed, seconds=seconds, trace=trace, device=dev,
              renderer=renderer, pipeline=pipeline, mesh=Mesh(attributes=dict(attrs), indices=None), scene=scene,
              scene_args=args, aspect=w / h, t_anim0=scene.start_time(seed), t_process=t_process,
-             rng=np.random.default_rng([seed, 3]))
+             rng=np.random.default_rng([seed, 3]), instances=instances)
     m = run_loop(c)
     stamps["capture"] = m.capture_s
     stamps["window_start"] = m.e2e["setup_s"]
@@ -169,7 +174,7 @@ def measure(bench: dict, workload: str, seed: int, seconds: float, trace: bool, 
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    return Measurement(m, cfg, traffic, scene, attrs, dev, stamps)
+    return Measurement(m, cfg, traffic, scene, attrs, instances, dev, stamps)
 
 
 def run(bench: dict, workload: str, seed: int, seconds: float, trace: bool, device, t_process: float,
@@ -179,11 +184,11 @@ def run(bench: dict, workload: str, seed: int, seconds: float, trace: bool, devi
     wanted = spec.metrics(bench, workload, trace)
     readers = {m["name"]: spec.reader(m["name"]) for m in wanted} if trace else {}
     meas = measure(bench, workload, seed, seconds, trace, device, t_process, overrides)
-    m, cfg, scene, attrs, dev = meas.m, meas.cfg, meas.scene, meas.attrs, meas.device
+    m, cfg, scene, attrs, instances, dev = meas.m, meas.cfg, meas.scene, meas.attrs, meas.instances, meas.device
     w, h = cfg["width"], cfg["height"]
     args = cfg.get("scene_args", {})
     t_cmp = time.perf_counter()
-    values = compare.numbers(m.frames, compare.reference_for(cfg, scene, attrs, w / h))
+    values = compare.numbers(m.frames, compare.reference_for(cfg, scene, attrs, w / h, instances=instances))
     ok, checks = compare.judge(values, limits)
     result = Result(correct=ok and m.failed == 0 and m.attempted > 0, attempted=m.attempted, failed=m.failed,
                     metrics={}, device=_device_line(dev, m.memory_peak, m.trace), checks=checks)
@@ -206,7 +211,8 @@ def run(bench: dict, workload: str, seed: int, seconds: float, trace: bool, devi
     def raster_work(times):
         total_b = total_ops = 0.0
         for t in times:
-            clip, _, _ = ref_render.clip_space(cfg["reference"], attrs, scene.uniforms(t, w / h, args))
+            clip, _, _ = ref_render.clip_space(cfg["reference"], attrs, scene.uniforms(t, w / h, args),
+                                               instances=instances)
             offsets = ref_render.raster.MSAA4_OFFSETS if cfg["msaa"] == 4 else ref_render.raster.CENTER
             s = ref_render.raster.setup(clip, w, h, offsets, cfg["reference"]["cull_mode"],
                                         cfg["reference"]["front_face"])

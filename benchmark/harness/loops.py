@@ -16,9 +16,10 @@ the last ended, the colours left on the device, the checksums fetched to
 the host and the overflow flag kept.  Only whole calls that end inside the
 window count.
 
-Both open with the key's first call (the eager warm-up and the capture,
-synchronised: ``capture_s``) and a warm-up of ``warmup_s`` seconds, then
-measure for the run's seconds.  A traced run then profiles
+Every draw passes the scene's instance table (``instances=``; None for a
+scene that gives none).  Both open with the key's first call (the eager
+warm-up and the capture, synchronised: ``capture_s``) and a warm-up of
+``warmup_s`` seconds, then measure for the run's seconds.  A traced run then profiles
 ``trace_seconds`` more of the same traffic (``trace.py``); the host spans
 are read from the untraced window.
 """
@@ -54,6 +55,7 @@ class Cell:
     t_anim0: float  # the animation time of the first frame, from the seed
     t_process: float  # perf_counter() at process start
     rng: np.random.Generator
+    instances: dict | None = None  # the scene's instance table, passed with every draw
 
 
 @dataclass
@@ -149,7 +151,7 @@ def present(c: Cell) -> Measured:
 
     _sync(dev)
     t0 = time.perf_counter()
-    r.render_frame(c.pipeline, c.mesh, c.scene.uniforms(c.t_anim0, c.aspect, c.scene_args))
+    r.render_frame(c.pipeline, c.mesh, c.scene.uniforms(c.t_anim0, c.aspect, c.scene_args), instances=c.instances)
     _sync(dev)
     capture_s = time.perf_counter() - t0
 
@@ -196,7 +198,7 @@ def present(c: Cell) -> Measured:
             st["start"] = time.perf_counter()
             st["end"] = st["start"] + c.seconds
 
-    demo = (c.pipeline, c.mesh, uniforms, None)
+    demo = (c.pipeline, c.mesh, uniforms, c.instances)
     try:
         present_mod.render_loop(proxy, demo, frames=1 << 40, on_frame=on_frame, swapchain_depth=tf["swapchain_depth"])
     except _WindowClosed:
@@ -278,7 +280,7 @@ def sequence(c: Cell) -> Measured:
         t0 = c.t_anim0 + k * n * dt
         with tr.span("benchmark.render_sequence", c.trace):
             sums, colors = r.render_sequence(c.pipeline, c.mesh, uniforms_fn=uniforms, num_frames=n, t0=t0,
-                                             dt=dt, return_frames=True)
+                                             dt=dt, return_frames=True, instances=c.instances)
             kept = colors[pick]
             del colors
             sums.cpu()

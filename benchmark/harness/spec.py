@@ -75,8 +75,15 @@ def applies(metric: dict, workload: str) -> bool:
 
 def metrics(bench: dict, workload: str, trace: bool) -> list[dict]:
     """The metrics a run of the cell reports: the end-to-end ones in an
-    untraced run, the per-layer ones in a traced run."""
-    return [m for m in bench["per_layer" if trace else "end_to_end"] if applies(m, workload)]
+    untraced run, the per-layer ones in a traced run.  A per-layer metric
+    without a ``workloads`` key is reported where the end-to-end metric it
+    moves is."""
+    e2e = [m for m in bench["end_to_end"] if applies(m, workload)]
+    if not trace:
+        return e2e
+    reported = {m["name"] for m in e2e}
+    return [m for m in bench["per_layer"]
+            if applies(m, workload) and ("workloads" in m or m["moves"] in reported)]
 
 
 def reader(name: str):

@@ -10,12 +10,16 @@ exact int64 edge functions, the exactly specified reciprocal, single
 float32 multiplications for the depth plane, and the quantized depth.
 
 Only what the benchmark's pipelines use is implemented: the depth test
-``less`` with depth writes and per-fragment depth clipping, no stencil and
-no depth bias.  Under those the sequential oracle keeps, per sample, the
-covered fragment of least quantized depth and, among equal depths, the
-earliest triangle (a later equal fragment fails the strict test).  So the
-winner is the minimum of ``depth << 32 | triangle``, taken with one
-``scatter_reduce``; the order in which pairs are visited does not matter.
+``less`` with depth writes, per-fragment depth clipping on or off
+(``depth_clip``: on discards a sample whose quantized depth lies outside
+[0, 1], off keeps it), no stencil and no depth bias.  Under those the
+sequential oracle keeps, per sample, the covered fragment of least
+quantized depth and, among equal depths, the earliest triangle (a later
+equal fragment fails the strict test).  So the winner is the minimum of
+``depth << 32 | triangle``, taken with one ``scatter_reduce``; the order in
+which pairs are visited does not matter.  Without the clip a depth may be
+negative: the key stays ordered, since the triangle fills only its low 32
+bits.
 """
 
 from __future__ import annotations
@@ -157,9 +161,10 @@ def _pairs(s: Setup, lo: int, hi: int):
     return t, s.x0[t] + local % bwt, s.y0[t] + torch.div(local, bwt, rounding_mode="floor")
 
 
-def _fragments(s: Setup, t, px, py, samples):
+def _fragments(s: Setup, t, px, py, samples, depth_clip: bool = True):
     """Per pair: the pixel-centre edge values (3, P) and, per sample, the
-    coverage and the quantized depth (S, P)."""
+    coverage and the quantized depth (S, P); under ``depth_clip`` a sample
+    whose depth lies outside [0, 1] is not covered."""
     cx = px * SUBPIXEL_SCALE + HALF_PIXEL
     cy = py * SUBPIXEL_SCALE + HALF_PIXEL
     a, b = s.a[t], s.b[t]
@@ -188,7 +193,7 @@ def _fragments(s: Setup, t, px, py, samples):
         c = ((e + (a * ddx + b * ddy) + bias) >= 0).all(dim=1)
         dz = (dzdx * ddx + dzdy * ddy) >> 4
         z = (torch.minimum(torch.maximum(z_u + dz, -hi_c), hi_c) << zshift) + (1 << 29)
-        cov.append(c & (z >= 0) & (z <= DEPTH_ONE_Q))
+        cov.append(c & (z >= 0) & (z <= DEPTH_ONE_Q) if depth_clip else c)
         zpix.append(z)
     return e.T, torch.stack(cov), torch.stack(zpix)
 
@@ -200,9 +205,11 @@ class Visibility(NamedTuple):
 
 
 def rasterize(clip: torch.Tensor, width: int, height: int, samples=CENTER, cull_mode: str = "none",
-              front_face: str = "ccw", depth_clear: float = 1.0, max_pairs: int = 1 << 24) -> Visibility:
+              front_face: str = "ccw", depth_clear: float = 1.0, max_pairs: int = 1 << 24,
+              depth_clip: bool = True) -> Visibility:
     """The visibility buffer of (T, 3, 4) clip positions drawn in order
-    under the depth test ``less`` with writes and clipping."""
+    under the depth test ``less`` with writes, with or without depth
+    clipping."""
     dev = clip.device
     ns = len(samples)
     s = setup(clip, width, height, samples, cull_mode, front_face)
@@ -219,7 +226,7 @@ def rasterize(clip: torch.Tensor, width: int, height: int, samples=CENTER, cull_
         before = int(ends[lo - 1]) if lo else 0
         hi = max(int(torch.searchsorted(ends, before + max_pairs, right=True)), lo + 1)
         t, px, py = _pairs(s, lo, hi)
-        _, cov, zpix = _fragments(s, t, px, py, samples)
+        _, cov, zpix = _fragments(s, t, px, py, samples, depth_clip)
         pix = py * width + px
         for k in range(ns):
             ok = cov[k] & (zpix[k] < clear_q)

@@ -3,8 +3,9 @@ spec's raster (``raster.py``), perspective-correct interpolation at the
 winner's pixel centre, the fragment shader, and the coverage resolve.
 
 It imports nothing of the program.  Its inputs are the benchmark's own:
-the scene's mesh attributes and uniforms, and the configuration's stated
-pipeline (``reference`` in the configuration file).
+the scene's mesh attributes, instances and uniforms, and the
+configuration's stated pipeline (``reference`` in the configuration file;
+``depth_clip`` is true where it is not stated).
 """
 
 from __future__ import annotations
@@ -39,16 +40,39 @@ def scene(name: str):
     return importlib.import_module(f"{__package__}.scenes.{name}")
 
 
+def scene_instances(sc, seed: int, args: dict, device) -> dict | None:
+    """The scene module's instance table, ``sc.instances(seed, args,
+    device)``: (I, ...) float32 tensors named as the program's instance
+    attributes; None for a scene that defines none and draws its mesh once."""
+    fn = getattr(sc, "instances", None)
+    return None if fn is None else fn(seed, args, device)
+
+
+def expand_instances(attrs: dict, instances: dict | None) -> dict:
+    """The corner attributes of every instance, instance-major: the mesh's
+    corners repeat per instance, and each instance attribute, flattened, is
+    repeated per corner."""
+    if not instances:
+        return attrs
+    count = next(iter(instances.values())).shape[0]
+    corners = attrs["position"].shape[0]
+    out = {k: v.repeat(count, 1) for k, v in attrs.items()}
+    for k, v in instances.items():
+        out[k] = v.to(torch.float32).reshape(count, -1).repeat_interleave(corners, dim=0)
+    return out
+
+
 def _device_uniforms(uniforms: dict, device) -> dict:
     return {k: torch.as_tensor(v).to(device=device, dtype=torch.float32) for k, v in uniforms.items()}
 
 
-def clip_space(spec: dict, attrs: dict, uniforms: dict, precision: str = "float32"):
+def clip_space(spec: dict, attrs: dict, uniforms: dict, precision: str = "float32", instances: dict | None = None):
     """(T, 3, 4) clip positions, (T, 3, C) varyings by name, and the
-    program's id of each triangle."""
+    program's id of each triangle: ``i * T_mesh + k`` for triangle k of
+    instance i, doubled under the near clip."""
     dev = attrs["position"].device
     shd = shader(spec["shader"])
-    clip, varyings = shd.vertex(attrs, _device_uniforms(uniforms, dev), precision)
+    clip, varyings = shd.vertex(expand_instances(attrs, instances), _device_uniforms(uniforms, dev), precision)
     t = clip.shape[0] // 3
     clip = clip.reshape(t, 3, 4)
     varyings = {k: v.reshape(t, 3, -1) for k, v in varyings.items()}
@@ -61,11 +85,12 @@ def clip_space(spec: dict, attrs: dict, uniforms: dict, precision: str = "float3
 
 
 def render(spec: dict, attrs: dict, uniforms: dict, width: int, height: int, msaa: int,
-           precision: str = "float32", block: int = 1 << 22) -> Frame:
+           precision: str = "float32", block: int = 1 << 22, instances: dict | None = None) -> Frame:
     """The frame the configuration states for these inputs."""
-    clip, varyings, ids = clip_space(spec, attrs, uniforms, precision)
+    clip, varyings, ids = clip_space(spec, attrs, uniforms, precision, instances)
     samples = raster.MSAA4_OFFSETS if msaa == 4 else raster.CENTER
-    vis = raster.rasterize(clip, width, height, samples, spec["cull_mode"], spec["front_face"])
+    vis = raster.rasterize(clip, width, height, samples, spec["cull_mode"], spec["front_face"],
+                           depth_clip=spec.get("depth_clip", True))
     dev = clip.device
     shd = shader(spec["shader"])
     u = _device_uniforms(uniforms, dev)

@@ -16,9 +16,9 @@ WORKLOADS = ["cube_1080p.present", "cube_1080p.sequence"]
 @pytest.mark.chip
 @pytest.mark.parametrize("workload", WORKLOADS + ["big_mesh_4k_msaa4.sequence"])
 @pytest.mark.parametrize("seed", [2**31 + 201, 2**31 + 202, 2**31 + 203])
-def test_control_fails_at_the_cells_own_size(bench_all, cuda_device, workload, seed):
+def test_control_fails_at_the_cells_own_size(bench, cuda_device, workload, seed):
     limits = spec.limits(workload)
-    sound, control = control_readings(bench_all, workload, seed, {}, device=cuda_device)
+    sound, control = control_readings(bench, workload, seed, {}, device=cuda_device)
     assert compare.judge(sound, limits)[0], sound
     assert not compare.judge(control, limits)[0], control
 

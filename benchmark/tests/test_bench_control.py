@@ -30,8 +30,9 @@ def control_readings(bench, workload, seed, overrides, device="cpu"):
     traffic = spec.traffic(cell["traffic"])
     sc = render.scene(cfg["scene"])
     attrs = sc.mesh(seed, cfg["scene_args"], device)
+    inst = render.scene_instances(sc, seed, cfg["scene_args"], device)
     w, h = cfg["width"], cfg["height"]
-    ref = compare.reference_for(cfg, sc, attrs, w / h)
+    ref = compare.reference_for(cfg, sc, attrs, w / h, instances=inst)
     rng = np.random.default_rng([seed, 3])
     times = sorted(sc.start_time(seed) + rng.uniform(0, 30, 3))
     frames = []
@@ -41,13 +42,13 @@ def control_readings(bench, workload, seed, overrides, device="cpu"):
         if traffic["loop"] == "present":
             f.update(tri_id=r.tri_id, depth_q=r.depth_q)
         frames.append(f)
-    ctl = compare.reference_for(cfg, sc, attrs, w / h, precision="tf32")
+    ctl = compare.reference_for(cfg, sc, attrs, w / h, precision="tf32", instances=inst)
     return compare.numbers(frames, ref), compare.numbers(control_frames(frames, ctl), ref)
 
 
 @pytest.mark.parametrize("workload", sorted(SIZES))
-def test_control_fails_and_the_reference_passes(bench_all, workload):
+def test_control_fails_and_the_reference_passes(bench, workload):
     limits = spec.limits(workload)
-    sound, control = control_readings(bench_all, workload, 2**31 + 101, SIZES[workload])
+    sound, control = control_readings(bench, workload, 2**31 + 101, SIZES[workload])
     assert compare.judge(sound, limits)[0], sound
     assert not compare.judge(control, limits)[0], control

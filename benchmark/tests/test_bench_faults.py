@@ -108,13 +108,13 @@ def _run(bench, workload, seconds=1.5):
 
 
 @pytest.mark.parametrize("workload", ["cube_1080p.present", "cube_1080p.sequence", "big_mesh_4k_msaa4.sequence"])
-def test_a_sound_run_is_correct(bench_all, workload):
-    r = _run(bench_all, workload, 3.0 if workload.startswith("big_mesh") else 1.5)
+def test_a_sound_run_is_correct(bench, workload):
+    r = _run(bench, workload, 3.0 if workload.startswith("big_mesh") else 1.5)
     assert r.correct, r.checks
 
 
 @pytest.mark.parametrize("workload, fault, plant", CASES, ids=[f"{w}-{k}" for w, k, _ in CASES])
-def test_a_fault_makes_the_run_incorrect(bench_all, monkeypatch, workload, fault, plant):
+def test_a_fault_makes_the_run_incorrect(bench, monkeypatch, workload, fault, plant):
     plant(monkeypatch)
-    r = _run(bench_all, workload, 3.0 if workload.startswith("big_mesh") else 1.5)
+    r = _run(bench, workload, 3.0 if workload.startswith("big_mesh") else 1.5)
     assert not r.correct, (fault, r.checks)

@@ -44,12 +44,12 @@ def test_reads_the_largest_record_inside_the_window(store):
     assert spec.reader("pair_budget_use_pct").read(_readings()) == pytest.approx(62.5)
 
 
-def test_the_metric_is_the_cells_and_reads_on_a_traced_cpu_run(bench_all, store):
-    wanted = {m["name"] for m in spec.metrics(bench_all, CELL, True)}
+def test_the_metric_is_the_cells_and_reads_on_a_traced_cpu_run(bench, store):
+    wanted = {m["name"] for m in spec.metrics(bench, CELL, True)}
     assert "pair_budget_use_pct" in wanted
     assert "pair_budget_use_pct" not in {m["name"] for w in ("cube_1080p.present", "cube_1080p.sequence")
-                                         for m in spec.metrics(bench_all, w, True)}
-    r = core.run(bench_all, CELL, 2**31 + 47, 3.0, True, "cpu", core.time.perf_counter(),
+                                         for m in spec.metrics(bench, w, True)}
+    r = core.run(bench, CELL, 2**31 + 47, 3.0, True, "cpu", core.time.perf_counter(),
                  overrides=SMALL["big_mesh_4k_msaa4"])
     assert r.correct and r.failed == 0
     assert 0 < r.metrics["pair_budget_use_pct"]["value"] < 100

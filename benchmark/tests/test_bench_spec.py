@@ -61,6 +61,15 @@ def test_every_cell_reports_setup_another_e2e_and_a_layer_metric(bench):
             assert m["moves"] in e2e, (w["name"], m["name"])
 
 
+def test_a_per_layer_metric_without_cells_is_reported_where_its_metric_is():
+    bench = {"end_to_end": [{"name": "rate", "workloads": ["a"]}, {"name": "setup_s"}],
+             "per_layer": [{"name": "busy", "moves": "rate"}, {"name": "load", "moves": "setup_s"},
+                           {"name": "tail", "moves": "setup_s", "workloads": ["b"]}]}
+    names = {w: [m["name"] for m in spec.metrics(bench, w, True)] for w in "ab"}
+    assert names == {"a": ["busy", "load"], "b": ["load", "tail"]}
+    assert [m["name"] for m in spec.metrics(bench, "b", False)] == ["setup_s"]
+
+
 def test_per_layer_metrics_move_one_e2e_metric_and_layers_match_perf_md(bench):
     e2e = {m["name"] for m in bench["end_to_end"]}
     perf = (spec.ROOT / "PERF.md").read_text()

@@ -109,12 +109,15 @@ def test_a_traced_cpu_run_reads_each_new_metric(bench, workload):
     # a CPU swapchain reads its frames without a CUDA event: no fence to time
     cpu_silent = {"present_fence_ms"}
     assert wanted - cpu_silent <= set(r.metrics), sorted(wanted - set(r.metrics))
-    assert r.metrics["captures_in_window"]["value"] == 0
-    assert r.metrics["caller_uniforms_ms"]["value"] > 0
     if workload.endswith("present"):
         assert {"ring_wait_ms", "ring_copy_ms", "ring_convert_ms"} <= set(r.metrics)
         assert r.metrics["ring_convert_ms"]["value"] > 0
+        # the present cell's frame time and tail, per layer: read from the untraced window
+        assert r.metrics["frame_ms.present"]["value"] > 0
+        assert r.metrics["latency_p95_ms.present"]["value"] > 0
     else:
+        assert r.metrics["captures_in_window"]["value"] == 0
+        assert r.metrics["caller_uniforms_ms"]["value"] > 0
         assert r.metrics["sequence_stack_ms"]["value"] > 0
     profiling._RING_RECORDS.clear()
 

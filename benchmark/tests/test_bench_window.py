@@ -67,7 +67,7 @@ def test_sequence_counts_only_whole_calls_inside_the_window():
         config = _StubRenderer().config
         last_sequence_overflowed = torch.zeros((), dtype=torch.bool)
 
-        def render_sequence(self, pipeline, mesh, uniforms_fn, num_frames, t0, dt, return_frames):
+        def render_sequence(self, pipeline, mesh, uniforms_fn, num_frames, t0, dt, return_frames, instances=None):
             calls.append(time.perf_counter())
             time.sleep(0.05 * num_frames)
             h, w = self.config.height, self.config.width
