@@ -799,6 +799,7 @@ def rasterize_vis(
     bin_rows: int | None = None,
     tmpl: str = "xla",
     origin: tuple[int, int] = (0, 0),
+    return_pairs: bool = False,
 ):
     """Bin and rasterize: the counterpart of rasterize_vis_pallas.
 
@@ -807,7 +808,8 @@ def rasterize_vis(
     (T, 3, K) are interpolated in-raster; the result is then (vis, interp
     (K, H, W), invw (H, W)) instead of vis.  ``return_overflow`` appends
     the binner's overflow flag and its ``pair_budget_use``
-    (bin_triangles).  ``bin_rows`` (sublane only) bins at
+    (bin_triangles), and ``return_pairs`` after them the binner's () int32
+    true (tile, triangle) pair count.  ``bin_rows`` (sublane only) bins at
     (tile_w x bin_rows) bands with column-major bin ids over a height
     padded to the tile grid, each record anchored at its output tile, so
     every band of a tile reads only its own records.  ``msaa4`` bins
@@ -868,7 +870,8 @@ def rasterize_vis(
         stencil_clear=stencil_clear,
         batch=batch,
     )
-    if not return_overflow:
+    flags = (binned.overflowed, binned.pair_budget_use) if return_overflow else ()
+    flags += (binned.num_pairs,) if return_pairs else ()
+    if not flags:
         return out
-    flags = (binned.overflowed, binned.pair_budget_use)
     return (out, *flags) if num_ch == 0 else (*out, *flags)

@@ -75,7 +75,11 @@ folded over draws with a max); a sequence folds it over its frames
 draw's pair budget overflowed; an instance cull's overflow sets
 ``overflowed`` alone.  Nothing reads it on the host unless
 the caller does; while a profiler records, each frame and each sequence
-hands it to ``profiling.keep_budget_use``.
+hands it to ``profiling.keep_budget_use``.  So too the binner's work
+(``BinCount``: each draw's true (tile, triangle) pair count and the
+triangles binned), which pass 1 leaves in ``Renderer._last_bins`` and a
+sequence sums over its frames only while a profiler records:
+``profiling.keep_bin_pairs``.
 """
 
 from __future__ import annotations
@@ -447,6 +451,15 @@ class Shard(NamedTuple):
     geometry: Optional[tuple] = None
 
 
+class BinCount(NamedTuple):
+    """A frame's binning work: per draw the binner's () int32 true (tile,
+    triangle) pair count on the device, and the triangles handed to the
+    binner over its draws."""
+
+    pairs: tuple
+    triangles: int
+
+
 class _Visibility(NamedTuple):
     """Pass 1's result: every draw's visibility snapshot and planes."""
 
@@ -536,6 +549,7 @@ class _Program:
         self.shard = shard
         self.capture = None
         self.warm = False
+        self.bins: Optional[BinCount] = None  # the frame's binning work (pass 1's; a capture's is the graph's)
         if r.device.type == "cuda" and (shard is None or shard.geometry is None):
             self.capture = _Capture(torch.cuda.graph_pool_handle(), torch.cuda.Stream(r.device))
         self.root = _Segment(lambda _: r._frame_begin(self.draws, *self.clear, shard))
@@ -560,6 +574,9 @@ class _Program:
                 child = node.children[budget] = _Segment(functools.partial(self.r._frame_resume, budget=budget))
             state = child.run(state, self.capture)
             node = child
+        if self.capture is None or self.bins is None:
+            self.bins = self.r._last_bins  # a replay refills the captured frame's tensors
+        self.r._last_bins = self.bins
         return state
 
 
@@ -701,7 +718,9 @@ class _SequenceProgram(_Program):
 
     def run(self, stacks, n: int, return_frames: bool):
         """N frames: (checksums (N,), colours (N, 4, H, W) or None, overflowed
-        (), pair_budget_use ()), H and W the shard's extent when there is one."""
+        (), pair_budget_use ()), H and W the shard's extent when there is
+        one.  While a profiler records, ``Renderer._last_bins`` ends as the
+        frames' binning work summed on the device."""
         dev = self.r.device
         for bufs, gen in self.generated:
             for k, v in gen().items():
@@ -712,6 +731,8 @@ class _SequenceProgram(_Program):
         frames = torch.empty((n, 4, h, w), dtype=torch.float32, device=dev) if return_frames else None
         overflowed = torch.zeros((), dtype=torch.bool, device=dev)
         use = torch.zeros((), dtype=torch.float64, device=dev)
+        pairs = torch.zeros((), dtype=torch.int64, device=dev) if profiling.recording() else None
+        triangles = 0
         for i in range(n):
             with profiling.span("brt.sequence.frame"):
                 for buf, stack in zip(self.inputs, stacks):
@@ -720,8 +741,14 @@ class _SequenceProgram(_Program):
                 sums[i] = color.sum()
                 overflowed |= of
                 torch.maximum(use, frame_use, out=use)
+                if pairs is not None:
+                    for p in self.bins.pairs:
+                        pairs += p
+                    triangles += self.bins.triangles
                 if frames is not None:
                     frames[i].copy_(color)
+        if pairs is not None:
+            self.r._last_bins = BinCount((pairs,), triangles)
         return sums, frames, overflowed, use
 
 
@@ -746,6 +773,7 @@ class Renderer:
         self._sequences: dict = {}  # sequence programs by key
         self.last_sequence_overflowed = None
         self.last_sequence_pair_budget_use = None
+        self._last_bins: Optional[BinCount] = None  # the last frame's BinCount; a sequence's sum while profiled
         self.frame_count = 0
 
     # -- resources ---------------------------------------------------------
@@ -861,6 +889,7 @@ class Renderer:
         color, depth_q, tri_id, stencil, overflowed, use = self._frame(*self.close_frame())
         if called_ns is not None:
             profiling.keep_budget_use(called_ns, use)
+            profiling.keep_bin_pairs(called_ns, *self._last_bins)
         if self.config.debug:
             with profiling.span("brt.sync.debug"):
                 bad_pairs = bool(overflowed)
@@ -1006,6 +1035,7 @@ class Renderer:
         offset = 0
         overflowed = torch.zeros((), dtype=torch.bool, device=dev)
         use = None  # the pair budget's use, folded over draws
+        pairs, binned = [], 0  # the binner's work, per draw
         use_pallas = self._use_pallas()
         if geometry is not None and not use_pallas:
             raise FeatureNotPresentError(
@@ -1031,33 +1061,34 @@ class Renderer:
                 batch = why is None
                 if not batch:
                     self._signal_fallback(pipe, "raster_batch", why)
-            instances = self._uniforms(d.instances) if d.instances else None
-            # The instance cull (JAX renderer.py:586-625): the visible
-            # instances, in order, in ceil(instance_cull * I) slots; each
-            # surviving triangle keeps its original id, and the draw's id
-            # range stays the logical I * tpi, so a later draw's ids never
-            # collide with this one's.
             tri_ids = None
             num_logical = None
-            if pipe.instance_cull is not None and instances:
-                why = None
-                if not use_pallas:
-                    why = "XLA raster backend (shading gathers by local id)"
-                elif pipe.near_clip:
-                    why = "near_clip enabled (the clipper re-orders the stream)"
-                if why is not None:
-                    self._signal_fallback(pipe, "instance_cull", why)
-                else:
-                    num_inst = next(iter(instances.values())).shape[0]
-                    budget = max(math.ceil(num_inst * pipe.instance_cull), 1)
-                    visible = instance_visibility(shd, d.mesh, instances, uniforms, rw, rh)
-                    instances, orig_idx, cull_of = compact_instances(instances, visible, budget)
-                    overflowed = overflowed | cull_of
-                    tpi = d.mesh.num_triangles
-                    num_logical = num_inst * tpi
-                    local = torch.arange(tpi, dtype=torch.int32, device=dev)
-                    tri_ids = (orig_idx[:, None] * tpi + local[None, :]).reshape(-1)
-            attrs, tri_idx = expand_instances(d.mesh, instances)
+            with profiling.span("brt.draw.instances") if d.instances else profiling.OFF:
+                instances = self._uniforms(d.instances) if d.instances else None
+                # The instance cull (JAX renderer.py:586-625): the visible
+                # instances, in order, in ceil(instance_cull * I) slots; each
+                # surviving triangle keeps its original id, and the draw's id
+                # range stays the logical I * tpi, so a later draw's ids never
+                # collide with this one's.
+                if pipe.instance_cull is not None and instances:
+                    why = None
+                    if not use_pallas:
+                        why = "XLA raster backend (shading gathers by local id)"
+                    elif pipe.near_clip:
+                        why = "near_clip enabled (the clipper re-orders the stream)"
+                    if why is not None:
+                        self._signal_fallback(pipe, "instance_cull", why)
+                    else:
+                        num_inst = next(iter(instances.values())).shape[0]
+                        budget = max(math.ceil(num_inst * pipe.instance_cull), 1)
+                        visible = instance_visibility(shd, d.mesh, instances, uniforms, rw, rh)
+                        instances, orig_idx, cull_of = compact_instances(instances, visible, budget)
+                        overflowed = overflowed | cull_of
+                        tpi = d.mesh.num_triangles
+                        num_logical = num_inst * tpi
+                        local = torch.arange(tpi, dtype=torch.int32, device=dev)
+                        tri_ids = (orig_idx[:, None] * tpi + local[None, :]).reshape(-1)
+                attrs, tri_idx = expand_instances(d.mesh, instances)
             clip, varyings = shd.vertex(attrs, uniforms)
             clip_tri, var_tri = gather_triangles(clip, varyings, tri_idx)
             if pipe.near_clip:
@@ -1140,14 +1171,17 @@ class Renderer:
                 tmpl=pipe.raster_tmpl,
                 return_overflow=True,
                 origin=(x0, y0),
+                return_pairs=True,
             )
             if channels is None:
-                vis, of, draw_use = out
+                vis, of, draw_use, draw_pairs = out
                 interp = invw = None
             else:
-                vis, interp, invw, of, draw_use = out
+                vis, interp, invw, of, draw_use, draw_pairs = out
             overflowed = overflowed | of
             use = draw_use if use is None else torch.maximum(use, draw_use)
+            pairs.append(draw_pairs)
+            binned += num_t
             if vis.stencil is None and prev_stencil is not None:
                 vis = vis._replace(stencil=prev_stencil)  # a stencil-off draw leaves the attachment
             if window_scissor is not None:
@@ -1158,6 +1192,7 @@ class Renderer:
             offset += num_ids
         if use is None:
             use = torch.zeros((), dtype=torch.float64, device=dev)
+        self._last_bins = BinCount(tuple(pairs), binned)
         return _Visibility(draws, per_draw, vis, overflowed, use, clear_depth, shard)
 
     def _shade_from(self, fv: _Visibility, start: int, color, order=None, budget: int = 0):
@@ -1300,6 +1335,7 @@ class Renderer:
         self.last_sequence_pair_budget_use = use
         if called_ns is not None:
             profiling.keep_budget_use(called_ns, use)
+            profiling.keep_bin_pairs(called_ns, *self._last_bins)
         if self.config.debug:
             with profiling.span("brt.sync.debug"):
                 bad_pairs = bool(overflowed)

@@ -18,7 +18,10 @@ Each frame and each ``render_sequence`` call counts on the device how full
 its pair budget was (``FrameResult.pair_budget_use``).  While a profiler
 records, the renderer hands that () tensor here with the call's stamp
 (``keep_budget_use``), and nothing reads it on the host: a reader takes
-``budget_use_records`` after the traced window.
+``budget_use_records`` after the traced window.  So too the binner's work:
+each draw's true (tile, triangle) pair count, summed on the device over a
+call's draws and frames, kept with the triangles handed to the binner
+(``keep_bin_pairs``, ``bin_pairs_records``).
 
 ``ROUTES_TAKEN`` counts the routes a frame took, by name: each kernel
 route of ``ops._build.ROUTES`` at its wrapper's launch, and the
@@ -120,6 +123,33 @@ def keep_budget_use(called_ns: int, use: torch.Tensor) -> None:
 def budget_use_records() -> list:
     """Every budget use kept, oldest first."""
     return list(_BUDGET_USE)
+
+
+class BinPairs(NamedTuple):
+    """One frame's or one sequence call's binning work, as the renderer
+    counted it."""
+
+    called_ns: int  # the call entered, ns on the system clock
+    pairs: torch.Tensor  # () int64 on the device: true (tile, triangle) pairs of every draw and frame
+    triangles: int  # the triangles handed to the binner, over the same draws and frames
+
+
+#: The calls' binning work while a profiler recorded, oldest first; bounded.
+_BIN_PAIRS: collections.deque = collections.deque(maxlen=1 << 12)
+
+
+def keep_bin_pairs(called_ns: int, pairs, triangles: int) -> None:
+    """Keep a call's binning work: ``pairs`` its draws' () pair counts on
+    the device, summed there into a tensor of the record's own (a replay
+    overwrites the graph's), with no host read."""
+    if pairs:
+        total = torch.stack(list(pairs)).sum(dtype=torch.int64)
+        _BIN_PAIRS.append(BinPairs(called_ns, total, int(triangles)))
+
+
+def bin_pairs_records() -> list:
+    """Every binning record kept, oldest first."""
+    return list(_BIN_PAIRS)
 
 
 @contextlib.contextmanager

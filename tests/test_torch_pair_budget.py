@@ -276,7 +276,7 @@ def test_the_sweep_script_reads_the_counts_it_reports(monkeypatch, capsys):
     worst view's extra tiles over the 3T extras budget."""
     import sweep_pair_budget as sweep
 
-    monkeypatch.setattr(sweep, "orbit", lambda: np.array([0.0, 1.0, 2.1]))
+    monkeypatch.setattr(sweep, "orbit", lambda *period: np.array([0.0, 1.0, 2.1]))
     monkeypatch.setattr(sweep, "near", lambda *t: np.unique(np.concatenate([[x - 1 / 600, x] for x in t])))
     args = ["--width", str(W), "--height", str(H), "--triangles", str(TRIS), "--device", "cpu", "--meshes", "benchmark"]
     sweep.main(args)
@@ -289,3 +289,66 @@ def test_the_sweep_script_reads_the_counts_it_reports(monkeypatch, capsys):
     assert 0 < extras["value"] < pairs["value"] < 1
     assert checked["worst_use"]["t"] == extras["t"] and checked["overflowed_t"] == []
     assert checked["worst_use"]["value"] == pytest.approx(extras["value"] / 3, rel=1e-6)
+
+
+# ---- (e) the instanced demo's budget --------------------------------------------
+
+
+def test_instanced_budget_holds_the_sweeps_worst_view_with_the_headroom():
+    pairs, slots = demos.INSTANCED_BUDGET
+    extras_worst, pairs_worst = demos.WORST_INSTANCED_1080P
+    assert pairs - 1 >= extras_worst * demos.HEADROOM
+    assert slots >= pairs_worst * demos.HEADROOM
+    r = tbrt.Renderer(tbrt.RendererConfig(160, 90), device="cpu")
+    pipe = demos.instanced_demo(r, count=100)[0]
+    assert (pipe.raster_pairs_factor, pipe.raster_slots_factor) == (pairs, slots)
+
+
+#: The instanced cell's configuration: its reference draws as the demo's
+#: pipeline does.
+INSTANCED_CONFIG = spec.BENCH_DIR / "configs" / "instanced_10k_1080p.json"
+
+
+def _instanced_reference_counts(t, w, h, count, seed, tile):
+    """(extra tiles, true pairs) of the instanced scene's view at ``t`` from
+    the reference's setup."""
+    from benchmark.reference.scenes import instanced_field
+
+    args = {"count": count, "spacing": 2.5}
+    cpu = torch.device("cpu")
+    ref = json.loads(INSTANCED_CONFIG.read_text())["reference"]
+    clip, _, _ = ref_render.clip_space(ref, instanced_field.mesh(seed, args, cpu),
+                                       instanced_field.uniforms(float(t), w / h, args),
+                                       instances=instanced_field.instances(seed, args, cpu))
+    s = ref_raster.setup(clip, w, h, ref_raster.CENTER, ref["cull_mode"], ref["front_face"])
+    tw, th = tile
+    tiles = ((s.x1 - 1) // tw - s.x0 // tw + 1) * ((s.y1 - 1) // th - s.y0 // th + 1)
+    return int((tiles - 1).sum()), int(tiles.sum())
+
+
+def test_the_sweep_script_reads_the_instanced_fields_counts(monkeypatch, capsys):
+    """sweep_pair_budget.py --scene instanced at 160x90 with 100 cubes over
+    three views: the worst view's extra tiles and true pairs are the
+    reference's bbox counts, and the check reads the demo's own budget."""
+    import sweep_pair_budget as sweep
+
+    w, h, count, seed = 160, 90, 100, 2**31 + 77
+    monkeypatch.setattr(sweep, "orbit", lambda *period: np.array([0.0, 5.0, 11.1]))
+    monkeypatch.setattr(sweep, "near", lambda *t: np.unique(np.concatenate([[x - 1 / 600, x] for x in t])))
+    args = ["--scene", "instanced", "--width", str(w), "--height", str(h), "--count", str(count),
+            "--seeds", str(seed), "--device", "cpu", "--meshes", "benchmark"]
+    sweep.main(args)
+    sweep.main(args + ["--check"])
+    measured, summary, checked, _ = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    t = 12 * count
+    assert measured["mesh"] == f"benchmark_{seed}" and measured["triangles"] == t
+    assert summary["budget"] == list(demos.INSTANCED_BUDGET) and summary["worst_extras"]["mesh"] == measured["mesh"]
+    tile = (128, 8)
+    for i, key in enumerate(("extras", "pairs")):
+        worst = measured[f"worst_{key}"]
+        assert round(worst["value"] * t) == _instanced_reference_counts(worst["t"], w, h, count, seed, tile)[i]
+    extras, pairs = _instanced_reference_counts(checked["worst_use"]["t"], w, h, count, seed, tile)
+    budget = max(int(t * demos.INSTANCED_BUDGET[0]), 1024) - t
+    slots = max(int(t * demos.INSTANCED_BUDGET[1]), 1024)
+    assert checked["worst_use"]["value"] == pytest.approx(max(extras / budget, pairs / slots), rel=1e-12)
+    assert checked["overflowed_t"] == []
