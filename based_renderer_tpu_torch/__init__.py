@@ -13,12 +13,13 @@ with hand-written Hopper kernels on CUDA tensors (``csrc/raster_tile.cu``,
 ``csrc/raster_sublane.cu``, ``csrc/assemble_records.cu``,
 ``csrc/raster_msaa4.cu``, ``csrc/raster_msaa4_sublane.cu``,
 ``csrc/transpose_templates.cu``, ``csrc/shade_blinn_phong.cu``,
-``csrc/triangle_templates.cu``) and their plain PyTorch versions on CPU
-tensors.  It imports torch and never jax; the JAX package stays the
-reference it is tested against.  As in the JAX package, the present
-path (``present``: Swapchain, FramePacer, render_loop), the native host
-runtime (``runtime``) and ``utils.profiling``/``utils.cache`` are
-imported by path; ``examples/render_demo_torch.py`` drives them.
+``csrc/triangle_templates.cu``, ``csrc/transform_points.cu``) and their
+plain PyTorch versions on CPU tensors.  It imports torch and never jax;
+the JAX package stays the reference it is tested against.  As in the JAX
+package, the present path (``present``: Swapchain, FramePacer,
+render_loop), the native host runtime (``runtime``) and
+``utils.profiling``/``utils.cache`` are imported by path;
+``examples/render_demo_torch.py`` drives them.
 
 Quick start::
 

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from .ops import transform as transform_ops
+
 F32 = torch.float32
 
 
@@ -96,31 +98,22 @@ def normal_matrix(model: torch.Tensor) -> torch.Tensor:
 
 
 def transform_points(m: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
-    """Batched ``M @ [p, 1]`` for ``pts`` of shape (N, 3) or (N, 4).
+    """Batched ``M @ [p, 1]`` for ``pts`` of shape (N, 3) or (N, 4), with a
+    (4, 4) ``m`` or one per point, (N, 4, 4).
 
     Each output is the fixed-order sum ((p0 m_i0 + p1 m_i1) + p2 m_i2) +
     p3 m_i3 of elementwise products, not a matrix product: a GEMM's
     summation order may change with N on the GPU, and a vertex must get
     the same bits whatever else is drawn with it (a culled draw equals
-    the unculled one).
+    the unculled one).  Points on the card go through one kernel, with
+    the 1 of a 3-wide point implicit (``ops/transform.py``).
     """
     pts = pts.to(F32)
-    if pts.shape[-1] == 3:
-        pts = torch.cat([pts, torch.ones((*pts.shape[:-1], 1), dtype=F32, device=pts.device)], -1)
-    return combine_columns(m.to(device=pts.device, dtype=F32), pts)
+    return transform_ops.transform_points(m.to(device=pts.device, dtype=F32), pts)
 
 
 def transform_directions(m: torch.Tensor, dirs) -> torch.Tensor:
     """Rotate direction vectors by the upper-3x3 of ``m`` (w = 0), in the
-    fixed order of :func:`combine_columns`."""
+    fixed order of :func:`transform_points`."""
     dirs = torch.as_tensor(dirs, dtype=F32)
-    return combine_columns(m[:3, :3].to(device=dirs.device, dtype=F32), dirs)
-
-
-def combine_columns(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """``m @ v`` per row as sum_j m[..., :, j] * v[..., j], in j order, with
-    elementwise ops only: (R, C) or per-row (N, R, C) ``m``, (N, C) ``v``."""
-    out = m[..., :, 0] * v[..., 0:1]
-    for j in range(1, v.shape[-1]):
-        out = out + m[..., :, j] * v[..., j : j + 1]
-    return out
+    return transform_ops.transform_points(m[:3, :3].to(device=dirs.device, dtype=F32), dirs)

@@ -62,6 +62,7 @@ ROUTES = {
     "assemble_records_rows": Route("brt_assemble_records_rows", "assemble_records_rows_kernel"),
     "shade_blinn_phong": Route("brt_shade_blinn_phong", "shade_blinn_phong_kernel"),
     "triangle_templates": Route("brt_triangle_templates", "triangle_templates_kernel"),
+    "transform_points": Route("brt_transform_points", "transform_points_kernel"),
 }
 
 _lock = threading.Lock()
@@ -269,5 +270,12 @@ def _declare(lib: ctypes.CDLL):
         p, p, p,  # inv_area (T,), inv_w (T, 3), channels (T, 3, K) (or null)
         i, i,  # num_channels, perspective
         p, i64,  # out planes (T, 3 * (3 + K)), T
+        p,  # cudaStream_t
+    ]
+    lib.brt_transform_points.restype = i
+    lib.brt_transform_points.argtypes = [
+        p, i64,  # matrix (R, C) or (N, R, C), its stride a point (0: one matrix)
+        p, p, i64,  # points (N, P), out (N, R), N
+        i, i, i,  # R, C, P
         p,  # cudaStream_t
     ]

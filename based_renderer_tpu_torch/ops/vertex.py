@@ -41,12 +41,9 @@ def apply_instance_transform(attrs: dict) -> torch.Tensor:
     """Apply a per-vertex 'transform' attribute ((V, 16) row-major 4x4) to
     the positions, returning (V, 4) transformed positions.  Shaders call
     this before their view/projection multiply for instanced draws.  The
-    sums run in a fixed order (math3d.combine_columns), so a vertex's
+    sums run in a fixed order (math3d.transform_points), so a vertex's
     bits do not depend on how many are transformed with it."""
-    p = attrs["position"]
-    if p.shape[-1] == 3:
-        p = torch.cat([p, torch.ones((*p.shape[:-1], 1), dtype=torch.float32, device=p.device)], -1)
-    return math3d.combine_columns(attrs["transform"].reshape(-1, 4, 4), p)
+    return math3d.transform_points(attrs["transform"].reshape(-1, 4, 4), attrs["position"])
 
 
 def gather_triangles(clip: torch.Tensor, varyings: dict, tri_idx):

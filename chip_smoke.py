@@ -66,6 +66,16 @@ result lines):
      1920x1080, whose edge values pass 2^31 (K = 3); the 4K draw's kernel
      timed beside its plain version and its bound; every CUDA draw below
      builds its planes with it (its route once a draw);
+ 6d. transform_points (csrc/transform_points.cu, S3) vs its plain
+     version, bit for bit: the 4K big_mesh draw's 3M corners under its MVP
+     and its model matrix (3-wide points, the implicit 1), the instanced
+     field's 360k corners under their per-point matrices, then their
+     4-wide world positions under the shared view-projection; the 4K MVP
+     transform timed beside its plain version, its bound and torch.addmm
+     (the same product in another order, which the port never calls);
+     every CUDA draw below whose shader transforms takes it (blinn_phong
+     and instanced_color twice a draw, the cube's shaders once, an
+     instance cull twice more);
   7. oracle: tri_id and depth_q equal the port's own copy of the numpy
      oracle (based_renderer_tpu_torch/reference/oracle.py) for the cube and
      the stress stream through raster_tile, for big_mesh (2000 triangles)
@@ -222,7 +232,8 @@ of per-kernel numbers (ms, kernel_ms, and each kernel's bound: the larger
 of its bytes over 3.35 TB/s, the winning records' float rows included for
 the rasters, and its integer operations over the card's int32 rate; B8's
 library call; B3's two entries report the culled instanced stream; S1's
-the 4K MSAA-4x draw of phase 6b; S2's that of phase 6c), the nvidia-smi
+the 4K MSAA-4x draw of phase 6b; S2's that of phase 6c; S3's the 4K MVP
+transform of phase 6d), the nvidia-smi
 name/power line, and
 last the device line.
 When main() ends, passed or failed, the script stops and reaps every
@@ -255,6 +266,20 @@ WINDOWS = 7
 KERNEL_ITERS = 10  # launches under the profiler for a kernel's device-only time
 W, H = 1920, 1080
 W4K, H4K = 3840, 2160
+# In this script's phase 8 the profiler lost the records of the first
+# device activity in its window (a short script profiling the same replays
+# lost none): 28 records behind a 1 ms spin (the spin, then the replayed
+# frame's first 27 kernels, S3's two among them), 32 of a lead of 64 spins
+# of 0.5 ms.  Every profiled launch count starts with a lead of spins
+# (profile_lead), twice what was seen lost.
+PROFILE_LEAD = (128, 1_000_000)  # spins, cycles a spin (about 0.5 ms)
+
+
+def profile_lead():
+    """Keep the card busy at the start of a profiler's window (PROFILE_LEAD)."""
+    spins, cycles = PROFILE_LEAD
+    for _ in range(spins):
+        torch.cuda._sleep(cycles)
 
 
 def route_table() -> dict:
@@ -1411,6 +1436,7 @@ def symbol_launches_of(fn, symbol: str, want: int) -> tuple:
     cuda = torch.autograd.DeviceType.CUDA
     for _ in range(3):
         with torch.profiler.profile(activities=acts) as prof:
+            profile_lead()
             out = fn()
             torch.cuda.synchronize()
         n = sum(e.count for e in prof.key_averages() if e.device_type == cuda and symbol in e.key)
@@ -1585,6 +1611,50 @@ def templates_phase(dev, card: str) -> dict:
     return {"worst": 0.0, "kernel": t_kernel, "plain": t_plain, "bound": b}
 
 
+def transform_phase(dev, card: str) -> dict:
+    """Phase 6d: the point transform kernel (S3) against its plain version,
+    bit for bit: the 4K big_mesh draw's 3M corners under its MVP and model
+    matrices (3-wide points), the instanced field's 360k corners under
+    their per-point matrices and their world positions under the shared
+    view-projection (4-wide points); the 4K MVP transform's times beside
+    its plain version, its bound and ``torch.addmm``, the library call
+    that computes the same product (in another order).  Prints the
+    phase's line and returns S3's numbers for the kernels line."""
+    import based_renderer_tpu_torch as brt
+    from based_renderer_tpu_torch.ops import transform
+    from based_renderer_tpu_torch.ops.vertex import expand_instances
+
+    def corners(cfg, demo):
+        r = brt.Renderer(cfg, device=dev)
+        _, mesh, uniforms, inst = getattr(brt.demos, demo)(r)
+        attrs, _ = expand_instances(mesh, inst)
+        return attrs, {k: v.to(dev) for k, v in uniforms(0.3).items()}
+
+    big, u = corners(brt.RendererConfig(W4K, H4K, msaa=4), "big_mesh_demo")
+    pos, mvp = big["position"], u["proj"] @ u["view"] @ u["model"]
+    field, fu = corners(brt.RendererConfig(W, H), "instanced_demo")
+    per_point = field["transform"].reshape(-1, 4, 4)
+    world = transform.transform_points_reference(per_point, field["position"])
+    cases = {"4K MVP": (mvp, pos), "4K model": (u["model"], pos),
+             "instanced per-point": (per_point, field["position"]),
+             "instanced view-projection (4-wide)": (fu["proj"] @ fu["view"], world)}
+    for label, (m, v) in cases.items():
+        got = transform.transform_points(m, v)
+        want = transform.transform_points_reference(m, v)
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"transform_points {label}: differs from the plain version")
+    t_kernel = timed(lambda: transform.transform_points(mvp, pos), 10, symbol("transform_points"))
+    t_plain = timed(lambda: transform.transform_points_reference(mvp, pos))
+    t_lib = timed(lambda: torch.addmm(mvp[:, 3], pos, mvp[:, :3].T))
+    n, n_field = pos.shape[0], world.shape[0]
+    b = bound(n * (12 + 16), 0)  # the points read once, the rows written once
+    print(f"[transform_points vs plain] {', '.join(cases)} ({n} and {n_field} corners): bitwise | 4K MVP kernel "
+          f"{fmt(t_kernel)}, plain {fmt(t_plain)}, torch.addmm {fmt(t_lib)}, bound {b[0]:.4f} ms ({b[1]}) | {card}",
+          flush=True)
+    return {"worst": 0.0, "kernel": t_kernel, "plain": t_plain, "bound": b, "library": t_lib}
+
+
 def main() -> int:
     started = time.perf_counter()
     # ---- 1. device ------------------------------------------------------
@@ -1602,6 +1672,7 @@ def main() -> int:
     from based_renderer_tpu_torch.ops import _build, binassem, binning, raster
     from based_renderer_tpu_torch.ops import shade as shade_ops
     from based_renderer_tpu_torch.ops import templates as templates_ops
+    from based_renderer_tpu_torch.ops import transform as transform_ops
     from based_renderer_tpu_torch.ops import texture as tex_ops
     from based_renderer_tpu_torch.ops import fixedpoint as fp
     from based_renderer_tpu_torch.ops.binning import bin_triangles
@@ -2140,6 +2211,12 @@ def main() -> int:
     bounds["triangle_templates"] = s2["bound"]
     check.worst["triangle_templates"] = s2["worst"]
 
+    # ---- 6d. transform_points vs plain ----------------------------------
+    s3 = transform_phase(dev, card)
+    times["transform_points"], times["transform_points_plain"] = s3["kernel"], s3["plain"]
+    bounds["transform_points"] = s3["bound"]
+    check.worst["transform_points"] = s3["worst"]
+
     # ---- 7. oracle (the port's own copy) --------------------------------
     def oracle_equal(label, got, want):
         for k in ("tri_id", "depth_q", "stencil"):
@@ -2180,10 +2257,12 @@ def main() -> int:
         return frame, clip.reshape(-1, 3, 4).cpu().numpy()
 
     frame, clip = toy_big_mesh(brt.RendererConfig(W, H), per_frame(raster_sublane=1, assemble_records=1,
-                                                                    shade_blinn_phong=1, triangle_templates=1))
+                                                                    shade_blinn_phong=1, triangle_templates=1,
+                                                                    transform_points=2))
     oracle_equal("big_mesh 2000", frame, oracle.rasterize(clip, W, H, cull_mode="back"))
     frame, clip = toy_big_mesh(brt.RendererConfig(W, H, msaa=4), per_frame(assemble_records=1, raster_msaa4_sublane=1,
-                                                                            shade_blinn_phong=1, triangle_templates=1))
+                                                                            shade_blinn_phong=1, triangle_templates=1,
+                                                                            transform_points=2))
     oracle_equal("MSAA big_mesh 2000", frame, oracle.rasterize_msaa4(clip, W, H, cull_mode="back"))
     # Stencil through B1 and the two-pass route, per sample through B4, and
     # a depth-biased stream through the port's setup and B1.
@@ -2272,6 +2351,7 @@ def main() -> int:
         cuda = torch.autograd.DeviceType.CUDA
         for _ in range(3):
             with torch.profiler.profile(activities=acts) as prof:
+                profile_lead()
                 out = fn()
                 torch.cuda.synchronize()
             got = {sym: sum(e.count for e in prof.key_averages() if e.device_type == cuda and sym in e.key)
@@ -2364,6 +2444,7 @@ def main() -> int:
             (binassem, "assemble_records_rows", binassem.assemble_records_rows_reference),
             (shade_ops, "shade_blinn_phong", shade_ops.shade_blinn_phong_reference),
             (binning, "template_planes", templates_ops.template_planes_reference),
+            (transform_ops, "transform_points", transform_ops.transform_points_reference),
         )
 
         def __enter__(self):
@@ -2453,40 +2534,52 @@ def main() -> int:
     # culled stream has fewer triangles to budget them by.
     msaa_budgets = dict(raster_pairs_factor=1.3, raster_slots_factor=0.7)
 
-    # label, renderer, draws, kernel frames, plain frames, counts per frame (``names`` order)
-    dense = per_frame(raster_sublane=1, assemble_records=1, triangle_templates=1)
-    dense_msaa = per_frame(assemble_records=1, raster_msaa4_sublane=1, triangle_templates=1)
+    # label, renderer, draws, kernel frames, plain frames, counts per frame (``names`` order).
+    # S3 runs once a transform of the shader: blinn_phong and
+    # instanced_color transform twice, the cube's shaders once, the flat
+    # NDC and full-screen shaders never; an instance cull runs the vertex
+    # shader once more, on the instances' box corners.
+    dense = per_frame(raster_sublane=1, assemble_records=1, triangle_templates=1, transform_points=2)
+    dense_culled = per_frame(raster_sublane=1, assemble_records=1, triangle_templates=1, transform_points=4)
+    dense_msaa = per_frame(assemble_records=1, raster_msaa4_sublane=1, triangle_templates=1, transform_points=2)
+    dense_msaa_culled = per_frame(assemble_records=1, raster_msaa4_sublane=1, triangle_templates=1,
+                                  transform_points=4)
     # big_mesh's blinn_phong draws shade through S1 (its fused body)
-    big = per_frame(raster_sublane=1, assemble_records=1, shade_blinn_phong=1, triangle_templates=1)
-    tile = per_frame(raster_tile=1, triangle_templates=1)
+    big = per_frame(raster_sublane=1, assemble_records=1, shade_blinn_phong=1, triangle_templates=1,
+                    transform_points=2)
+    tile = per_frame(raster_tile=1, triangle_templates=1, transform_points=1)
+    flat = per_frame(raster_tile=1, triangle_templates=1)
     runs = [
         ("big_mesh 1920x1080", big_r, [big_demo], 10, 2, big),
         ("big_mesh 3840x2160", big4k_r, [brt.demos.big_mesh_demo(big4k_r)], 5, 1, big),
         ("instanced 1920x1080", inst_r, [inst_demo], 10, 2, dense),
         ("cube 1920x1080", cube_r, [brt.demos.cube_demo(cube_r)], 20, 5, tile),
-        ("triangle 800x600", tri_r, [brt.demos.triangle_demo(tri_r)], 20, 5, tile),
+        ("triangle 800x600", tri_r, [brt.demos.triangle_demo(tri_r)], 20, 5, flat),
         ("big_mesh 3840x2160 MSAA-4x", big4m_r, [big4m_demo], 5, 1,
-         per_frame(assemble_records=1, raster_msaa4_sublane=1, shade_blinn_phong=1, triangle_templates=1)),
+         per_frame(assemble_records=1, raster_msaa4_sublane=1, shade_blinn_phong=1, triangle_templates=1,
+                   transform_points=2)),
         ("cube 1920x1080 MSAA-4x", cube_m_r, [brt.demos.cube_demo(cube_m_r)], 20, 5,
-         per_frame(raster_msaa4=1, triangle_templates=1)),
+         per_frame(raster_msaa4=1, triangle_templates=1, transform_points=1)),
         ("cube 1920x1080 supersampled", cube_ss_r, [ss_demo], 10, 3, tile),
         ("render-state 1920x1080", rs_r, render_state_draws(rs_r), 10, 2,
-         per_frame(raster_tile=2, assemble_records=1, raster_two_pass=1, triangle_templates=3)),
+         per_frame(raster_tile=2, assemble_records=1, raster_two_pass=1, triangle_templates=3, transform_points=4)),
         ("render-state 1920x1080 MSAA-4x", rs_m_r, render_state_draws(rs_m_r), 5, 1,
-         per_frame(assemble_records=1, raster_msaa4=3, triangle_templates=3)),
+         per_frame(assemble_records=1, raster_msaa4=3, triangle_templates=3, transform_points=4)),
         ("big_mesh 1920x1080 batched", big_r, [batch_demo], 10, 1,
-         per_frame(assemble_records=1, raster_batched=1, shade_blinn_phong=1, triangle_templates=1)),
+         per_frame(assemble_records=1, raster_batched=1, shade_blinn_phong=1, triangle_templates=1,
+                   transform_points=2)),
         ("big_mesh 1920x1080 tmpl", big_r, [tmpl_demo], 10, 1,
          per_frame(transpose_templates=1, assemble_records_rows=1, raster_sublane=1, shade_blinn_phong=1,
-                   triangle_templates=1)),
+                   triangle_templates=1, transform_points=2)),
         ("textured_cube 1920x1080", tex_r, [brt.demos.textured_cube_demo(tex_r)], 20, 3,
-         per_frame(raster_tile=1, compacted_draws=1, triangle_templates=1)),
-        ("textured_fullscreen 1920x1080", full_r, [brt.demos.textured_fullscreen_demo(full_r)], 20, 3, tile),
+         per_frame(raster_tile=1, compacted_draws=1, triangle_templates=1, transform_points=1)),
+        ("textured_fullscreen 1920x1080", full_r, [brt.demos.textured_fullscreen_demo(full_r)], 20, 3, flat),
         ("textured_cube 1920x1080 MSAA-4x", tex_m_r, [brt.demos.textured_cube_demo(tex_m_r)], 10, 2,
-         per_frame(raster_msaa4=1, compacted_draws=1, triangle_templates=1)),
-        ("instanced 1920x1080 culled", inst_r, [culled(inst_demo)], 10, 2, dense),
+         per_frame(raster_msaa4=1, compacted_draws=1, triangle_templates=1, transform_points=1)),
+        ("instanced 1920x1080 culled", inst_r, [culled(inst_demo)], 10, 2, dense_culled),
         ("instanced 1920x1080 MSAA-4x", inst_m_r, [inst_m_demo], 5, 1, dense_msaa),
-        ("instanced 1920x1080 MSAA-4x culled", inst_m_r, [culled(inst_m_demo, **msaa_budgets)], 5, 1, dense_msaa),
+        ("instanced 1920x1080 MSAA-4x culled", inst_m_r, [culled(inst_m_demo, **msaa_budgets)], 5, 1,
+         dense_msaa_culled),
     ]
     separable = [0]
     sample_separable = tex_ops.sample_separable
@@ -2758,7 +2851,7 @@ def main() -> int:
                 raise AssertionError(f"{label}: the last PNG differs from render_frame's color_u8")
         return res
 
-    cube_tile = per_frame(raster_tile=1, triangle_templates=1)
+    cube_tile = per_frame(raster_tile=1, triangle_templates=1, transform_points=1)
     demo_runs = {
         "cube --out --profile": drive("cube --out --profile", "cube", 60, cube_tile, out="cube", profile=True),
         "cube --out": drive("cube --out", "cube", 60, cube_tile, out="cube_again"),
@@ -2876,7 +2969,7 @@ def main() -> int:
     tiled_runs = {
         "(a) cube 1920x1080 over (y=1, x=4)": (
             before({"mesh": (1, 4), "config": {"width": W, "height": H}, "draws": [cube_spec], "timing": 20}),
-            per_frame(raster_tile=1, triangle_templates=1)),
+            per_frame(raster_tile=1, triangle_templates=1, transform_points=1)),
         "(b) big_mesh 3840x2160 over (y=2, x=2)": (
             before({"mesh": (2, 2), "config": {"width": W4K, "height": H4K}, "draws": [big_spec], "timing": 5}),
             big),
@@ -2885,13 +2978,13 @@ def main() -> int:
                     "draws": [big_spec], "timing": 5}), big),
         "(d) MSAA-4x stencil + blend 1920x1080 over (y=1, x=4)": (
             before({**with_pairs(workers.dryrun_msaa_spec(W, H, (1, 4)), 4096.0), "timing": 10}),
-            per_frame(raster_msaa4=3, triangle_templates=3)),
+            per_frame(raster_msaa4=3, triangle_templates=3, transform_points=1)),
         # The first call of a sequence runs its frame eagerly once and
         # captures it once: twice the frame's launches, whatever N is.
         "(e) cube sequence of 8 frames 1920x1080 over (y=1, x=4)": (
             {"mesh": (1, 4), "config": {"width": W, "height": H}, "draws": [cube_spec],
              "sequence": {"times": [0.05 * i for i in range(8)]}, "return_frames": True, "timing": 5},
-            per_frame(raster_tile=2, triangle_templates=2)),
+            per_frame(raster_tile=2, triangle_templates=2, transform_points=2)),
     }
     t0 = time.perf_counter()
     ranks = launch.run(workers.run_specs, (1, 4), ([spec for spec, _ in tiled_runs.values()],), backend="gloo",
@@ -2973,11 +3066,14 @@ def main() -> int:
         "shade_blinn_phong": ("shade_blinn_phong.cu", "none: the JAX package shades with array code, fused by XLA"),
         "triangle_templates": ("triangle_templates.cu",
                                "none: the JAX package builds the planes with array code, fused by XLA"),
+        "transform_points": ("transform_points.cu",
+                             "none: the JAX package transforms the points with array code, fused by XLA"),
     }
-    # B8's function is one PyTorch copy into a zeroed buffer; no single
+    # B8's function is one PyTorch copy into a zeroed buffer, S3's one
+    # torch.addmm (the same product, summed in another order); no single
     # PyTorch call computes a per-tile raster, the record assembly or the
     # shading.
-    library = {"transpose_templates": t_b8_lib["ms"]}
+    library = {"transpose_templates": t_b8_lib["ms"], "transform_points": s3["library"]["ms"]}
     print(json.dumps({"kernels": [
         {
             "name": k,
